@@ -1,6 +1,7 @@
-"""Carry SegFormer weights into the port's `SegFormer` state_dict.
+"""Carry SegFormer weights into the port's `SegFormer` state_dict, and a
+JAX train state into the port's `TrainState`.
 
-Two sources:
+Two sources of weights:
 
 - `state_dict_from_flax`: the JAX package's param tree (nested dicts of
   numpy arrays, as `SegFormer.init` / `TrainState` hold them) and its
@@ -14,16 +15,24 @@ Two sources:
 - `load_torch_checkpoint`: a `.safetensors` or `.pth`/`.bin` file in the HF
   SegFormer key layout, such as the JAX package's `export_hf` writes or the
   port's own `torch.save(model.state_dict())`.
+
+`train_state_from_flax` carries a whole JAX `TrainState` (params,
+batch_stats, Adam's mu/nu/count, epoch, base_lr, lr_decay), each
+param-shaped tree through `state_dict_from_flax`, so the two sides can step
+from one state.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
 
-from semisupervisedobjectdetection_torch.core.config import MiTConfig
+from semisupervisedobjectdetection_torch.core.config import (
+    MiTConfig,
+    TrainConfig,
+)
 
 _ENC = "segformer.encoder"
 
@@ -147,3 +156,54 @@ def load_torch_checkpoint(path: str, cfg: MiTConfig
             f"{missing}); the JAX package exports them apart from the "
             "state_dict (checkpoint/hf_export.py::export_prompt_tokens)")
     return sd
+
+
+def _adam_state(opt_state):
+    """The (count, mu, nu) state inside an optax chain's state tuple."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for sub in opt_state:
+            found = _adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_flax(cfg: MiTConfig, state, tc: Optional[TrainConfig]
+                          = None, device: Union[str, torch.device] = "cpu"):
+    """The port's `TrainState` (a float32 `SegFormer(cfg)` on `device`) from
+    a JAX `TrainState` without a trainable mask: params and batch_stats,
+    Adam's mu, nu and count, epoch, base_lr and lr_decay. `tc` gives the
+    optimizer constants (the JAX state keeps them inside its transform)."""
+    from semisupervisedobjectdetection_torch.models.segformer import (
+        SegFormer,
+    )
+    from semisupervisedobjectdetection_torch.train.state import TrainState
+
+    if getattr(state, "trainable_mask", None) is not None:
+        raise ValueError("train_state_from_flax takes a state without a "
+                         "trainable mask")
+    adam = _adam_state(state.opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (mu, nu, count) in opt_state")
+    model = SegFormer(cfg)
+    model.load_state_dict(state_dict_from_flax(cfg, state.params,
+                                               state.batch_stats),
+                          strict=True)
+    model.to(device)
+    out = TrainState.create(model, tc or TrainConfig(),
+                            lr=float(np.asarray(state.base_lr)))
+    names = list(out.mu)
+    for tree, dst in ((adam.mu, out.mu), (adam.nu, out.nu)):
+        sd = state_dict_from_flax(cfg, tree)
+        for n in names:
+            dst[n].copy_(sd[n])
+    dev = out.count.device
+    out.count = torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32,
+                             device=dev)
+    out.epoch = torch.tensor(float(np.asarray(state.epoch)),
+                             dtype=torch.float32, device=dev)
+    out.lr_decay = torch.tensor(float(np.asarray(state.lr_decay)),
+                                dtype=torch.float32, device=dev)
+    return out

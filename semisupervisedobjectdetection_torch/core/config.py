@@ -1,10 +1,11 @@
 """Model configuration of the PyTorch port.
 
 The port's own copy of the MiT variants of the JAX package's
-`core/config.py` (`MiTConfig`, `mit_b0`..`mit_b5`, `MIT_VARIANTS`), with the
-same constants. Fields that only steer JAX compilation (`remat`,
-`scan_unroll`, `ffn_impl`) are left out, and so is `quant`, which belongs to
-the quantized-serving slice. `attn_impl` names the port's own choices.
+`core/config.py` (`MiTConfig`, `mit_b0`..`mit_b5`, `MIT_VARIANTS`) and of
+its optimizer constants (`TrainConfig`), with the same values. Fields that
+only steer JAX compilation (`scan_unroll`, `ffn_impl`) are left out, and so
+is `quant`, which belongs to the quantized-serving slice. `attn_impl` names
+the port's own choices; `remat` takes the JAX package's "full" and "none".
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import dataclasses
 from typing import Tuple
 
 ATTN_IMPLS = ("kernel", "plain")
+REMAT_POLICIES = ("full", "none")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,10 +58,25 @@ class MiTConfig:
     # the comparison path of chip_smoke.py).
     attn_impl: str = "kernel"
 
+    # Rematerialisation of the encoder layers in a backward pass: "full"
+    # (each layer's activations are recomputed from its input,
+    # `torch.utils.checkpoint` per Block, as the JAX package's `nn.remat`)
+    # or "none" (all activations kept). The JAX package's "dots" and
+    # "save:a+b" policies are not ported yet.
+    remat: str = "full"
+
     # GELU flavour: False = exact erf, True = tanh approximation.
     gelu_approx: bool = False
 
     def __post_init__(self):
+        if self.remat not in REMAT_POLICIES:
+            # the JAX package's other policies, one or one per stage
+            jax_only = self.remat == "dots" or "save:" in self.remat \
+                or "," in self.remat
+            raise (NotImplementedError if jax_only else ValueError)(
+                f"remat must be one of {REMAT_POLICIES}, got "
+                f"{self.remat!r}" + (" (not ported yet; ROADMAP.md Queue 1)"
+                                     if jax_only else ""))
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, "
                              f"got {self.attn_impl!r}")
@@ -118,3 +135,22 @@ MIT_VARIANTS = {
     "b0": mit_b0, "b1": mit_b1, "b2": mit_b2,
     "b3": mit_b3, "b4": mit_b4, "b5": mit_b5,
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer constants of the JAX package's `TrainConfig`: Adam with
+    torch's betas (0.5, 0.999) and weight decay folded into the gradient,
+    gradient-value clipping, and an exponential learning-rate decay stepped
+    per epoch."""
+
+    lr: float = 1e-5
+    weight_decay: float = 5e-5
+    lr_decay: float = 0.97
+    adam_b1: float = 0.5
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-8
+    grad_clip_value: float = 1.2
+
+    def replace(self, **kw) -> "TrainConfig":
+        return dataclasses.replace(self, **kw)

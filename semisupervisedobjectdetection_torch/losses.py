@@ -1,0 +1,44 @@
+"""Segmentation losses of the JAX package's `losses.py` that the EMA step
+uses, in PyTorch: dice with smooth 1 over each sample flattened, and the
+binarised ("argmax") dice of the eval metric. Everything is float32."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def _flatten_per_sample(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(x.shape[0], -1).float()
+
+
+def dice_coeff(pred: torch.Tensor, gt: torch.Tensor, smooth: float = 1.0,
+               sample_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Batch mean of (2*tp + smooth) / (fp + fn + smooth) with, per sample,
+    tp = |sum(gt*pred)|, fp = sum(|pred|), fn = sum(gt); `sample_weight`
+    re-weights the mean."""
+    p = _flatten_per_sample(pred)
+    t = _flatten_per_sample(gt)
+    tp = (t * p).sum(1).abs()
+    fp = p.abs().sum(1)
+    fn = t.sum(1)
+    score = (2.0 * tp + smooth) / (fp + fn + smooth)
+    if sample_weight is None:
+        return score.mean()
+    w = sample_weight.float()
+    return (score * w).sum() / w.sum().clamp_min(1e-8)
+
+
+def dice_loss(pred: torch.Tensor, gt: torch.Tensor,
+              sample_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """1 - mean dice."""
+    return 1.0 - dice_coeff(pred, gt, sample_weight=sample_weight)
+
+
+def dice_argmax_loss(pred: torch.Tensor, gt: torch.Tensor,
+                     sample_weight: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """1 - dice of the predictions binarised at 0.5 (the eval metric)."""
+    pred_bin = torch.where(pred >= 0.5, 1.0, 0.0)
+    return 1.0 - dice_coeff(pred_bin, gt, sample_weight=sample_weight)

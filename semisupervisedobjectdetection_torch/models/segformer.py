@@ -1,8 +1,9 @@
-"""SegFormer (MiT encoder + all-MLP decode head) in PyTorch, for inference.
+"""SegFormer (MiT encoder + all-MLP decode head) in PyTorch.
 
 The counterpart of the JAX package's `models/segformer.py` in eval mode:
-deterministic, no dropout or drop-path. It keeps that model's prompt-tuning
-and domain-CLS behaviour:
+deterministic, no dropout or drop-path, BatchNorm on its running statistics
+(the JAX `train_mode=False` forward, which the EMA step trains through). It
+keeps that model's prompt-tuning and domain-CLS behaviour:
 
 1. Prompt tokens are prepended at every layer of a stage and skip the
    spatial sequence-reduction conv inside attention, but not its LayerNorm.
@@ -18,10 +19,14 @@ parameters under `segformer.encoder.prompt_tokens.<stage>` and
 `segformer.encoder.cls_token.<stage>`.
 
 Public functions keep the JAX layout: NHWC float images in, NHWC logits and
-(B, H, W) masks out. Convolutions run NCHW inside. In bfloat16 the dense and
-conv weights are cast once (`cast_to_compute_dtype`), while LayerNorm and
-BatchNorm statistics, prompt/CLS tokens, the logits and the mask sigmoid
-stay float32, as in the JAX model.
+(B, H, W) masks out. Convolutions run NCHW inside. Parameters are float32
+and each dense and conv layer casts its weights to the compute dtype at use,
+as the JAX model does, so gradients reach the float32 masters; serving casts
+the dense and conv weights once (`cast_to_compute_dtype`), after which the
+cast at use is a no-op. LayerNorm and BatchNorm statistics, prompt/CLS
+tokens, the logits and the mask sigmoid stay float32. Under
+`cfg.remat="full"` each encoder layer runs under `torch.utils.checkpoint`
+when gradients are recorded, the counterpart of the JAX `nn.remat(Block)`.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from semisupervisedobjectdetection_torch.core.config import MiTConfig
 from semisupervisedobjectdetection_torch.ops.sr_attention import (
@@ -41,6 +47,22 @@ from semisupervisedobjectdetection_torch.ops.sr_attention import (
 
 def compute_dtype(cfg: MiTConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+class Linear(nn.Linear):
+    """nn.Linear computing in its input's dtype: the weight and bias are
+    cast at use (float32 masters, bfloat16 compute)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d computing in its input's dtype, as `Linear`."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -77,7 +99,7 @@ class OverlapPatchEmbed(nn.Module):
     def __init__(self, in_ch: int, hidden: int, patch: int, stride: int,
                  eps: float):
         super().__init__()
-        self.proj = nn.Conv2d(in_ch, hidden, patch, stride, patch // 2)
+        self.proj = Conv2d(in_ch, hidden, patch, stride, patch // 2)
         self.layer_norm = LayerNorm(hidden, eps=eps)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, int, int]:
@@ -98,11 +120,11 @@ class EfficientSelfAttention(nn.Module):
         self.num_heads = num_heads
         self.sr_ratio = sr_ratio
         self.attn_impl = attn_impl
-        self.query = nn.Linear(hidden, hidden)
-        self.key = nn.Linear(hidden, hidden)
-        self.value = nn.Linear(hidden, hidden)
+        self.query = Linear(hidden, hidden)
+        self.key = Linear(hidden, hidden)
+        self.value = Linear(hidden, hidden)
         if sr_ratio > 1:
-            self.sr = nn.Conv2d(hidden, hidden, sr_ratio, sr_ratio)
+            self.sr = Conv2d(hidden, hidden, sr_ratio, sr_ratio)
             self.layer_norm = LayerNorm(hidden, eps=eps)
 
     def forward(self, x: torch.Tensor, h: int, w: int,
@@ -124,7 +146,7 @@ class EfficientSelfAttention(nn.Module):
 class SelfOutput(nn.Module):
     def __init__(self, hidden: int):
         super().__init__()
-        self.dense = nn.Linear(hidden, hidden)
+        self.dense = Linear(hidden, hidden)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.dense(x)
@@ -145,7 +167,7 @@ class Attention(nn.Module):
 class DWConv(nn.Module):
     def __init__(self, ch: int):
         super().__init__()
-        self.dwconv = nn.Conv2d(ch, ch, 3, 1, 1, groups=ch)
+        self.dwconv = Conv2d(ch, ch, 3, 1, 1, groups=ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.dwconv(x)
@@ -157,9 +179,9 @@ class MixFFN(nn.Module):
     def __init__(self, hidden: int, mlp_hidden: int, gelu_approx: bool):
         super().__init__()
         self.gelu = "tanh" if gelu_approx else "none"
-        self.dense1 = nn.Linear(hidden, mlp_hidden)
+        self.dense1 = Linear(hidden, mlp_hidden)
         self.dwconv = DWConv(mlp_hidden)
-        self.dense2 = nn.Linear(mlp_hidden, hidden)
+        self.dense2 = Linear(mlp_hidden, hidden)
 
     def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
         x = self.dense1(x)
@@ -250,10 +272,15 @@ class MiTEncoder(nn.Module):
             if str(i) in self.cls_token:
                 carried = self.cls_token[str(i)].to(dtype)[None].expand(
                     b, -1, -1)
+            remat = self.cfg.remat == "full" and torch.is_grad_enabled()
             for j, blk in enumerate(self.block[i]):
                 p = prompt[j] if (prompt is not None
                                   and self.cfg.prompt_per_layer) else prompt
-                tokens, carried = blk(tokens, h, w, p, carried)
+                if remat:
+                    tokens, carried = checkpoint(blk, tokens, h, w, p,
+                                                 carried, use_reentrant=False)
+                else:
+                    tokens, carried = blk(tokens, h, w, p, carried)
             tokens = self.layer_norm[i](tokens)
             c = tokens.shape[-1]
             hidden_states.append(tokens.reshape(b, h, w, c))
@@ -276,9 +303,9 @@ class LinearC(nn.Module):
 
     def __init__(self, in_ch: int, d: int, cls_in: Optional[int]):
         super().__init__()
-        self.proj = nn.Linear(in_ch, d)
+        self.proj = Linear(in_ch, d)
         if cls_in is not None:
-            self.cls_proj = nn.Linear(cls_in, d)
+            self.cls_proj = Linear(cls_in, d)
 
 
 class DecodeHead(nn.Module):
@@ -295,9 +322,9 @@ class DecodeHead(nn.Module):
         cls_in = cfg.hidden_sizes[-1] if cfg.use_cls else None
         self.linear_c = nn.ModuleList(
             LinearC(c, d, cls_in) for c in cfg.hidden_sizes)
-        self.linear_fuse = nn.Conv2d(n * d, d, 1, bias=False)
+        self.linear_fuse = Conv2d(n * d, d, 1, bias=False)
         self.batch_norm = nn.BatchNorm2d(d, eps=1e-5)
-        self.classifier = nn.Conv2d(d, cfg.num_labels, 1)
+        self.classifier = Conv2d(d, cfg.num_labels, 1)
 
     def forward(self, hidden_states: List[torch.Tensor],
                 cls_final: Optional[torch.Tensor]) -> torch.Tensor:

@@ -6,7 +6,8 @@ PyTorch header is included, so a build takes seconds. Libraries land in
 `build/kernels/` beside the package (listed in `.gitignore`), named by a
 hash of the source and the flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is. A build writes to a temporary name and
-renames it, so processes that build at once do not see half a file.
+renames it, so processes that build at once do not see half a file, and
+each source has its own lock, so threads can build several sources at once.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                       "-Xptxas", "-v"]
 
 _LOCK = threading.Lock()
+_SOURCE_LOCKS: Dict[str, threading.Lock] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # What the last build of each source printed (-Xptxas -v: registers,
 # shared memory and spills per kernel) and how long it took.
@@ -53,6 +55,8 @@ def nvcc_path() -> str:
 def load_library(source: str) -> ctypes.CDLL:
     """Compile `csrc/<source>` if needed and return the loaded library."""
     with _LOCK:
+        lock = _SOURCE_LOCKS.setdefault(source, threading.Lock())
+    with lock:
         lib = _LIBS.get(source)
         if lib is None:
             lib = ctypes.CDLL(str(_build(source)))

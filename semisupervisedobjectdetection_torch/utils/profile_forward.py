@@ -1,10 +1,12 @@
-"""Where a served SegFormer batch spends its time on the card.
+"""Where a served SegFormer batch, or an EMA training step, spends its time
+on the card.
 
     python -m semisupervisedobjectdetection_torch.utils.profile_forward \
-        [--variant b5] [--img-size 512] [--batch 8] [--dtype bfloat16] \
-        [--iters 10] [--out prof/]
+        [--step predict|ema] [--variant b5] [--img-size 512] [--batch 8] \
+        [--dtype bfloat16] [--grad-accum 2] [--iters 10] [--out prof/]
 
-Prints JSON lines with the card's name and power limit beside every number:
+Prints JSON lines with the card's name and power limit beside every number.
+`--step predict` (the default):
 
 - `predict`: host-clock time of `SegFormerModel.predict` on a float32 NHWC
   batch (upload, forward, mask download; synchronised by the download);
@@ -12,6 +14,17 @@ Prints JSON lines with the card's name and power limit beside every number:
 - `profile`: from `torch.profiler` over `--iters` predicts, the device
   busy time, the wall time of the window and the idle share, the top
   kernels by device time, and the SR-attention kernel's share.
+
+`--step ema`: the EMA step of the port's bench at its flagship point
+(MiT-B5 512x512 bf16, `--batch` images per phase, default 32, in
+`--grad-accum` microbatches, default 2), two warm-up steps, then:
+
+- `ema_step`: host-clock ms per step over `--iters` steps (default 3), each
+  ended by reading the loss, and the peak memory;
+- `ema_profile`: from `torch.profiler` over one more step, the device busy
+  time, the idle share, the kernel launches, the SR-attention kernels' time
+  and launches, the top kernels by device time and the top host operators
+  by their own CPU time.
 
 With `--out`, the profiler's table and a Chrome trace are written there.
 Runs on the card only.
@@ -43,6 +56,83 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def _kernel_summary(prof, iters: int) -> dict:
+    """Device time, idle share inputs and the top kernels of a profile,
+    per iteration."""
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(_device_us(e) for e in kernels)
+    kernels.sort(key=_device_us, reverse=True)
+
+    def named(part):
+        hit = [e for e in kernels if part in e.key]
+        return {"ms_per_iter": sum(_device_us(e) for e in hit) / 1e3 / iters,
+                "launches_per_iter": sum(e.count for e in hit) / iters}
+
+    return {
+        "device_busy_ms_per_iter": busy_us / 1e3 / iters,
+        "kernel_launches_per_iter": sum(e.count for e in kernels) / iters,
+        "sr_attention_fwd": named("sr_attention_fwd"),
+        "sr_attention_bwd": named("sr_attention_bwd"),
+        "top": [{"name": e.key[:90],
+                 "ms_per_iter": _device_us(e) / 1e3 / iters,
+                 "calls_per_iter": e.count / iters} for e in kernels[:25]]}
+
+
+def _write(prof, out: str) -> None:
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "table.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                          row_limit=60))
+    prof.export_chrome_trace(os.path.join(out, "trace.json"))
+
+
+def profile_ema(args, card: str) -> None:
+    from semisupervisedobjectdetection_torch.bench import (
+        flagship_config,
+        make_workload,
+    )
+
+    accum = args.grad_accum
+    batch = args.batch or 16 * accum
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats(dev)
+    w = make_workload(flagship_config(), batch, args.img_size, accum, dev)
+    for _ in range(2):
+        float(w.step().student_loss_total)
+    iters = args.iters or 3
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        float(w.step().student_loss_total)
+    step_ms = (time.perf_counter() - t0) / iters * 1e3
+    print(json.dumps({"ema_step": {
+        "ms": step_ms, "images_per_step": w.images_per_step,
+        "img_per_s": w.images_per_step / step_ms * 1e3,
+        "batch": batch, "grad_accum": accum,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+        "card": card}}), flush=True)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        float(w.step().student_loss_total)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    summary = _kernel_summary(prof, 1)
+    host = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    print(json.dumps({"ema_profile": {
+        "wall_ms_per_step": wall_ms,
+        "idle_share": 1.0 - summary["device_busy_ms_per_iter"] / wall_ms,
+        **summary,
+        "host_top": [{"name": e.key[:90],
+                      "self_cpu_ms": e.self_cpu_time_total / 1e3,
+                      "calls": e.count} for e in host[:25]],
+        "card": card}}), flush=True)
+    if args.out:
+        _write(prof, args.out)
+
+
 def main(argv=None) -> None:
     from semisupervisedobjectdetection_torch.api import SegFormerModel
     from semisupervisedobjectdetection_torch.core.config import MIT_VARIANTS
@@ -51,12 +141,16 @@ def main(argv=None) -> None:
     )
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--step", default="predict", choices=["predict", "ema"])
     p.add_argument("--variant", default="b5")
     p.add_argument("--img-size", type=int, default=512)
-    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--batch", type=int, default=0,
+                   help="predict: 8; ema: 16 * grad-accum per phase")
     p.add_argument("--dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
-    p.add_argument("--iters", type=int, default=10)
+    p.add_argument("--grad-accum", type=int, default=2)
+    p.add_argument("--iters", type=int, default=0,
+                   help="predict: 10; ema: 3")
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -64,6 +158,11 @@ def main(argv=None) -> None:
     card = _smi()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.step == "ema":
+        profile_ema(args, card)
+        return
+    args.batch = args.batch or 8
+    args.iters = args.iters or 10
 
     cfg = MIT_VARIANTS[args.variant](dtype=args.dtype)
     model = SegFormerModel(config=cfg, seed=0)
@@ -104,29 +203,14 @@ def main(argv=None) -> None:
         for _ in range(args.iters):
             model.predict(x)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(_device_us(e) for e in kernels)
-    kernels.sort(key=_device_us, reverse=True)
-    top = [{"name": e.key[:90], "ms_per_iter": _device_us(e) / 1e3
-            / args.iters, "calls_per_iter": e.count / args.iters}
-           for e in kernels[:20]]
-    attn_us = sum(_device_us(e) for e in kernels
-                  if "sr_attention_fwd" in e.key)
+    summary = _kernel_summary(prof, args.iters)
     print(json.dumps({"profile": {
         "iters": args.iters, "wall_ms_per_iter": wall_ms / args.iters,
-        "device_busy_ms_per_iter": busy_us / 1e3 / args.iters,
-        "idle_share": 1.0 - busy_us / 1e3 / wall_ms,
-        "sr_attention_ms_per_iter": attn_us / 1e3 / args.iters,
-        "kernel_launches_per_iter": sum(e.count for e in kernels)
-        / args.iters,
-        "top": top, "card": card}}), flush=True)
+        "idle_share": 1.0 - summary["device_busy_ms_per_iter"]
+        * args.iters / wall_ms,
+        **summary, "card": card}}), flush=True)
     if args.out:
-        os.makedirs(args.out, exist_ok=True)
-        with open(os.path.join(args.out, "table.txt"), "w") as f:
-            f.write(prof.key_averages().table(
-                sort_by="self_cuda_time_total", row_limit=60))
-        prof.export_chrome_trace(os.path.join(args.out, "trace.json"))
+        _write(prof, args.out)
 
 
 if __name__ == "__main__":

@@ -24,12 +24,16 @@ def _port_modules():
 
 def test_every_module_imports_without_jax():
     mods = _port_modules()
-    assert "semisupervisedobjectdetection_torch.ops.sr_attention" in mods
+    for m in ("ops.sr_attention", "losses", "bench", "train.ema",
+              "train.state", "train.pseudo", "train.common",
+              "train.teacher_student"):
+        assert f"semisupervisedobjectdetection_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "import chip_smoke\n"
         "chip_smoke.attention_bound(8, 16384, 256, 64, 'bfloat16')\n"
+        "chip_smoke.attention_bwd_bound(16, 16384, 256, 64, 'bfloat16')\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print('BAD', bad)\n"
@@ -53,6 +57,27 @@ def test_chip_smoke_bound_from_shapes():
     ms, by = chip_smoke.attention_bound(8, 16384, 256, 64, "float32")
     assert by == "operations"
     assert ms == pytest.approx(4 * 8 * 16384 * 256 * 64 / 67e12 * 1e3)
+
+
+def test_chip_smoke_backward_bound_from_shapes():
+    """The backward's bound per launch at B=16 in bf16: 10*B*Nq*Nk*C flops
+    at 989 TFLOP/s bound stages 1-3 (stage 1: 43.4 us), the bytes of q, g,
+    dq and k, v, dk, dv at 3.35 TB/s bound stage 4 (8.8 us); 1.66 ms over
+    the 104 launches of a flagship EMA step."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    ms, by = chip_smoke.attention_bwd_bound(16, 16384, 256, 64, "bfloat16")
+    assert by == "operations"
+    assert ms == pytest.approx(10 * 16 * 16384 * 256 * 64 / 989e12 * 1e3)
+    assert ms == pytest.approx(0.0434, abs=1e-4)
+    ms, by = chip_smoke.attention_bwd_bound(16, 256, 256, 512, "bfloat16")
+    assert by == "bytes"
+    assert ms == pytest.approx((3 + 4) * 16 * 256 * 512 * 2 / 3.35e12 * 1e3)
+    per_step = 2 * sum(
+        d * chip_smoke.attention_bwd_bound(16, *s[:3], "bfloat16")[0]
+        for d, s in zip(chip_smoke.B5_DEPTHS, chip_smoke.STAGE_SHAPES))
+    assert per_step == pytest.approx(1.659, abs=1e-3)
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

@@ -55,16 +55,54 @@ CASES = {
 }
 
 
-def _jax_variables(jcfg, seed=0):
-    v = jax.jit(JSegFormer(jcfg).init)(jax.random.PRNGKey(seed),
-                                        jnp.zeros((1, SIZE, SIZE, 3)))
-    v = jax.tree.map(np.asarray, v)
-    # non-trivial BatchNorm statistics, so the head's BN is exercised
+_CONVS = ("proj", "sr", "dwconv", "linear_fuse", "classifier")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread while a port test file runs (restored
+    after): the suite runs several workers at once, and each worker's
+    torch thread pool spinning beside the others and beside XLA's compiles
+    slows these small ops many times over. Files that import this fixture
+    get it too."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def jax_variables(jcfg, seed=0, size=SIZE):
+    """Variables of the JAX model with seeded numpy values in the shapes its
+    `init` gives (traced with `jax.eval_shape`, not compiled): dense kernels
+    normal(0, 0.02) and conv kernels normal(0, 1/sqrt(fan_in)) as its
+    initialisers, biases normal(0, 0.02), norm scales 1 + normal(0, 0.05),
+    prompt/CLS tokens uniform [0, 1), BatchNorm statistics mean
+    normal(0, 0.1) and var uniform [0.5, 1.5), so every parameter and the
+    head's BN are exercised."""
+    shapes = jax.eval_shape(JSegFormer(jcfg).init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, size, size, 3)))
     rng = np.random.default_rng(seed)
-    bn = v["batch_stats"]["decode_head"]["batch_norm"]
-    bn["mean"] = rng.normal(0, 0.1, bn["mean"].shape).astype(np.float32)
-    bn["var"] = rng.uniform(0.5, 1.5, bn["var"].shape).astype(np.float32)
-    return v
+
+    def fill(path, leaf):
+        name = path[-1].key
+        shape = leaf.shape
+        if name == "kernel":
+            conv = path[-2].key in _CONVS
+            std = (1.0 / np.prod(shape[-4:-1])) ** 0.5 if conv else 0.02
+            x = rng.normal(0.0, std, shape)
+        elif name == "bias":
+            x = rng.normal(0.0, 0.02, shape)
+        elif name == "scale":
+            x = 1.0 + rng.normal(0.0, 0.05, shape)
+        elif name == "mean":
+            x = rng.normal(0.0, 0.1, shape)
+        elif name == "var":
+            x = rng.uniform(0.5, 1.5, shape)
+        else:  # prompt_tokens_i, cls_token_i
+            x = rng.uniform(0.0, 1.0, shape)
+        return x.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
 def _images(n=2, seed=0):
@@ -83,7 +121,7 @@ def _port_model(cfg, variables):
 def test_forward_matches_jax_f32(case):
     jcfg = JCfg(**TINY, **CASES[case])
     cfg = MiTConfig(**TINY, **CASES[case])
-    v = _jax_variables(jcfg)
+    v = jax_variables(jcfg)
     x = _images()
     jl, jcls = jax.jit(lambda v, x: JSegFormer(jcfg).apply(v, x))(
         v, jnp.asarray(x))
@@ -120,7 +158,7 @@ def test_forward_matches_jax_bf16():
     extra = CASES["shared_prompts_cls"]
     jcfg = JCfg(**TINY, **extra, dtype="bfloat16", attn_impl="pallas")
     cfg = MiTConfig(**TINY, **extra, dtype="bfloat16")
-    v = _jax_variables(jcfg)
+    v = jax_variables(jcfg)
     x = _images()
     jl, jcls = jax.jit(lambda v, x: JSegFormer(jcfg).apply(v, x))(
         v, jnp.asarray(x))
@@ -146,7 +184,7 @@ def test_state_dict_agrees_with_jax_export(case):
     JAX export hands out apart (`export_prompt_tokens`)."""
     jcfg = JCfg(**TINY, **CASES[case])
     cfg = MiTConfig(**TINY, **CASES[case])
-    v = _jax_variables(jcfg)
+    v = jax_variables(jcfg)
     ours = state_dict_from_flax(cfg, v["params"], v["batch_stats"])
     theirs = export_torch_state_dict(jcfg, v["params"], v["batch_stats"])
     assert set(theirs) <= set(ours)
@@ -173,7 +211,7 @@ def test_load_checkpoint_slices_wider_classifier(tmp_path, fmt):
     and predicts what the JAX model with that head predicts."""
     pytest.importorskip("safetensors")
     jcfg2 = JCfg(**{**TINY, "num_labels": 2})
-    v = _jax_variables(jcfg2)
+    v = jax_variables(jcfg2)
     path = str(tmp_path / fmt)
     save_torch_checkpoint(path, export_torch_state_dict(
         jcfg2, v["params"], v["batch_stats"]))
@@ -201,7 +239,7 @@ def test_load_checkpoint_without_prompt_tokens_is_refused(tmp_path):
     file serves a prompt config only with its tokens, so it is refused."""
     extra = CASES["shared_prompts_cls"]
     jcfg = JCfg(**TINY, **extra)
-    v = _jax_variables(jcfg)
+    v = jax_variables(jcfg)
     path = str(tmp_path / "ck.pth")
     save_torch_checkpoint(path, export_torch_state_dict(
         jcfg, v["params"], v["batch_stats"]))

@@ -18,9 +18,6 @@ import jax
 import jax.numpy as jnp
 
 from semisupervisedobjectdetection_tpu.core.config import mit_b0 as jax_b0
-from semisupervisedobjectdetection_tpu.models.segformer import (
-    SegFormer as JSegFormer,
-)
 from semisupervisedobjectdetection_tpu.train.common import (
     forward_masks as jax_forward_masks,
 )
@@ -32,6 +29,10 @@ from semisupervisedobjectdetection_torch.cli import serve
 from semisupervisedobjectdetection_torch.cli.serve import InferenceServer
 from semisupervisedobjectdetection_torch.core.config import mit_b0
 from semisupervisedobjectdetection_torch.utils import preemption
+from test_torch_segformer import (  # noqa: F401 (autouse fixture)
+    jax_variables,
+    one_torch_thread,
+)
 
 SMALL = dict(depths=(1, 1, 1, 1), hidden_sizes=(8, 16, 32, 64),
              num_heads=(1, 2, 4, 8), decoder_hidden=32)
@@ -42,9 +43,7 @@ MAX_BATCH = 4
 @pytest.fixture(scope="module")
 def jax_model():
     jcfg = jax_b0(**SMALL)
-    v = jax.jit(JSegFormer(jcfg).init)(jax.random.PRNGKey(0),
-                                        jnp.zeros((1, SIZE, SIZE, 3)))
-    v = jax.tree.map(np.asarray, v)
+    v = jax_variables(jcfg, size=SIZE)
     fwd = jax.jit(lambda v, x: jax_forward_masks(jcfg, v, x)[0])
     return v, lambda x: np.asarray(fwd(v, jnp.asarray(x)))
 

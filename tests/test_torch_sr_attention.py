@@ -21,6 +21,7 @@ from semisupervisedobjectdetection_torch.ops.sr_attention import (
     sr_attention,
     sr_attention_reference,
 )
+from test_torch_segformer import one_torch_thread  # noqa: F401 (autouse)
 
 # the shapes of tests/test_sr_attention.py: square attention, a stage-1-like
 # query stream with a 10-token prompt prefix (nk=266), multi-head with an
