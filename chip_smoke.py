@@ -7,14 +7,22 @@ Phases, each printed as JSON lines with its seconds; any failure exits
 non-zero before the final line:
 
 1. device     - the card's name, count and power limit (no CUDA: exit 2).
-2. build      - compile both kernels from `csrc/` at once, one nvcc each
-                (the `-Xptxas -v` register/shared-memory summary is printed).
-3. kernel     - `sr_attention_fwd` (K1) against its plain PyTorch version at
-                the four MiT-B5 512x512 stage shapes at batch 8 (serving),
-                16 (student) and 32 (teacher) in bfloat16, at batch 8 in
-                float32, and at two shapes with a prompt/CLS prefix: max abs
+2. build      - compile both kernels from `csrc/` at once, one nvcc each;
+                for every kernel instantiation its registers, stack and
+                spills (from `-Xptxas -v`) and its count of tensor-core
+                instructions (HMMA, HGMMA) in the SASS of the built library
+                (`cuobjdump --dump-sass`). The tensor-core kernels must
+                show tensor-core instructions and no stack frame or spills.
+3. kernel     - `sr_attention_fwd` (K1) against its plain PyTorch version:
+                the tensor-core kernel (bfloat16, the default, the training
+                step's) at the four MiT-B5 512x512 stage shapes at batch 8,
+                16 (student) and 32 (teacher), the scalar kernel at batch 8
+                in bfloat16 (serving's) and float32, each also at two
+                shapes with a prompt/CLS prefix: max abs
                 error against a stated tolerance, and CUDA-event times of
-                the kernel, the plain version and
+                the kernel (for the tensor-core rows also of the scalar
+                kernel on the same inputs, the design it replaced in
+                training), the plain version and
                 `F.scaled_dot_product_attention` (a yardstick only; the port
                 never calls it), beside the bound from shapes (each byte in
                 and out once at 3.35 TB/s; flops at 989 TFLOP/s bf16,
@@ -31,8 +39,9 @@ non-zero before the final line:
                 max_batch 8, seeded random weights) answers 16 concurrent raw
                 requests and 2 PNG requests over HTTP; every request succeeds
                 with a finite mask of the right shape, K1 ran exactly 52
-                times per batch served (3+6+40+3 layers), and the served
-                masks agree with the plain path on the same inputs.
+                times per batch served (3+6+40+3 layers; its scalar kernel,
+                which `SegFormerModel` pins), and the served masks agree
+                with the plain path on the same inputs.
 7. grad       - MiT-B5 512x512 float32, TF32 off, batch 2: the EMA step's
                 student loss backward through the kernels and through the
                 plain path give the same gradient for every parameter
@@ -40,8 +49,9 @@ non-zero before the final line:
 8. train      - the EMA mean-teacher step at the flagship point (MiT-B5
                 512x512 bf16, 32 labeled + 32 unlabeled images per step in
                 2 microbatches) through the port bench's functions: 2
-                warm-up and 4 timed steps with finite losses, K1 launched
-                312 and K2 104 times per step, the teacher moved by exactly
+                warm-up and 4 timed steps with finite losses, K1 (its
+                tensor-core kernel) launched 312 and K2 104 times per step,
+                the teacher moved by exactly
                 the EMA of the student, and two steps from one state through
                 the kernels and through the plain path agreeing on the
                 losses and kept counts.
@@ -56,6 +66,8 @@ import concurrent.futures
 import io
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -227,16 +239,19 @@ def _reset_counts():
     )
 
     sr_attention.launches = 0
+    sr_attention.mma_launches = 0
     sr_attention_bwd.launches = 0
 
 
 def _counts():
+    """Launches of K1 (all), K2, and K1's tensor-core kernel."""
     from semisupervisedobjectdetection_torch.ops.sr_attention import (
         sr_attention,
         sr_attention_bwd,
     )
 
-    return sr_attention.launches, sr_attention_bwd.launches
+    return (sr_attention.launches, sr_attention_bwd.launches,
+            sr_attention.mma_launches)
 
 
 def phase_device():
@@ -247,6 +262,75 @@ def phase_device():
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
           "nvidia_smi": nvidia_smi_line()})
+
+
+def _ptxas_kernels(log: str) -> dict:
+    """{kernel symbol: registers, stack and spill bytes} from nvcc's
+    `-Xptxas -v` output."""
+    kernels, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = kernels.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            cur = kernels.get(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and cur is not None:
+            cur.update(stack_bytes=int(m.group(1)),
+                       spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return kernels
+
+
+def _sass_tensor_ops(lib_path: str) -> dict:
+    """{kernel symbol: {"HMMA": n, "HGMMA": n}} counted in the SASS of a
+    built library."""
+    from semisupervisedobjectdetection_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.isfile(tool):
+        tool = shutil.which("cuobjdump")
+    if tool is None:
+        raise RuntimeError("cuobjdump not found beside nvcc or on PATH")
+    out = subprocess.run([tool, "--dump-sass", lib_path], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    counts, cur = {}, None
+    for ln in out.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = counts.setdefault(m.group(1), {"HMMA": 0, "HGMMA": 0})
+        elif cur is not None:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\b", ln):
+                    cur[op] += 1
+                    break
+    return counts
+
+
+def _demangle(symbols):
+    """Readable kernel names (namespace and argument list dropped), by
+    cu++filt or c++filt where one is found, else the symbols as they are."""
+    from semisupervisedobjectdetection_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cu++filt")
+    if not os.path.isfile(tool):
+        tool = shutil.which("c++filt")
+    if tool is None:
+        return dict(zip(symbols, symbols))
+    out = subprocess.run([tool], input="\n".join(symbols), capture_output=True,
+                         text=True, timeout=60).stdout.splitlines()
+    if len(out) != len(symbols):
+        return dict(zip(symbols, symbols))
+    return {sym: re.sub(r"^void |\(anonymous namespace\)::|<unnamed>::|"
+                        r"\(int\)", "", name).split("(")[0]
+            for sym, name in zip(symbols, out)}
 
 
 def phase_build():
@@ -263,32 +347,65 @@ def phase_build():
         lib, bwd = [f.result() for f in [pool.submit(_lib),
                                          pool.submit(_bwd_lib)]]
     seconds = time.perf_counter() - t0
+    rows = []
     for source in (_SOURCE, _BWD_SOURCE):
         info = _build.BUILD_INFO[source]
-        ptxas = [ln.strip() for ln in info["log"].splitlines()
-                 if "registers" in ln or "spill" in ln or "Compiling" in ln]
-        # ptxas reports static shared memory only; the row kernels' is
-        # dynamic
-        smem_fn = lib.sr_attention_fwd_smem_bytes if source == _SOURCE \
-            else bwd.sr_attention_bwd_smem_bytes
-        smem = {f"nk{nk}_d64_{name}": smem_fn(nk, 64, elem)
-                for nk in (256, 266) for name, elem in (("bf16", 2),
-                                                        ("f32", 4))}
+        # ptxas reports static shared memory only; the kernels' is dynamic
+        # (the backward's row pass)
+        if source == _SOURCE:
+            smem = {f"nk{nk}_d64_{name}":
+                    lib.sr_attention_fwd_smem_bytes(nk, 64, elem, mma)
+                    for nk in (256, 266) for name, elem, mma in (
+                        ("bf16_mma", 2, 1), ("bf16_scalar", 2, 0),
+                        ("f32", 4, 0))}
+        else:
+            smem = {f"nk{nk}_d64_{name}":
+                    bwd.sr_attention_bwd_smem_bytes(nk, 64, elem)
+                    for nk in (256, 266) for name, elem in (("bf16_mma", 2),
+                                                            ("f32", 4))}
         emit({"phase": "build", "source": source,
               "seconds": round(seconds, 3),
-              "nvcc_seconds": round(info["seconds"], 3), "ptxas": ptxas,
+              "nvcc_seconds": round(info["seconds"], 3),
+              "sources_hashed": [p.name for p in _build.source_files(
+                  _build.CSRC / source)],
               "dynamic_smem_bytes": smem})
+        ptxas = _ptxas_kernels(info["log"])
+        sass = _sass_tensor_ops(info["path"])
+        names = _demangle(sorted(sass))
+        for sym in sorted(sass):
+            row = {"phase": "build", "source": source, "kernel": names[sym],
+                   "design": "mma" if "_mma_kernel" in sym else "scalar",
+                   "tensor_core_instructions": sass[sym],
+                   **ptxas.get(sym, {})}
+            emit(row)
+            rows.append(row)
+    mma = [r for r in rows if r["design"] == "mma"]
+    if len(mma) < 2 or any(sum(r["tensor_core_instructions"].values()) == 0
+                           for r in mma):
+        raise AssertionError(f"bfloat16 kernels without tensor-core "
+                             f"instructions: {mma}")
+    # their tiles live in registers: a stack frame or spills would put
+    # them in local memory
+    local = [r for r in mma if r.get("stack_bytes", 1)
+             or r.get("spill_store_bytes", 1)]
+    if local:
+        raise AssertionError(f"tensor-core kernels with local memory: "
+                             f"{local}")
+    return rows
 
 
 def _k1_cases():
-    """(batch, shape, dtype) of the K1 checks: the stage shapes at the
-    serving, student and teacher batches in bf16, at the serving batch in
-    f32, and the prefix shapes at the serving batch."""
-    cases = [(b, s, "bfloat16") for b in (BATCH, MICRO, TEACHER_BATCH)
+    """(batch, shape, dtype, design) of the K1 checks: the tensor-core
+    kernel at the stage shapes at the serving, student and teacher batches;
+    the scalar kernel at the serving batch in bf16 and f32; all three at the
+    prefix shapes at the serving batch."""
+    cases = [(b, s, "bfloat16", "mma") for b in (BATCH, MICRO, TEACHER_BATCH)
              for s in STAGE_SHAPES]
-    cases += [(BATCH, s, "float32") for s in STAGE_SHAPES]
-    cases += [(BATCH, s, d) for s in PREFIX_SHAPES
-              for d in ("bfloat16", "float32")]
+    cases += [(BATCH, s, d, "scalar") for d in ("bfloat16", "float32")
+              for s in STAGE_SHAPES]
+    cases += [(BATCH, s, d, design) for s in PREFIX_SHAPES
+              for d, design in (("bfloat16", "mma"), ("bfloat16", "scalar"),
+                                ("float32", "scalar"))]
     return cases
 
 
@@ -305,15 +422,17 @@ def phase_kernel():
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
-    for b, shape, dtype_name in _k1_cases():
+    for b, shape, dtype_name, design in _k1_cases():
         nq, nk, c, h = shape
         dtype = getattr(torch, dtype_name)
+        mma = design == "mma"
         q, k, v = (torch.randn(b, n, c, device="cuda", generator=gen)
                    .to(dtype) for n in (nq, nk, nk))
-        out = sr_attention(q, k, v, h)
+        out = sr_attention(q, k, v, h, mma)
         torch.cuda.synchronize()
         ref = sr_attention_reference(q, k, v, h)
         err = (out.float() - ref.float()).abs().max().item()
+        ne_plain = (out != ref).float().mean().item()
         ok = bool(torch.isfinite(out).all().item()) \
             and err <= KERNEL_TOL[dtype_name]
         # the exact function in float64 (no bf16 rounding of p): an
@@ -323,12 +442,21 @@ def phase_kernel():
         del f64
         qs, ks, vs = (_heads(t, h) for t in (q, k, v))
         bound, by = attention_bound(b, nq, nk, c, dtype_name)
+        if mma:
+            # the scalar kernel on the same inputs: the design the
+            # tensor-core one replaced in the training step
+            scalar = {"scalar_ms": cuda_ms(
+                lambda: sr_attention(q, k, v, h, False))}
+        else:
+            scalar = {}
         row = {"phase": "kernel", "name": "sr_attention_fwd",
                "B": b, "Nq": nq, "Nk": nk, "C": c, "heads": h,
-               "dtype": dtype_name, "max_abs_err": err,
+               "dtype": dtype_name, "design": design, "max_abs_err": err,
+               "share_ne_plain": ne_plain,
                "tol": KERNEL_TOL[dtype_name], "ok": ok,
                "max_abs_err_vs_f64": err64,
-               "ms": cuda_ms(lambda: sr_attention(q, k, v, h)),
+               "ms": cuda_ms(lambda: sr_attention(q, k, v, h, mma)),
+               **scalar,
                "plain_ms": cuda_ms(
                    lambda: sr_attention_reference(q, k, v, h), iters=5),
                "library_ms": cuda_ms(
@@ -389,7 +517,9 @@ def phase_kernel_bwd():
             bound, by = attention_bwd_bound(MICRO, nq, nk, c, dtype_name)
             row = {"phase": "kernel_bwd", "name": "sr_attention_bwd",
                    "B": MICRO, "Nq": nq, "Nk": nk, "C": c, "heads": h,
-                   "dtype": dtype_name, "max_abs_err": max(errs),
+                   "dtype": dtype_name,
+                   "design": "mma" if dtype_name == "bfloat16" else "scalar",
+                   "max_abs_err": max(errs),
                    "max_abs_err_dq_dk_dv": errs, "ref_max_dq_dk_dv": scales,
                    "rel_err": rel, "tol_rel": KERNEL_BWD_TOL[dtype_name],
                    **vs_f64, "bit_identical_rerun": same,
@@ -499,7 +629,7 @@ def phase_serve(smi: str):
         for t in threads:
             t.join(timeout=600)
         wall = time.perf_counter() - t0
-        launches = _counts()[0]
+        launches, _, mma_launches = _counts()
         after = srv.snapshot_stats()
     finally:
         srv.stop()
@@ -523,6 +653,7 @@ def phase_serve(smi: str):
            "dtype": "bfloat16", "max_batch": BATCH, "requests": n_raw + 2,
            "statuses": sorted(set(statuses)), "batches": batches,
            "launches": launches, "launches_expected": per_forward * batches,
+           "launches_mma": mma_launches,
            "wall_s": wall, "img_per_s": (n_raw + 2) / wall,
            "latency_ms": after.get("latency_ms"),
            "mean_batch_fill": after["mean_batch_fill"],
@@ -539,9 +670,10 @@ def phase_serve(smi: str):
         raise AssertionError(f"bad served masks: {probs.shape}")
     if any(p.shape != (IMG, IMG) for p in pngs):
         raise AssertionError("bad PNG masks")
-    if batches < 1 or launches != per_forward * batches:
-        raise AssertionError(f"{launches} kernel launches for {batches} "
-                             f"batches; expected {per_forward} per batch")
+    if batches < 1 or launches != per_forward * batches or mma_launches:
+        raise AssertionError(f"{launches} kernel launches ({mma_launches} "
+                             f"tensor-core) for {batches} batches; expected "
+                             f"{per_forward} scalar per batch")
     if health.get("platform") != "cuda":
         raise AssertionError(f"/healthz reports {health}")
     if err > SERVE_PROB_TOL or disagree > SERVE_MASK_DISAGREE:
@@ -583,7 +715,7 @@ def phase_grad():
             0.2 * losses.dice_loss(pred, tm)
         grads[impl] = grads_of(loss, dict(model.named_parameters()))
         torch.cuda.synchronize()
-        launches[impl] = _counts()
+        launches[impl] = _counts()[:2]
         del model, pred, loss
     scales = {n: g.abs().max().item() for n, g in grads["plain"].items()}
     floor = GRAD_SCALE_FLOOR * max(scales.values())
@@ -636,7 +768,7 @@ def phase_train(smi: str):
     torch.cuda.reset_peak_memory_stats(dev)
     _reset_counts()
     r = bench.time_steps(w, warmup=0, windows=1, inner=4)
-    k1, k2 = _counts()
+    k1, k2, k1_mma = _counts()
     peak = torch.cuda.max_memory_allocated(dev)
     out = r["out"]
     losses = _step_losses(out)
@@ -648,7 +780,7 @@ def phase_train(smi: str):
                + list(w.teacher.batch_stats.items())}
     _reset_counts()
     w.step()
-    one_k1, one_k2 = _counts()
+    one_k1, one_k2, _ = _counts()
     decay = torch.tensor(bench.EMA_DECAY, dtype=torch.float32, device=dev)
     s_vars = {**w.student.params, **w.student.batch_stats}
     t_vars = {**w.teacher.params, **w.teacher.batch_stats}
@@ -685,7 +817,7 @@ def phase_train(smi: str):
            "warmup_s": warmup_s, "timed_steps": 4, "step_ms": step_s * 1e3,
            "img_per_s": 2 * batch / step_s,
            "max_memory_allocated_bytes": peak,
-           "launches_k1": k1, "launches_k2": k2,
+           "launches_k1": k1, "launches_k2": k2, "launches_k1_mma": k1_mma,
            "launches_per_step": [k1 / 4, k2 / 4],
            "launches_expected_per_step": [K1_PER_STEP, K2_PER_STEP],
            "losses_total_sup_selfsup_pseudo": losses, "n_kept": n_kept,
@@ -695,11 +827,12 @@ def phase_train(smi: str):
            "kept_max_diff": kept_diff, "kept_tol": TRAIN_KEPT_TOL,
            "card": smi}
     emit(row)
-    if (k1, k2) != (4 * K1_PER_STEP, 4 * K2_PER_STEP) or \
+    if (k1, k2) != (4 * K1_PER_STEP, 4 * K2_PER_STEP) or k1_mma != k1 or \
             (one_k1, one_k2) != (K1_PER_STEP, K2_PER_STEP):
-        raise AssertionError(f"launches K1 {k1}, K2 {k2} in 4 steps, "
-                             f"{one_k1}, {one_k2} in one: expected "
-                             f"{K1_PER_STEP} and {K2_PER_STEP} per step")
+        raise AssertionError(f"launches K1 {k1} ({k1_mma} tensor-core), K2 "
+                             f"{k2} in 4 steps, {one_k1}, {one_k2} in one: "
+                             f"expected {K1_PER_STEP} tensor-core and "
+                             f"{K2_PER_STEP} per step")
     if not all(math.isfinite(x) for x in losses[:3]) or \
             not 0.0 <= n_kept <= batch:
         raise AssertionError(f"bad step outputs: losses {losses}, "
@@ -742,34 +875,47 @@ def _kernel_entry(rows, passes, **fields):
 
 def summary(k1_rows, k2_rows, train, serve):
     """The `kernels` line: each kernel's times, bound and plain/library
-    times summed over one flagship EMA step (bf16, the B5 stage shapes at
-    the batches the step runs), its launches in the train phase's 4 timed
-    steps, and K1's serve numbers per batch-8 forward beside them."""
+    times summed over what its main path runs, with its launches there: K1's
+    tensor-core kernel (`sr_attention_fwd`) and K2 over one flagship EMA
+    step (bf16, the B5 stage shapes at the batches the step runs; launches
+    in the train phase's 4 timed steps), K1's scalar kernel
+    (`sr_attention_fwd_scalar`) over one serve batch-8 forward (launches in
+    the serve phase). `earlier_ms` is the scalar kernel's time over the same
+    step, timed in this run."""
     src = "semisupervisedobjectdetection_torch/csrc/"
     tpu = "semisupervisedobjectdetection_tpu/ops/sr_attention.py"
+    step = ((TEACHER_BATCH, ACCUM), (MICRO, 2 * ACCUM))
+    mma_rows = [r for r in k1_rows if r["design"] == "mma"]
     k1 = _kernel_entry(
-        k1_rows, ((TEACHER_BATCH, ACCUM), (MICRO, 2 * ACCUM)),
-        name="sr_attention_fwd", route="cuda",
+        mma_rows, step,
+        name="sr_attention_fwd", route="cuda", design="mma",
         source=src + "sr_attention_fwd.cu", replaces=tpu + ":36",
-        launches=train["launches_k1"],
+        launches=train["launches_k1_mma"],
         per="one flagship EMA step: 2 x (teacher forward at batch 32 + "
             "student forward and recompute at batch 16), B5 512x512 bf16, "
             f"{K1_PER_STEP} launches",
-        launches_per="4 timed EMA steps")
-    serve_entry = _kernel_entry(k1_rows, ((BATCH, 1),))
-    k1.update({f"serve_{key}_per_forward": serve_entry[key]
-               for key in ("ms", "plain_ms", "bound_ms", "library_ms")})
-    k1["serve_launches"] = serve["launches"]
+        launches_per="4 timed EMA steps",
+        earlier_ms=sum(n * _stage_sum(mma_rows, b, "scalar_ms")
+                       for b, n in step),
+        earlier_design="scalar, on the same inputs in this run")
+    k1_scalar = _kernel_entry(
+        [r for r in k1_rows if r["design"] == "scalar"], ((BATCH, 1),),
+        name="sr_attention_fwd_scalar", route="cuda", design="scalar",
+        source=src + "sr_attention_fwd.cu", replaces=tpu + ":36",
+        launches=serve["launches"],
+        per=f"one serve forward: B5 512x512 bf16 at batch {BATCH}, "
+            f"{sum(B5_DEPTHS)} launches",
+        launches_per=f"the serve phase ({serve['batches']} batches)")
     k2 = _kernel_entry(
         k2_rows, ((MICRO, ACCUM),),
-        name="sr_attention_bwd", route="cuda",
+        name="sr_attention_bwd", route="cuda", design="mma",
         source=src + "sr_attention_bwd.cu", replaces=tpu + ":115",
         launches=train["launches_k2"],
         max_rel_err=max(r["rel_err"] for r in k2_rows),
         per="one flagship EMA step: 2 x the student backward at batch 16, "
             f"B5 512x512 bf16, {K2_PER_STEP} launches",
         launches_per="4 timed EMA steps")
-    return [k1, k2]
+    return [k1, k1_scalar, k2]
 
 
 def main() -> int:

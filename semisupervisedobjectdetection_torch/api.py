@@ -16,6 +16,7 @@ from semisupervisedobjectdetection_torch.checkpoint.convert import (
 )
 from semisupervisedobjectdetection_torch.core.config import MiTConfig, mit_b5
 from semisupervisedobjectdetection_torch.models.segformer import (
+    EfficientSelfAttention,
     SegFormer,
     cast_to_compute_dtype,
     forward_masks,
@@ -52,6 +53,13 @@ class SegFormerModel:
         self.seed = seed
         model = SegFormer(self.cfg)
         init_weights(model, torch.Generator().manual_seed(seed))
+        # Served masks are held to the plain attention path's: the scalar
+        # bfloat16 SR-attention forward gives its bits, the tensor-core one
+        # (the training default) differs by an ulp in ~0.07% of outputs,
+        # which flipped 0.8% of a random-weight MiT-B5's pixels (PERF.md).
+        for layer in model.modules():
+            if isinstance(layer, EfficientSelfAttention):
+                layer.attn_fwd_mma = False
         self.model = model.eval()
         if hf_weights:
             self.load_hf(hf_weights)

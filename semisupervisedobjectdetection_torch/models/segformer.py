@@ -120,6 +120,9 @@ class EfficientSelfAttention(nn.Module):
         self.num_heads = num_heads
         self.sr_ratio = sr_ratio
         self.attn_impl = attn_impl
+        # The bfloat16 forward on the tensor cores (`sr_attention(...,
+        # mma=True)`); serving turns it off (`api.SegFormerModel`).
+        self.attn_fwd_mma = True
         self.query = Linear(hidden, hidden)
         self.key = Linear(hidden, hidden)
         self.value = Linear(hidden, hidden)
@@ -138,9 +141,9 @@ class EfficientSelfAttention(nn.Module):
             kv_in = self.layer_norm(kv_in)
         k = self.key(kv_in)
         v = self.value(kv_in)
-        attn = sr_attention if self.attn_impl == "kernel" \
-            else sr_attention_reference
-        return attn(q, k, v, self.num_heads)
+        if self.attn_impl == "kernel":
+            return sr_attention(q, k, v, self.num_heads, self.attn_fwd_mma)
+        return sr_attention_reference(q, k, v, self.num_heads)
 
 
 class SelfOutput(nn.Module):

@@ -4,8 +4,9 @@ Each source under `csrc/` is compiled by `nvcc` for Hopper (`sm_90a`) into
 a shared library with a plain C interface and loaded with `ctypes`. No
 PyTorch header is included, so a build takes seconds. Libraries land in
 `build/kernels/` beside the package (listed in `.gitignore`), named by a
-hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. A build writes to a temporary name and
+hash of the source, the local headers it includes (`#include "x.cuh"`,
+transitively) and the flags, so an edited source or header is rebuilt and
+an unchanged one is loaded as it is. A build writes to a temporary name and
 renames it, so processes that build at once do not see half a file, and
 each source has its own lock, so threads can build several sources at once.
 """
@@ -15,13 +16,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
@@ -52,6 +54,34 @@ def nvcc_path() -> str:
     return found
 
 
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def source_files(src: Path) -> List[Path]:
+    """`src` and the local headers it includes, transitively: each quoted
+    `#include` found beside the file that includes it, in the order first
+    reached."""
+    files, todo = [], [src]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        todo += [path.parent / name
+                 for name in _LOCAL_INCLUDE.findall(path.read_text())
+                 if (path.parent / name).is_file()]
+    return files
+
+
+def source_digest(src: Path) -> str:
+    """Hash of `src`, its local headers and the nvcc flags."""
+    h = hashlib.sha256()
+    for path in source_files(src):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def load_library(source: str) -> ctypes.CDLL:
     """Compile `csrc/<source>` if needed and return the loaded library."""
     with _LOCK:
@@ -66,9 +96,7 @@ def load_library(source: str) -> ctypes.CDLL:
 
 def _build(source: str) -> Path:
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{src.stem}-{digest}.so"
+    out = BUILD_DIR / f"{src.stem}-{source_digest(src)}.so"
     if out.exists():
         BUILD_INFO.setdefault(source, {"seconds": 0.0, "log": "(cached)",
                                        "path": str(out)})

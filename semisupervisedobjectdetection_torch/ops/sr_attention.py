@@ -27,11 +27,17 @@ _BWD_SOURCE = "sr_attention_bwd.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64)
 BLOCK_Q = 128
-# The backward's key pass: blocks of 32 keys per (batch, head); its query
-# rows are split so that about this many blocks run (4 per SM on an H100).
+# The backward's key pass in float32 (scalar kernel): blocks of 32 keys per
+# (batch, head), query rows in tiles of 32; its rows are split so that about
+# this many blocks run (4 per SM on an H100).
 BWD_KEYS_PER_BLOCK = 32
 BWD_ROW_TILE = 32
 BWD_TARGET_BLOCKS = 528
+# In bfloat16 (tensor-core kernel): blocks of 4 warps over 64 keys, query
+# rows in tiles of 64, about two blocks per SM.
+BWD_MMA_KEYS_PER_BLOCK = 64
+BWD_MMA_ROW_TILE = 64
+BWD_MMA_TARGET_BLOCKS = 264
 # Opt-in shared memory a block may use on Hopper (227 KB).
 MAX_SMEM_BYTES = 232448
 
@@ -95,9 +101,9 @@ def _lib() -> ctypes.CDLL:
     """The built forward kernel library with its C signatures declared."""
     lib = _build.load_library(_SOURCE)
     lib.sr_attention_fwd.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.sr_attention_fwd.restype = ctypes.c_int
-    lib.sr_attention_fwd_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.sr_attention_fwd_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.sr_attention_fwd_smem_bytes.restype = ctypes.c_size_t
     lib.sr_attention_fwd_max_nk.argtypes = []
     lib.sr_attention_fwd_max_nk.restype = ctypes.c_int
@@ -120,6 +126,33 @@ def _bwd_lib() -> ctypes.CDLL:
     lib.sr_attention_bwd_error_string.argtypes = [ctypes.c_int]
     lib.sr_attention_bwd_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_limits(nk: int, d: int, elem: int, mma: bool) -> Tuple[int, int]:
+    """(shared-memory bytes per block, largest Nk) of a forward kernel."""
+    lib = _lib()
+    return (lib.sr_attention_fwd_smem_bytes(nk, d, elem, mma),
+            lib.sr_attention_fwd_max_nk())
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_limits(nk: int, d: int, elem: int) -> Tuple[int, int]:
+    """(shared-memory bytes per row-pass block, largest Nk) of the
+    backward kernels."""
+    lib = _bwd_lib()
+    return (lib.sr_attention_bwd_smem_bytes(nk, d, elem),
+            lib.sr_attention_bwd_max_nk())
+
+
+def _launch(fn, device: torch.device, *args) -> int:
+    """Call the C launcher `fn` with `args` and `device`'s current stream,
+    with `device` current; returns its cudaError_t."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(device):
+        return fn(*args, stream)
 
 
 def _check(q, k, v, num_heads: int) -> None:
@@ -163,14 +196,22 @@ def _check_kernel_inputs(name: str, tensors, num_heads: int, smem: int,
             f"takes Nk <= {max_nk} within {MAX_SMEM_BYTES} bytes")
 
 
-def bwd_key_splits(b: int, nq: int, nk: int, num_heads: int) -> int:
+def bwd_key_splits(b: int, nq: int, nk: int, num_heads: int,
+                   dtype: torch.dtype = torch.float32) -> int:
     """How many splits of the query rows the backward's key pass takes:
-    enough that (keys/32) * B * heads * splits blocks fill the card, each
-    split at least one tile of 32 rows (stage 1 of MiT-B5 at batch 16:
-    8 * 16 blocks, 5 splits)."""
-    blocks = -(-nk // BWD_KEYS_PER_BLOCK) * b * num_heads
-    want = -(-BWD_TARGET_BLOCKS // blocks)
-    rows = -(-(-(-nq // want)) // BWD_ROW_TILE) * BWD_ROW_TILE
+    enough that key blocks * B * heads * splits blocks fill the card, each
+    split at least one row tile. float32 (the scalar kernel): 32-key blocks,
+    32-row tiles, ~528 blocks (stage 1 of MiT-B5 at batch 16: 8 * 16
+    blocks, 5 splits). bfloat16 (the tensor-core kernel): 64-key blocks,
+    64-row tiles, ~264 blocks (stage 1: 4 * 16 blocks, 5 splits; stage 3:
+    4 * 80 blocks, no split)."""
+    keys, tile, target = (
+        (BWD_MMA_KEYS_PER_BLOCK, BWD_MMA_ROW_TILE, BWD_MMA_TARGET_BLOCKS)
+        if dtype == torch.bfloat16 else
+        (BWD_KEYS_PER_BLOCK, BWD_ROW_TILE, BWD_TARGET_BLOCKS))
+    blocks = -(-nk // keys) * b * num_heads
+    want = -(-target // blocks)
+    rows = -(-(-(-nq // want)) // tile) * tile
     return -(-nq // rows)
 
 
@@ -181,25 +222,24 @@ def _device_of(q: torch.Tensor) -> str:
 
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             num_heads: int) -> torch.Tensor:
+             num_heads: int, mma: bool) -> torch.Tensor:
     """The forward: the plain version on a CPU tensor, else one launch of
-    `csrc/sr_attention_fwd.cu` (counted in `sr_attention.launches`)."""
+    `csrc/sr_attention_fwd.cu`, its tensor-core kernel for bfloat16 with
+    `mma` (counted in `sr_attention.launches`, and the tensor-core ones
+    also in `sr_attention.mma_launches`)."""
     if _device_of(q) == "cpu":
         return sr_attention_reference(q, k, v, num_heads)
     b, nq, c = q.shape
     nk = k.shape[1]
+    mma = mma and q.dtype == torch.bfloat16
     lib = _lib()
     _check_kernel_inputs(
         "sr_attention", (("q", q), ("k", k), ("v", v)), num_heads,
-        lib.sr_attention_fwd_smem_bytes(nk, c // num_heads,
-                                        q.element_size()),
-        lib.sr_attention_fwd_max_nk())
+        *_fwd_limits(nk, c // num_heads, q.element_size(), mma))
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = lib.sr_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, nq, nk, c, num_heads, _DTYPES[q.dtype], BLOCK_Q, stream)
+    err = _launch(lib.sr_attention_fwd, q.device, q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), out.data_ptr(), b, nq, nk, c, num_heads,
+                  _DTYPES[q.dtype], BLOCK_Q, mma)
     if err:
         raise RuntimeError(
             f"sr_attention_fwd launch failed: "
@@ -207,6 +247,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"(B={b}, Nq={nq}, Nk={nk}, C={c}, heads={num_heads}, "
             f"{q.dtype})")
     sr_attention.launches += 1
+    sr_attention.mma_launches += mma
     return out
 
 
@@ -229,8 +270,9 @@ def sr_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     head) in shared memory) and a key pass (dk and dv summed in registers
     over the query rows in order, in `bwd_key_splits` splits whose float32
     partials a third kernel sums in order: no atomics, so the result is the
-    same every run); they do their products as scalar float32 FMAs, so the
-    FMA pipes and shared-memory reads bound it today (see PERF.md).
+    same every run). In bfloat16 both passes do their products on the
+    tensor cores (mma.sync); in float32 they are scalar FMAs, because TF32
+    would not hold float32 results to their tolerance (see PERF.md).
 
     `sr_attention_bwd.launches` counts kernel launches (not CPU calls).
     """
@@ -245,24 +287,21 @@ def sr_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _bwd_lib()
     _check_kernel_inputs(
         "sr_attention_bwd", (("q", q), ("k", k), ("v", v), ("g", g)),
-        num_heads,
-        lib.sr_attention_bwd_smem_bytes(nk, c // num_heads,
-                                        q.element_size()),
-        lib.sr_attention_bwd_max_nk())
+        num_heads, *_bwd_limits(nk, c // num_heads, q.element_size()))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
-    stats = torch.empty(b * num_heads * nq * 3, dtype=torch.float32,
+    # per query row: max, l and rowsum(dp * p) (the float32 kernels use 3
+    # of the 4 values, the bfloat16 ones store 1 / l as one float4)
+    stats = torch.empty(b * num_heads * nq * 4, dtype=torch.float32,
                         device=q.device)
-    splits = bwd_key_splits(b, nq, nk, num_heads)
+    splits = bwd_key_splits(b, nq, nk, num_heads, q.dtype)
     part = torch.empty(splits * 2 * k.numel() if splits > 1 else 0,
                        dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = lib.sr_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-            part.data_ptr() if splits > 1 else None, b, nq, nk, c,
-            num_heads, _DTYPES[q.dtype], BLOCK_Q, splits, stream)
+    err = _launch(lib.sr_attention_bwd, q.device, q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr(), stats.data_ptr(),
+                  part.data_ptr() if splits > 1 else None, b, nq, nk, c,
+                  num_heads, _DTYPES[q.dtype], BLOCK_Q, splits)
     if err:
         raise RuntimeError(
             f"sr_attention_bwd launch failed: "
@@ -284,43 +323,50 @@ class SRAttention(torch.autograd.Function):
     kernels, on the CPU the plain versions."""
 
     @staticmethod
-    def forward(ctx, q, k, v, num_heads: int):
+    def forward(ctx, q, k, v, num_heads: int, mma: bool = True):
         ctx.num_heads = num_heads
         ctx.save_for_backward(q, k, v)
-        return _forward(q, k, v, num_heads)
+        return _forward(q, k, v, num_heads, mma)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
         dq, dk, dv = sr_attention_bwd(q, k, v, g.contiguous(),
                                       ctx.num_heads)
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None
 
 
 def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 num_heads: int) -> torch.Tensor:
+                 num_heads: int, mma: bool = True) -> torch.Tensor:
     """SR attention q (B,Nq,C) x k,v (B,Nk,C) -> (B,Nq,C) over `num_heads`
     heads of width C/num_heads, differentiable in q, k and v.
 
     Replaces the Pallas TPU kernel
     `semisupervisedobjectdetection_tpu/ops/sr_attention.py::_attn_kernel`.
     On a CUDA tensor it launches `csrc/sr_attention_fwd.cu` (float32 or
-    bfloat16, head width 32 or 64, Nk up to what fits one block's shared
-    memory) or raises; on a CPU tensor it computes the plain version. Its
-    gradient is `sr_attention_bwd`.
+    bfloat16, head width 32 or 64, Nk up to 288) or raises; on a CPU tensor
+    it computes the plain version. Its gradient is `sr_attention_bwd`.
+
+    bfloat16 has two kernels: by default the tensor-core one, whose sums
+    run in the tensor cores' order, so that about 0.07% of its outputs
+    differ from the plain version's by an ulp or two; with `mma=False` the
+    scalar one, whose results equal the plain version's bit for bit (what
+    serving runs). float32 always runs the scalar kernel.
 
     What bounds it on the H100: the function moves 2*B*(Nq+Nk)*C elements
     and does 4*B*Nq*Nk*C flops, which at MiT-B5 512x512 puts it under the
     bytes line on the bf16 tensor cores. The kernel keeps the whole score
     row on chip (K and V of one (batch, head) in shared memory, the row in
-    registers), so only q, k, v and the output cross device memory; it
-    does the products as scalar float32 FMAs, so today the FMA pipes and
-    shared-memory reads bound it, not the bytes (see PERF.md).
+    registers), so only q, k, v and the output cross device memory. The
+    tensor-core kernel does the products with mma.sync; the scalar one as
+    float32 FMAs, which then bound it (see PERF.md).
 
-    `sr_attention.launches` counts forward kernel launches (not CPU calls).
+    `sr_attention.launches` counts forward kernel launches (not CPU calls),
+    `sr_attention.mma_launches` those of the tensor-core kernel.
     """
     _check(q, k, v, num_heads)
-    return SRAttention.apply(q, k, v, num_heads)
+    return SRAttention.apply(q, k, v, num_heads, mma)
 
 
 sr_attention.launches = 0
+sr_attention.mma_launches = 0

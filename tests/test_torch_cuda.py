@@ -1,6 +1,7 @@
-"""Card-only tests of the port's CUDA kernels: `sr_attention_fwd` and
-`sr_attention_bwd` against their plain versions on the card, gradients
-through `sr_attention` on CUDA, and the launch counts of a small EMA step.
+"""Card-only tests of the port's CUDA kernels: `sr_attention_fwd` (its
+scalar and tensor-core kernels) and `sr_attention_bwd` against their plain
+versions on the card, gradients through `sr_attention` on CUDA, and the
+launch counts of a small EMA step.
 Marked `cuda`; each skips without a CUDA device (decided in a fixture, not
 at import). On a machine with a card and no JAX:
 
@@ -35,6 +36,20 @@ SHAPES = [
 ]
 
 
+# Edge shapes of the bfloat16 tensor-core kernels (16-row warp tiles,
+# 16-key tiles, 64-key and 64-row key-pass blocks): one query row, a ragged
+# 17 rows, Nk at the 288 cap and at one 16-key tile, the B0 head width with
+# five keys, and MiT-B5's stage 3 (40 of its 52 layers).
+MMA_EDGE_SHAPES = [
+    (2, 1, 256, 64, 1),
+    (2, 17, 96, 128, 2),
+    (1, 300, 288, 64, 1),
+    (2, 131, 16, 64, 1),
+    (2, 300, 5, 32, 1),
+    (2, 1024, 256, 320, 5),
+]
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -62,6 +77,44 @@ def test_kernel_matches_plain(cuda, dtype, b, nq, nk, c, h):
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
 
 
+@pytest.mark.parametrize("mma", [False, True])
+@pytest.mark.parametrize("b,nq,nk,c,h", SHAPES)
+def test_bf16_forward_kernels_match_plain(cuda, mma, b, nq, nk, c, h):
+    """Both bfloat16 forward kernels: the scalar one (serving's) and the
+    tensor-core one (the default)."""
+    q, k, v = _qkv(cuda, b, nq, nk, c, torch.bfloat16)
+    before = sr_attention.launches, sr_attention.mma_launches
+    out = sr_attention(q, k, v, h, mma=mma)
+    torch.cuda.synchronize()
+    assert (sr_attention.launches, sr_attention.mma_launches) == (
+        before[0] + 1, before[1] + mma)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    ref = sr_attention_reference(q, k, v, h)
+    assert (out.float() - ref.float()).abs().max().item() <= \
+        TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("b,nq,nk,c,h", MMA_EDGE_SHAPES)
+def test_mma_kernels_at_edge_shapes(cuda, b, nq, nk, c, h):
+    """bfloat16: the tensor-core forward and backward agree with their
+    plain versions, and two backward launches give the same bits."""
+    dtype = torch.bfloat16
+    q, k, v = _qkv(cuda, b, nq, nk, c, dtype)
+    g = _qkv(cuda, b, nq, nk, c, dtype, seed=1)[0]
+    out = sr_attention(q, k, v, h, mma=True)
+    got = sr_attention_bwd(q, k, v, g, h)
+    again = sr_attention_bwd(q, k, v, g, h)
+    torch.cuda.synchronize()
+    ref = sr_attention_reference(q, k, v, h)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    for a, a2, r, x in zip(got, again,
+                           sr_attention_backward_reference(q, k, v, g, h),
+                           (q, k, v)):
+        assert a.dtype == dtype and a.shape == x.shape
+        assert torch.equal(a, a2)
+        assert _rel_err(a, r) <= BWD_TOL[dtype]
+
+
 def test_kernel_rejects_what_it_cannot_run(cuda):
     q, k, v = _qkv(cuda, 1, 16, 8, 48, torch.float32)
     with pytest.raises(ValueError, match="head width"):
@@ -69,6 +122,10 @@ def test_kernel_rejects_what_it_cannot_run(cuda):
     q, k, v = _qkv(cuda, 1, 16, 300, 64, torch.float32)
     with pytest.raises(ValueError, match="shared memory"):
         sr_attention(q, k, v, 1)                      # nk = 300
+    q, k, v = _qkv(cuda, 1, 16, 300, 64, torch.bfloat16)
+    for mma in (False, True):
+        with pytest.raises(ValueError, match="shared memory"):
+            sr_attention(q, k, v, 1, mma=mma)         # nk = 300
     q, k, v = _qkv(cuda, 1, 16, 8, 64, torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         sr_attention(q, k, v, 1)
@@ -134,9 +191,10 @@ def test_bwd_kernel_rejects_what_it_cannot_run(cuda):
 
 def test_ema_step_launches_both_kernels(cuda):
     """A small EMA step on the card (MiT-B0 widths, head width 32, one layer
-    per stage, 64x64, accum 2): per microbatch the forward kernel runs in
-    the teacher forward, the student forward and the student's recompute,
-    and the backward kernel once per layer."""
+    per stage, 64x64, accum 2, the tensor-core forward by default): per
+    microbatch the forward kernel runs in the teacher forward, the student
+    forward and the student's recompute, and the backward kernel once per
+    layer."""
     import copy
 
     from semisupervisedobjectdetection_torch.core.config import (
@@ -159,10 +217,12 @@ def test_ema_step_launches_both_kernels(cuda):
                  for _ in "iu")
     gt = (torch.rand(4, 64, 64, device=cuda, generator=g) > 0.7).float()
     f0, b0 = sr_attention.launches, sr_attention_bwd.launches
+    m0 = sr_attention.mma_launches
     out = ema_semi_step(teacher, student, unl, imgs, gt, 0.8, 0.999,
                         accum=2)
     torch.cuda.synchronize()
     assert sr_attention.launches - f0 == 2 * 3 * 4
+    assert sr_attention.mma_launches - m0 == 2 * 3 * 4
     assert sr_attention_bwd.launches - b0 == 2 * 4
     assert torch.isfinite(out.student_loss_total).item()
     assert int(student.count) == 1

@@ -19,6 +19,9 @@ from semisupervisedobjectdetection_tpu.ops.sr_attention import (
     _xla_vjp_bwd,
 )
 from semisupervisedobjectdetection_torch.ops.sr_attention import (
+    BWD_MMA_KEYS_PER_BLOCK,
+    BWD_MMA_ROW_TILE,
+    BWD_MMA_TARGET_BLOCKS,
     BWD_ROW_TILE,
     BWD_TARGET_BLOCKS,
     SRAttention,
@@ -139,3 +142,23 @@ def test_key_pass_splits_fill_the_card(b, nq, nk, h, want):
     assert (splits - 1) * rows < nq <= splits * rows
     blocks = -(-nk // 32) * b * h
     assert splits == 1 or (splits - 1) * blocks < BWD_TARGET_BLOCKS
+
+
+@pytest.mark.parametrize("b,nq,nk,h,want", [
+    (16, 16384, 256, 1, 5),    # B5 stage 1 at batch 16: 4 * 16 blocks alone
+    (16, 4096, 256, 2, 3),     # stage 2: 128 blocks
+    (16, 1024, 256, 5, 1),     # stage 3: 320 blocks fill the card
+    (16, 256, 256, 8, 1),      # stage 4
+    (16, 16394, 266, 1, 4),    # stage 1 with a 10-token prompt: 5 key blocks
+    (2, 300, 5, 1, 5),         # few keys: splits down to one 64-row tile
+])
+def test_mma_key_pass_splits_fill_the_card(b, nq, nk, h, want):
+    """bfloat16 (the tensor-core key pass): blocks of 64 keys, 64-row tiles,
+    about `BWD_MMA_TARGET_BLOCKS` blocks, no empty split."""
+    splits = bwd_key_splits(b, nq, nk, h, torch.bfloat16)
+    assert splits == want
+    tile = BWD_MMA_ROW_TILE
+    rows = -(-(-(-nq // splits)) // tile) * tile
+    assert (splits - 1) * rows < nq <= splits * rows
+    blocks = -(-nk // BWD_MMA_KEYS_PER_BLOCK) * b * h
+    assert splits == 1 or (splits - 1) * blocks < BWD_MMA_TARGET_BLOCKS
