@@ -55,6 +55,33 @@ non-zero before the final line:
                 the EMA of the student, and two steps from one state through
                 the kernels and through the plain path agreeing on the
                 losses and kept counts.
+9. train_mode - the student's train-mode forward (drop-path 0.1,
+                classifier dropout 0.1, BatchNorm on batch statistics) at
+                MiT-B5 512x512: in float32 (TF32 off) at batch 2, one
+                backward through the kernels and through the plain path
+                with the same masks gives the same gradient for every
+                parameter tensor and the same new BatchNorm statistics;
+                at the flagship point (bf16, 2 x (16 + 16)), two train-mode
+                EMA steps from one state and one generator seed through the
+                kernels and the plain path agree on the losses and kept
+                counts, with K1 launched 312 and K2 104 times per step.
+10. augment   - `augment_batch` (batch 32, canvas 512, crop 500, out 512)
+                and `eval_batch` on the card against the same functions on
+                the CPU with the same choices, and their times on the card.
+11. cli       - the `--ema-mode` teacher-student CLI
+                (`cli/teacher_student.py::main`, in this process) at the
+                flagship point: MiT-B5 512x512 bf16, 64 synthetic tiles,
+                batch 32 in 2 microbatches, train mode (the default), 2
+                epochs with --resume: 2 finite CSV rows, K1 312 and K2 104
+                launches per train step and 52 K1 launches per model per
+                eval batch, the student's BatchNorm statistics moved, best
+                and `_last` checkpoints of both models, `load_last` giving
+                back what was saved, and a second run with --epochs 3
+                --resume starting at epoch 2 (its batches staged inline,
+                --prefetch 0, beside the first run's prefetch thread). Per
+                epoch: seconds, train images per second, eval and
+                checkpoint seconds, the wait on the prefetcher and the peak
+                device memory.
 
 Then the `kernels` summary line, the `nvidia-smi` name/power-limit line and,
 last, {"ok": true, "device": {...}}.
@@ -130,6 +157,19 @@ GRAD_SCALE_FLOOR = 1e-3
 # flip, so kept counts may differ by one.
 TRAIN_LOSS_TOL = 5e-3
 TRAIN_KEPT_TOL = 1
+# The train-mode BatchNorm statistics, kernels vs plain path in float32, as
+# a share of each tensor's largest magnitude (at least 1): float32 means
+# over 2 x 128 x 128 pixels of inputs that differ by the attention's
+# rounding carried through 52 layers.
+TRAIN_MODE_BN_TOL = 1e-5
+# Augmentation, card vs CPU on the same choices: float32 resize weights
+# summed in another order (images); gathers and nearest resizes (masks,
+# exact).
+AUGMENT_TOL = 1e-5
+# The CLI phase: bench.py's flagship point through the CLI.
+CLI_TILES = 64
+CLI_EVAL_BATCH = max(CLI_TILES // 3, 4)        # 21 eval tiles, one batch
+CLI_STEPS_PER_EPOCH = CLI_TILES // TEACHER_BATCH
 
 
 def emit(obj) -> None:
@@ -846,6 +886,325 @@ def phase_train(smi: str):
     return row
 
 
+def _bn_stats(model):
+    bn = model.decode_head.batch_norm
+    return {"decode_head.batch_norm.running_mean": bn.running_mean,
+            "decode_head.batch_norm.running_var": bn.running_var}
+
+
+def phase_train_mode(smi: str):
+    import math
+
+    import numpy as np
+    import torch
+
+    from semisupervisedobjectdetection_torch import bench, losses
+    from semisupervisedobjectdetection_torch.core.config import mit_b5
+    from semisupervisedobjectdetection_torch.models.segformer import (
+        SegFormer,
+        init_weights,
+    )
+    from semisupervisedobjectdetection_torch.train.common import (
+        forward_masks,
+        grads_of,
+    )
+    from semisupervisedobjectdetection_torch.train.ema import ema_semi_step
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = mit_b5(dtype="float32")
+    rates = (cfg.drop_path_rate, cfg.classifier_dropout)
+    rng = np.random.default_rng(SEED + 1)
+    x = torch.from_numpy(rng.uniform(size=(2, IMG, IMG, 3))
+                         .astype(np.float32)).cuda()
+    gt, tm = (torch.from_numpy((rng.uniform(size=(2, IMG, IMG)) > p)
+                               .astype(np.float32)).cuda()
+              for p in (0.7, 0.5))
+    grads, stats, launches = {}, {}, {}
+    for impl in ("kernel", "plain"):
+        model = init_weights(SegFormer(cfg.replace(attn_impl=impl)),
+                             torch.Generator().manual_seed(SEED)).cuda()
+        _reset_counts()
+        pred, _, stats[impl] = forward_masks(
+            model, x, train_mode=True,
+            generator=torch.Generator(device=dev).manual_seed(SEED))
+        loss = 0.8 * losses.dice_loss(pred, gt) + \
+            0.2 * losses.dice_loss(pred, tm)
+        grads[impl] = grads_of(loss, dict(model.named_parameters()))
+        torch.cuda.synchronize()
+        launches[impl] = _counts()[:2]
+        initial = {n: b.clone() for n, b in _bn_stats(model).items()}
+        del model, pred, loss
+    scales = {n: g.abs().max().item() for n, g in grads["plain"].items()}
+    floor = GRAD_SCALE_FLOOR * max(scales.values())
+    rel = {n: (gk - grads["plain"][n]).abs().max().item()
+           / max(scales[n], floor) for n, gk in grads["kernel"].items()}
+    worst = [(n, r, scales[n]) for n, r in
+             sorted(rel.items(), key=lambda kv: -kv[1])[:5]]
+    finite = all(bool(torch.isfinite(g).all().item())
+                 for g in grads["kernel"].values())
+    bn_err = max((a - stats["plain"][n]).abs().max().item()
+                 / max(1.0, stats["plain"][n].abs().max().item())
+                 for n, a in stats["kernel"].items())
+    bn_moved = all(not torch.equal(stats["kernel"][n], t)
+                   for n, t in initial.items())
+    del grads, stats
+    torch.cuda.empty_cache()
+
+    # two flagship train-mode EMA steps from one state and one seed
+    flag = bench.flagship_config()
+    batch = ACCUM * MICRO
+    compare, step_launches, student_bn_moved, step_ms = {}, {}, {}, {}
+    for impl in ("kernel", "plain"):
+        w = bench.make_workload(flag.replace(attn_impl=impl), batch, IMG,
+                                ACCUM, dev, seed=SEED)
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        initial = {n: b.clone() for n, b in _bn_stats(w.student.model)
+                   .items()}
+        compare[impl], step_ms[impl] = [], []
+        _reset_counts()
+        for _ in range(2):
+            t0 = time.perf_counter()
+            o = ema_semi_step(w.teacher, w.student, w.unlabeled, w.images,
+                              w.masks, bench.SUPERVISE_WEIGHT,
+                              bench.EMA_DECAY, accum=ACCUM, train_mode=True,
+                              generator=g)
+            compare[impl].append(_step_losses(o) + [float(o.n_kept)])
+            step_ms[impl].append((time.perf_counter() - t0) * 1e3)
+        step_launches[impl] = _counts()
+        student_bn_moved[impl] = all(
+            not torch.equal(b, initial[n])
+            for n, b in _bn_stats(w.student.model).items())
+        del w, o
+        torch.cuda.empty_cache()
+    loss_diff = max(abs(a - b) for sk, sp in zip(compare["kernel"],
+                                                 compare["plain"])
+                    for a, b in zip(sk[:3], sp[:3]))
+    kept_diff = max(abs(sk[4] - sp[4]) for sk, sp in zip(compare["kernel"],
+                                                         compare["plain"]))
+    pseudo_ok = all(
+        (math.isnan(sk[3]) and math.isnan(sp[3]))
+        or abs(sk[3] - sp[3]) <= TRAIN_LOSS_TOL
+        or sk[4] != sp[4]
+        for sk, sp in zip(compare["kernel"], compare["plain"]))
+    k1, k2, k1_mma = step_launches["kernel"]
+    row = {"phase": "train_mode", "variant": "b5", "img": IMG,
+           "drop_path_rate": rates[0], "classifier_dropout": rates[1],
+           "f32_batch": 2, "tensors": len(rel), "max_rel_diff": worst[0][1],
+           "worst_name_rel_scale": worst, "tol_rel": GRAD_F32_TOL,
+           "scale_floor": floor, "bn_max_rel_diff": bn_err,
+           "bn_tol": TRAIN_MODE_BN_TOL, "bn_moved": bn_moved,
+           "f32_launches_k1_k2": launches["kernel"],
+           "f32_launches_plain_path": launches["plain"],
+           "flagship_steps": compare, "loss_max_abs_diff": loss_diff,
+           "loss_tol": TRAIN_LOSS_TOL, "kept_max_diff": kept_diff,
+           "kept_tol": TRAIN_KEPT_TOL,
+           "launches_k1": k1, "launches_k2": k2, "launches_k1_mma": k1_mma,
+           "launches_plain_path": step_launches["plain"][:2],
+           "student_bn_moved": student_bn_moved,
+           "step_ms_kernel_plain": step_ms, "card": smi}
+    emit(row)
+    per = sum(cfg.depths)
+    if launches["kernel"] != (2 * per, per) or launches["plain"] != (0, 0):
+        raise AssertionError(f"train-mode launches {launches}: expected K1 "
+                             f"{2 * per} and K2 {per}")
+    if not finite or worst[0][1] > GRAD_F32_TOL:
+        raise AssertionError("B5 float32 train-mode gradients through the "
+                             "kernels disagree with the plain path")
+    if bn_err > TRAIN_MODE_BN_TOL or not bn_moved:
+        raise AssertionError(f"train-mode BatchNorm statistics: error "
+                             f"{bn_err}, moved {bn_moved}")
+    if (k1, k2, k1_mma) != (2 * K1_PER_STEP, 2 * K2_PER_STEP,
+                            2 * K1_PER_STEP) or \
+            step_launches["plain"][:2] != (0, 0):
+        raise AssertionError(f"train-mode EMA launches {step_launches}: "
+                             f"expected {K1_PER_STEP} tensor-core K1 and "
+                             f"{K2_PER_STEP} K2 per step")
+    if not all(math.isfinite(v) for r in compare["kernel"] for v in r[:3]) \
+            or not all(student_bn_moved.values()):
+        raise AssertionError("bad train-mode EMA steps")
+    if loss_diff > TRAIN_LOSS_TOL or kept_diff > TRAIN_KEPT_TOL or \
+            not pseudo_ok:
+        raise AssertionError("kernel and plain train-mode EMA steps "
+                             "disagree")
+    return row
+
+
+def phase_augment(smi: str):
+    import torch
+
+    from semisupervisedobjectdetection_torch.data.augment import (
+        augment_batch,
+        draw_choices,
+        eval_batch,
+    )
+
+    g = torch.Generator().manual_seed(SEED)
+    b, crop = TEACHER_BATCH, 500
+    imgs = torch.randint(0, 256, (b, IMG, IMG, 3), dtype=torch.uint8,
+                         generator=g)
+    masks = (torch.rand(b, IMG, IMG, generator=g) > 0.7).to(torch.uint8) \
+        * 255
+    choices = draw_choices(b, IMG, IMG, crop, 0.75, g)
+    gi, gm = imgs.cuda(), masks.cuda()
+    cases = {
+        "augment": lambda i, m: augment_batch(i, m, crop=crop, out_h=IMG,
+                                              out_w=IMG, choices=choices),
+        "eval": lambda i, m: eval_batch(i, m, out_h=IMG, out_w=IMG),
+        "eval_shrink": lambda i, m: eval_batch(i, m, out_h=IMG // 2,
+                                               out_w=IMG // 2),
+    }
+    rows = {}
+    for name, fn in cases.items():
+        t0 = time.perf_counter()
+        ci, cm = fn(imgs, masks)
+        cpu_s = time.perf_counter() - t0
+        di, dm = fn(gi, gm)
+        rows[name] = {"img_max_abs_err": (di.cpu() - ci).abs().max().item(),
+                      "masks_equal": bool(torch.equal(dm.cpu(), cm)),
+                      "ms": cuda_ms(lambda: fn(gi, gm), iters=10),
+                      "cpu_ms": cpu_s * 1e3,
+                      "shape": list(di.shape)}
+    row = {"phase": "augment", "batch": b, "canvas": IMG, "crop": crop,
+           "out": IMG, "tol": AUGMENT_TOL, "cases": rows,
+           "branches": torch.bincount(choices.branch, minlength=4).tolist(),
+           "card": smi}
+    emit(row)
+    bad = [n for n, r in rows.items()
+           if r["img_max_abs_err"] > AUGMENT_TOL or not r["masks_equal"]]
+    if bad:
+        raise AssertionError(f"augmentation on the card differs from the "
+                             f"CPU: {bad}")
+    return row
+
+
+def phase_cli(smi: str, bench_step_ms: float, train_mode_step_ms: float):
+    import csv
+    import math
+    import tempfile
+
+    import torch
+
+    from semisupervisedobjectdetection_torch.checkpoint.io import load_last
+    from semisupervisedobjectdetection_torch.cli import teacher_student
+    from semisupervisedobjectdetection_torch.core.config import (
+        TrainConfig,
+        mit_b5,
+    )
+    from semisupervisedobjectdetection_torch.models.segformer import (
+        SegFormer,
+    )
+    from semisupervisedobjectdetection_torch.train.state import TrainState
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    old_tmp, tempfile.tempdir = tempfile.tempdir, root  # the tiles too
+    ck = os.path.join(root, "ck")
+    argv = ["--ema-mode", "--synthetic", "--synthetic-n", str(CLI_TILES),
+            "--variant", "b5", "--img-size", str(IMG), "--batch-size",
+            str(TEACHER_BATCH), "--grad-accum", str(ACCUM), "--perf",
+            "--resume", "--checkpoint-dir", ck, "--seed", str(SEED)]
+    try:
+        _reset_counts()
+        t0 = time.perf_counter()
+        first = teacher_student.main(argv + [
+            "--epochs", "2", "--metrics-csv", os.path.join(root, "m.csv")])
+        run_s = time.perf_counter() - t0
+        launches = _counts()
+        with open(os.path.join(root, "m.csv")) as f:
+            rows = list(csv.DictReader(f))
+        names = sorted(os.listdir(ck))
+        disk = shutil.disk_usage(root)
+        # load_last gives back what was saved
+        saved = torch.load(os.path.join(ck, "ts_student_last.pt"),
+                           map_location="cpu", weights_only=True)
+        template = TrainState.create(
+            SegFormer(mit_b5(dtype="bfloat16", gelu_approx=True)).cuda(),
+            TrainConfig())
+        got = load_last(ck, "ts_student", template)
+        want = {**{"model." + k: v for k, v in saved["model"].items()},
+                **{"mu." + k: v for k, v in saved["mu"].items()},
+                **{"nu." + k: v for k, v in saved["nu"].items()},
+                "count": saved["count"], "epoch": saved["epoch"]}
+        have = {**{"model." + k: v for k, v in
+                   template.model.state_dict().items()},
+                **{"mu." + k: v for k, v in template.mu.items()},
+                **{"nu." + k: v for k, v in template.nu.items()},
+                "count": template.count, "epoch": template.epoch}
+        round_trip = set(want) == set(have) and all(
+            torch.equal(have[k].cpu(), v) for k, v in want.items())
+        bn = {n: saved["model"]["decode_head.batch_norm." + n]
+              for n in ("running_mean", "running_var")}
+        bn_moved = bool(bn["running_mean"].abs().max() > 0) and \
+            bool((bn["running_var"] - 1.0).abs().max() > 0)
+        next_epoch = got[1]
+        del template, saved, want, have, got
+        torch.cuda.empty_cache()
+        _reset_counts()
+        # the resumed epoch stages its batches inline (--prefetch 0): its
+        # step time beside the first run's shows what the prefetch thread
+        # costs the host-bound step
+        second = teacher_student.main(argv + [
+            "--epochs", "3", "--prefetch", "0",
+            "--metrics-csv", os.path.join(root, "m2.csv")])
+        launches_second = _counts()
+        with open(os.path.join(root, "m2.csv")) as f:
+            rows2 = list(csv.DictReader(f))
+    finally:
+        tempfile.tempdir = old_tmp
+        shutil.rmtree(root, ignore_errors=True)
+    per_step = [(r["launches_train"][0] / max(r["train_steps"], 1),
+                 r["launches_train"][1] / max(r["train_steps"], 1))
+                for r in first + second]
+    epochs = [{k: r[k] for k in ("epoch", "epoch_s", "train_steps",
+                                 "train_s", "train_img_per_s",
+                                 "prefetch_wait_s", "eval_s", "checkpoint_s",
+                                 "peak_bytes", "launches_train",
+                                 "launches_eval_k1")}
+              for r in first + second]
+    for e, depth in zip(epochs, [1] * len(first) + [0] * len(second)):
+        e["prefetch"] = depth
+        steps = max(e["train_steps"], 1)
+        e["step_ms"] = e["train_s"] / steps * 1e3
+        e["step_ms_excl_wait"] = (e["train_s"] - e["prefetch_wait_s"]) \
+            / steps * 1e3
+    row = {"phase": "cli", "argv": argv, "run_s": run_s,
+           "epochs": epochs, "bench_step_ms": bench_step_ms,
+           "train_mode_step_ms": train_mode_step_ms,
+           "csv_rows": rows, "csv_rows_resumed": rows2,
+           "checkpoints": names, "disk_free_bytes": disk.free,
+           "launches_k1_k2_k1mma": launches,
+           "launches_resumed_run": launches_second,
+           "launches_per_train_step": per_step,
+           "launches_expected_per_step": [K1_PER_STEP, K2_PER_STEP],
+           "student_bn_moved": bn_moved, "load_last_exact": round_trip,
+           "card": smi}
+    emit(row)
+    if len(rows) != 2 or not all(
+            math.isfinite(float(r["train_loss"]))
+            and math.isfinite(float(r["eval_loss"]))
+            and 0.0 <= float(r["miou"]) <= 1.0 for r in rows):
+        raise AssertionError(f"CLI CSV rows {rows}")
+    if any(p != (K1_PER_STEP, K2_PER_STEP) for p in per_step) or \
+            any(r["launches_eval_k1"] != 2 * sum(B5_DEPTHS)
+                for r in first + second) or \
+            [r["train_steps"] for r in first + second] != \
+            [CLI_STEPS_PER_EPOCH] * 3 or launches[2] != launches[0]:
+        raise AssertionError(f"CLI launches per train step {per_step}, "
+                             f"eval {[r['launches_eval_k1'] for r in first]}")
+    for prefix in ("ts_teacher", "ts_student"):
+        if f"{prefix}_last.pt" not in names or not any(
+                n.startswith(prefix + "_epoch_") for n in names):
+            raise AssertionError(f"missing {prefix} checkpoints: {names}")
+    if not bn_moved or not round_trip or next_epoch != 2:
+        raise AssertionError(f"BatchNorm moved {bn_moved}, load_last exact "
+                             f"{round_trip}, next epoch {next_epoch}")
+    if [r["epoch"] for r in second] != [2] or \
+            [r["step"] for r in rows2] != ["2"]:
+        raise AssertionError("the resumed CLI run did not start at epoch 2")
+    return row
+
+
 def _stage_sum(rows, b, key, only_bytes=False):
     """Sum of `key` over one pass of the B5 stages in bf16 at batch b
     (depth launches per stage shape); with `only_bytes`, over the stages
@@ -873,7 +1232,7 @@ def _kernel_entry(rows, passes, **fields):
             "library_ms": total("library_ms"), "ok": True}
 
 
-def summary(k1_rows, k2_rows, train, serve):
+def summary(k1_rows, k2_rows, train, serve, train_mode, cli):
     """The `kernels` line: each kernel's times, bound and plain/library
     times summed over what its main path runs, with its launches there: K1's
     tensor-core kernel (`sr_attention_fwd`) and K2 over one flagship EMA
@@ -897,7 +1256,13 @@ def summary(k1_rows, k2_rows, train, serve):
         launches_per="4 timed EMA steps",
         earlier_ms=sum(n * _stage_sum(mma_rows, b, "scalar_ms")
                        for b, n in step),
-        earlier_design="scalar, on the same inputs in this run")
+        earlier_design="scalar, on the same inputs in this run",
+        launches_by_path={
+            "train (4 timed EMA steps)": train["launches_k1_mma"],
+            "train_mode (2 flagship train-mode EMA steps)":
+                train_mode["launches_k1_mma"],
+            "cli (2 epochs: 4 train steps, 2 eval batches of 21 x 2 "
+            "models)": cli["launches_k1_k2_k1mma"][2]})
     k1_scalar = _kernel_entry(
         [r for r in k1_rows if r["design"] == "scalar"], ((BATCH, 1),),
         name="sr_attention_fwd_scalar", route="cuda", design="scalar",
@@ -905,7 +1270,8 @@ def summary(k1_rows, k2_rows, train, serve):
         launches=serve["launches"],
         per=f"one serve forward: B5 512x512 bf16 at batch {BATCH}, "
             f"{sum(B5_DEPTHS)} launches",
-        launches_per=f"the serve phase ({serve['batches']} batches)")
+        launches_per=f"the serve phase ({serve['batches']} batches)",
+        launches_by_path={"serve": serve["launches"]})
     k2 = _kernel_entry(
         k2_rows, ((MICRO, ACCUM),),
         name="sr_attention_bwd", route="cuda", design="mma",
@@ -914,7 +1280,12 @@ def summary(k1_rows, k2_rows, train, serve):
         max_rel_err=max(r["rel_err"] for r in k2_rows),
         per="one flagship EMA step: 2 x the student backward at batch 16, "
             f"B5 512x512 bf16, {K2_PER_STEP} launches",
-        launches_per="4 timed EMA steps")
+        launches_per="4 timed EMA steps",
+        launches_by_path={
+            "train (4 timed EMA steps)": train["launches_k2"],
+            "train_mode (2 flagship train-mode EMA steps)":
+                train_mode["launches_k2"],
+            "cli (2 epochs: 4 train steps)": cli["launches_k1_k2_k1mma"][1]})
     return [k1, k1_scalar, k2]
 
 
@@ -940,14 +1311,22 @@ def main() -> int:
                           ("model", phase_model_f32),
                           ("serve", lambda: phase_serve(smi)),
                           ("grad", phase_grad),
-                          ("train", lambda: phase_train(smi))):
+                          ("train", lambda: phase_train(smi)),
+                          ("train_mode", lambda: phase_train_mode(smi)),
+                          ("augment", lambda: phase_augment(smi)),
+                          ("cli", lambda: phase_cli(
+                              smi, results["train"]["step_ms"],
+                              results["train_mode"]["step_ms_kernel_plain"]
+                              ["kernel"][-1]))):
             t = time.perf_counter()
             results[phase] = fn()
             seconds[phase] = round(time.perf_counter() - t, 2)
             emit({"phase": phase, "seconds": seconds[phase]})
         kernels = {"kernels": summary(results["kernel"],
                                       results["kernel_bwd"],
-                                      results["train"], results["serve"])}
+                                      results["train"], results["serve"],
+                                      results["train_mode"],
+                                      results["cli"])}
         emit({"phase": "total", "seconds": round(time.perf_counter() - t0,
                                                  2), "per_phase": seconds})
     except Exception as e:

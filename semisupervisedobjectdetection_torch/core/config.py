@@ -1,8 +1,9 @@
-"""Model configuration of the PyTorch port.
+"""Model, data and training configuration of the PyTorch port.
 
 The port's own copy of the MiT variants of the JAX package's
-`core/config.py` (`MiTConfig`, `mit_b0`..`mit_b5`, `MIT_VARIANTS`) and of
-its optimizer constants (`TrainConfig`), with the same values. Fields that
+`core/config.py` (`MiTConfig`, `mit_b0`..`mit_b5`, `MIT_VARIANTS`), of its
+tile-data settings (`DataConfig`) and of its optimizer constants
+(`TrainConfig`), with the same values. Fields that
 only steer JAX compilation (`scan_unroll`, `ffn_impl`) are left out, and so
 is `quant`, which belongs to the quantized-serving slice. `attn_impl` names
 the port's own choices; `remat` takes the JAX package's "full" and "none".
@@ -11,7 +12,7 @@ the port's own choices; `remat` takes the JAX package's "full" and "none".
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 ATTN_IMPLS = ("kernel", "plain")
 REMAT_POLICIES = ("full", "none")
@@ -138,19 +139,66 @@ MIT_VARIANTS = {
 
 
 @dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Tile dataset and augmentation settings.
+
+    The host decodes tiles to a fixed-size uint8 canvas; the device applies
+    the random crop, one of flip/rot90, the /255 normalisation and the
+    resize (`data/augment.py`), the reference's albumentations chain."""
+
+    dataset: Optional[str] = None           # labeled train tiles
+    evalset: Optional[str] = None           # labeled eval tiles
+    unlabeledset: Optional[str] = None      # unlabeled tiles
+    pseudoset: Optional[str] = None         # unlabeled tiles for pseudo-labels
+    labeled_classified: Optional[str] = None    # per-domain labeled dirs
+    unlabeled_classified: Optional[str] = None  # per-domain unlabeled dirs
+    maskdir: Optional[str] = None           # ground-truth masks
+
+    img_h: int = 512
+    img_w: int = 512
+    canvas: int = 512        # host-side fixed canvas fed to the augmenter
+    crop: int = 500          # random crop size
+    aug_prob: float = 0.75   # probability of one of hflip / vflip / rot90
+    batch_size: int = 20
+    few_shot_batch_size: int = 2
+    drop_last: bool = True
+    shuffle: bool = True
+    # The reference runs its random train chain at eval time too; off by
+    # default because it makes eval metrics stochastic (CLI
+    # --reference-eval-aug turns it on).
+    reference_eval_aug: bool = False
+    # "raise" (a corrupt tile stops the run) or "substitute" (CLI
+    # --skip-bad-tiles: warn once and batch a readable tile in its place).
+    bad_tile_policy: str = "raise"
+    # >0 (CLI --cache-tiles MB): keep decoded canvas tiles in an LRU cache
+    # in host RAM up to this budget, so later epochs skip the PNG decode.
+    cache_mb: float = 0.0
+
+    def replace(self, **kw) -> "DataConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Optimizer constants of the JAX package's `TrainConfig`: Adam with
     torch's betas (0.5, 0.999) and weight decay folded into the gradient,
     gradient-value clipping, and an exponential learning-rate decay stepped
-    per epoch."""
+    per epoch.
+
+    `reference_quirks` (default on) reproduces the reference's behaviour;
+    for the semi-supervised loops that means the student's forward runs in
+    train mode: drop-path, classifier dropout and BatchNorm on batch
+    statistics (`--no-quirks` turns it off)."""
 
     lr: float = 1e-5
     weight_decay: float = 5e-5
+    epochs: int = 50
     lr_decay: float = 0.97
     adam_b1: float = 0.5
     adam_b2: float = 0.999
     adam_eps: float = 1e-8
     grad_clip_value: float = 1.2
+    reference_quirks: bool = True
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)

@@ -1,6 +1,7 @@
 """Segmentation losses of the JAX package's `losses.py` that the EMA step
-uses, in PyTorch: dice with smooth 1 over each sample flattened, and the
-binarised ("argmax") dice of the eval metric. Everything is float32."""
+and its evaluation use, in PyTorch: dice with smooth 1 over each sample
+flattened, the binarised ("argmax") dice of the eval metric, and the
+`segmentation_loss` front end over the two. Everything is float32."""
 
 from __future__ import annotations
 
@@ -42,3 +43,21 @@ def dice_argmax_loss(pred: torch.Tensor, gt: torch.Tensor,
     """1 - dice of the predictions binarised at 0.5 (the eval metric)."""
     pred_bin = torch.where(pred >= 0.5, 1.0, 0.0)
     return 1.0 - dice_coeff(pred_bin, gt, sample_weight=sample_weight)
+
+
+def segmentation_loss(pred: torch.Tensor, gt: torch.Tensor,
+                      loss_type: str = "dice",
+                      sample_weight: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """The reference's `SegmentationLoss.forward` for one class, over the
+    ported branches: "dice" and "dice_argmax" (alias "argmax"). The "mse"
+    and "cross_entropy" branches belong to loops not ported yet."""
+    if loss_type == "dice":
+        return dice_loss(pred, gt, sample_weight)
+    if loss_type in ("dice_argmax", "argmax"):
+        return dice_argmax_loss(pred, gt, sample_weight)
+    if loss_type in ("mse", "cross_entropy"):
+        raise NotImplementedError(
+            f"loss_type {loss_type!r} is not ported yet; ROADMAP.md "
+            "Queue 1 names the loops that use it")
+    raise ValueError(f"unknown loss_type: {loss_type}")

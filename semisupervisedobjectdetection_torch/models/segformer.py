@@ -1,9 +1,17 @@
 """SegFormer (MiT encoder + all-MLP decode head) in PyTorch.
 
-The counterpart of the JAX package's `models/segformer.py` in eval mode:
-deterministic, no dropout or drop-path, BatchNorm on its running statistics
-(the JAX `train_mode=False` forward, which the EMA step trains through). It
-keeps that model's prompt-tuning and domain-CLS behaviour:
+The counterpart of the JAX package's `models/segformer.py`. The default
+forward is its eval mode (the JAX `train_mode=False` forward): no dropout or
+drop-path, BatchNorm on its running statistics. Given a `TrainDraws`, the
+forward is its train mode: per-sample drop-path on both residual branches
+of every layer at the linear rate schedule, classifier dropout, and the
+decode head's BatchNorm on batch statistics, which it also returns so the
+caller can update the running ones. All randomness comes from an explicit
+`torch.Generator`; the drop-path masks of a whole forward are drawn before
+it starts, so a layer recomputed under `torch.utils.checkpoint` sees the
+same masks. Attention and hidden dropout are not ported (both rates are 0
+in every config the system runs). It keeps the JAX model's prompt-tuning
+and domain-CLS behaviour:
 
 1. Prompt tokens are prepended at every layer of a stage and skip the
    spatial sequence-reduction conv inside attention, but not its LayerNorm.
@@ -31,8 +39,11 @@ when gradients are recorded, the counterpart of the JAX `nn.remat(Block)`.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -47,6 +58,75 @@ from semisupervisedobjectdetection_torch.ops.sr_attention import (
 
 def compute_dtype(cfg: MiTConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+# flax `nn.BatchNorm(momentum=0.9)`: running <- 0.9 running + 0.1 batch
+BN_MOMENTUM = 0.9
+
+
+def drop_path_rates(cfg: MiTConfig) -> np.ndarray:
+    """The drop-path rate of every encoder layer, in layer order: linear
+    from 0 to `cfg.drop_path_rate` over all stages, as the JAX model's
+    `np.linspace(0, drop_path_rate, sum(depths))`."""
+    return np.linspace(0.0, cfg.drop_path_rate, sum(cfg.depths))
+
+
+@dataclasses.dataclass
+class TrainDraws:
+    """The randomness of one train-mode forward.
+
+    `keep` is the (layers, 2, B) drop-path mask (1 keep, 0 drop) of the
+    attention and MLP branches of every layer, in the compute dtype, and
+    `keep_prob` the (layers,) keep probabilities it was drawn with; both are
+    None when `drop_path_rate` is 0. `generator` draws the classifier
+    dropout mask in the decode head (None when `classifier_dropout` is 0)."""
+
+    keep: Optional[torch.Tensor]
+    keep_prob: Optional[torch.Tensor]
+    generator: Optional[torch.Generator]
+
+    @classmethod
+    def draw(cls, cfg: MiTConfig, batch: int,
+             generator: Optional[torch.Generator],
+             device: torch.device) -> "TrainDraws":
+        """Draw every drop-path mask of one forward over `batch` images
+        from `generator` (on `device`), keeping it for the classifier
+        dropout. Raises for attention or hidden dropout, which are not
+        ported."""
+        if cfg.attention_dropout > 0 or cfg.hidden_dropout > 0:
+            raise NotImplementedError(
+                "attention_dropout and hidden_dropout > 0 in train mode are "
+                "not ported yet (neither SR-attention kernel does dropout); "
+                "ROADMAP.md Queue 1 names them")
+        needs = cfg.drop_path_rate > 0 or cfg.classifier_dropout > 0
+        if needs and generator is None:
+            raise ValueError("a train-mode forward with drop-path or "
+                             "classifier dropout needs a torch.Generator")
+        keep = keep_prob = None
+        if cfg.drop_path_rate > 0:
+            keep_prob = _keep_prob(cfg, torch.device(device))
+            u = torch.rand((len(keep_prob), 2, batch), generator=generator,
+                           device=device)
+            keep = (u < keep_prob.float()[:, None, None]).to(keep_prob.dtype)
+        return cls(keep, keep_prob,
+                   generator if cfg.classifier_dropout > 0 else None)
+
+
+@functools.lru_cache(maxsize=None)
+def _keep_prob(cfg: MiTConfig, device: torch.device) -> torch.Tensor:
+    """1 - the drop-path rates, in the compute dtype as the JAX model holds
+    them, put on `device` once (a copy to the card per step would make the
+    host wait for the card)."""
+    rates = torch.from_numpy(drop_path_rates(cfg)).to(compute_dtype(cfg))
+    return (1.0 - rates).to(device)
+
+
+def _drop_path(x: torch.Tensor, keep: Optional[torch.Tensor],
+               keep_prob: Optional[torch.Tensor]) -> torch.Tensor:
+    """Per-sample stochastic depth: x / keep_prob * keep, `keep` (B,)."""
+    if keep is None:
+        return x
+    return x / keep_prob * keep.view(-1, *([1] * (x.dim() - 1)))
 
 
 class Linear(nn.Linear):
@@ -209,8 +289,12 @@ class Block(nn.Module):
 
     def forward(self, tokens: torch.Tensor, h: int, w: int,
                 prompt: Optional[torch.Tensor],
-                carried: Optional[torch.Tensor]
+                carried: Optional[torch.Tensor],
+                keep: Optional[torch.Tensor] = None,
+                keep_prob: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """`keep` (2, B) and `keep_prob` (a scalar): this layer's drop-path
+        mask of the attention and MLP branches (None: no drop-path)."""
         b = tokens.shape[0]
         parts = []
         if carried is not None:
@@ -219,10 +303,13 @@ class Block(nn.Module):
             parts.append(prompt.to(tokens.dtype).expand(b, -1, -1))
         n_prefix = sum(p.shape[1] for p in parts)
         stream = torch.cat(parts + [tokens], 1) if parts else tokens
-        stream = stream + self.attention(self.layer_norm_1(stream), h, w,
-                                         n_prefix)
+        keep_a, keep_m = (None, None) if keep is None else keep
+        stream = stream + _drop_path(
+            self.attention(self.layer_norm_1(stream), h, w, n_prefix),
+            keep_a, keep_prob)
         tokens = stream[:, n_prefix:]
-        tokens = tokens + self.mlp(self.layer_norm_2(tokens), h, w)
+        tokens = tokens + _drop_path(
+            self.mlp(self.layer_norm_2(tokens), h, w), keep_m, keep_prob)
         new_carried = stream[:, :1] if carried is not None else None
         return tokens, new_carried
 
@@ -259,10 +346,12 @@ class MiTEncoder(nn.Module):
                         "is carried across a stage")
                 self.cls_token[str(i)] = nn.Parameter(torch.zeros(1, c))
 
-    def forward(self, pixel_values: torch.Tensor
+    def forward(self, pixel_values: torch.Tensor,
+                train: Optional[TrainDraws] = None
                 ) -> Tuple[List[torch.Tensor], List[Optional[torch.Tensor]]]:
         """NHWC images -> (per-stage NHWC features, per-stage carried CLS
-        (B, 1, C_i) or None)."""
+        (B, 1, C_i) or None); `train` holds the drop-path masks of a
+        train-mode forward."""
         dtype = compute_dtype(self.cfg)
         x = pixel_values.permute(0, 3, 1, 2).to(dtype)
         b = x.shape[0]
@@ -276,14 +365,21 @@ class MiTEncoder(nn.Module):
                 carried = self.cls_token[str(i)].to(dtype)[None].expand(
                     b, -1, -1)
             remat = self.cfg.remat == "full" and torch.is_grad_enabled()
+            first = sum(self.cfg.depths[:i])
             for j, blk in enumerate(self.block[i]):
                 p = prompt[j] if (prompt is not None
                                   and self.cfg.prompt_per_layer) else prompt
+                keep = keep_prob = None
+                if train is not None and train.keep is not None:
+                    keep = train.keep[first + j]
+                    keep_prob = train.keep_prob[first + j]
                 if remat:
                     tokens, carried = checkpoint(blk, tokens, h, w, p,
-                                                 carried, use_reentrant=False)
+                                                 carried, keep, keep_prob,
+                                                 use_reentrant=False)
                 else:
-                    tokens, carried = blk(tokens, h, w, p, carried)
+                    tokens, carried = blk(tokens, h, w, p, carried, keep,
+                                          keep_prob)
             tokens = self.layer_norm[i](tokens)
             c = tokens.shape[-1]
             hidden_states.append(tokens.reshape(b, h, w, c))
@@ -330,9 +426,14 @@ class DecodeHead(nn.Module):
         self.classifier = Conv2d(d, cfg.num_labels, 1)
 
     def forward(self, hidden_states: List[torch.Tensor],
-                cls_final: Optional[torch.Tensor]) -> torch.Tensor:
-        """NHWC stage features (+ sigmoid CLS (B,1,C) f32) -> NHWC logits
-        in the compute dtype."""
+                cls_final: Optional[torch.Tensor],
+                train: Optional[TrainDraws] = None
+                ) -> Tuple[torch.Tensor,
+                           Optional[Tuple[torch.Tensor, torch.Tensor]]]:
+        """NHWC stage features (+ sigmoid CLS (B,1,C) f32) -> (NHWC logits
+        in the compute dtype, the BatchNorm batch statistics (mean, biased
+        variance), float32 and detached, of a train-mode forward, else
+        None)."""
         dtype = compute_dtype(self.cfg)
         d, n = self.cfg.decoder_hidden, len(hidden_states)
         target = tuple(hidden_states[0].shape[1:3])
@@ -349,11 +450,30 @@ class DecodeHead(nn.Module):
                 x = upsample_bilinear(x, target)
             acc = x if acc is None else acc + x
         bn = self.batch_norm
-        x = F.batch_norm(acc.permute(0, 3, 1, 2).float(), bn.running_mean,
-                         bn.running_var, bn.weight, bn.bias, False, 0.0,
-                         bn.eps).to(dtype)
-        logits = self.classifier(F.relu(x))
-        return logits.permute(0, 2, 3, 1)
+        stats = None
+        if train is None:
+            x = F.batch_norm(acc.permute(0, 3, 1, 2).float(),
+                             bn.running_mean, bn.running_var, bn.weight,
+                             bn.bias, False, 0.0, bn.eps).to(dtype)
+            x = F.relu(x)
+        else:
+            # flax BatchNorm on batch statistics: float32 mean and
+            # E[x^2] - E[x]^2 (biased) over (B, H, W), then
+            # (x - mean) * (rsqrt(var + eps) * scale) + bias
+            xf = acc.float()
+            mean = xf.mean((0, 1, 2))
+            var = (xf.square().mean((0, 1, 2)) - mean.square()).clamp_min(0)
+            x = (xf - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) \
+                + bn.bias
+            x = F.relu(x.to(dtype)).permute(0, 3, 1, 2)
+            stats = (mean.detach(), var.detach())
+            if train.generator is not None:
+                keep = 1.0 - self.cfg.classifier_dropout
+                u = torch.rand(x.shape, generator=train.generator,
+                               device=x.device)
+                x = torch.where(u < keep, x / keep, torch.zeros_like(x))
+        logits = self.classifier(x)
+        return logits.permute(0, 2, 3, 1), stats
 
 
 class SegFormer(nn.Module):
@@ -366,13 +486,17 @@ class SegFormer(nn.Module):
         self.segformer = _Backbone(cfg)
         self.decode_head = DecodeHead(cfg)
 
-    def forward(self, pixel_values: torch.Tensor
-                ) -> Tuple[torch.Tensor, List[Optional[torch.Tensor]]]:
-        hidden_states, cls_list = self.segformer.encoder(pixel_values)
+    def forward(self, pixel_values: torch.Tensor,
+                train: Optional[TrainDraws] = None):
+        """Eval mode: (logits, cls_list). Train mode (`train` given):
+        (logits, cls_list, (BatchNorm batch mean, biased variance))."""
+        hidden_states, cls_list = self.segformer.encoder(pixel_values, train)
         cls_final = torch.sigmoid(cls_list[-1].float()) \
             if self.cfg.use_cls else None
-        logits = self.decode_head(hidden_states, cls_final)
-        return logits.float(), cls_list
+        logits, stats = self.decode_head(hidden_states, cls_final, train)
+        if train is None:
+            return logits.float(), cls_list
+        return logits.float(), cls_list, stats
 
 
 _DENSE = (nn.Linear, nn.Conv2d)
@@ -435,9 +559,9 @@ def predict_masks(logits: torch.Tensor, out_hw: Tuple[int, int]
     return masks[..., 0] if masks.shape[-1] == 1 else masks
 
 
-def forward_masks(model: SegFormer, images: torch.Tensor
-                  ) -> Tuple[torch.Tensor, List[Optional[torch.Tensor]]]:
-    """Eval forward returning sigmoid masks at the image size and the
-    per-stage CLS tokens."""
-    logits, cls_list = model(images)
-    return predict_masks(logits, tuple(images.shape[1:3])), cls_list
+def forward_masks(model: SegFormer, images: torch.Tensor,
+                  train: Optional[TrainDraws] = None):
+    """Sigmoid masks at the image size and the per-stage CLS tokens; in
+    train mode (`train` given) also the BatchNorm batch statistics."""
+    out = model(images, train)
+    return (predict_masks(out[0], tuple(images.shape[1:3])),) + out[1:]

@@ -11,21 +11,40 @@ from semisupervisedobjectdetection_torch.models import segformer
 
 
 def forward_masks(model: segformer.SegFormer, images: torch.Tensor, *,
-                  train_mode: bool = False
+                  train_mode: bool = False,
+                  generator: Optional[torch.Generator] = None,
+                  stats: Optional[Mapping[str, torch.Tensor]] = None
                   ) -> Tuple[torch.Tensor, List[Optional[torch.Tensor]],
-                             None]:
+                             Optional[Dict[str, torch.Tensor]]]:
     """Sigmoid masks at the image size, the per-stage CLS tokens and the new
-    BatchNorm statistics (None: the running statistics are used and kept).
+    BatchNorm statistics (None in eval mode: the running statistics are used
+    and kept). Differentiable when gradients are recorded.
 
-    This is the JAX `train_mode=False` forward (dropout and drop-path off,
-    BatchNorm on its running statistics), differentiable when gradients are
-    recorded. `train_mode=True` is not ported yet."""
-    if train_mode:
-        raise NotImplementedError(
-            "train_mode=True (dropout, drop-path and BatchNorm batch "
-            "statistics) is not ported yet; ROADMAP.md Queue 1 names it")
-    masks, cls_list = segformer.forward_masks(model, images)
-    return masks, cls_list, None
+    `train_mode=False` is the eval forward: no dropout or drop-path,
+    BatchNorm on its running statistics. `train_mode=True` draws the
+    drop-path and classifier-dropout masks from `generator` (on the images'
+    device) and normalises with the batch statistics; the new running
+    statistics are `0.9 * carried + 0.1 * batch` (biased variance), as flax
+    counts them, where `carried` is `stats` (name -> tensor, the model's
+    BatchNorm buffer names) or, when None, the model's own buffers, which
+    are left as they are."""
+    if not train_mode:
+        masks, cls_list = segformer.forward_masks(model, images)
+        return masks, cls_list, None
+    draws = segformer.TrainDraws.draw(model.cfg, images.shape[0], generator,
+                                      images.device)
+    masks, cls_list, (mean, var) = segformer.forward_masks(model, images,
+                                                           draws)
+    prefix = "decode_head.batch_norm."
+    bn = model.decode_head.batch_norm
+    carried = {prefix + "running_mean": bn.running_mean,
+               prefix + "running_var": bn.running_var}
+    if stats is not None:
+        carried = {n: stats[n] for n in carried}
+    m = segformer.BN_MOMENTUM
+    new_stats = {n: m * carried[n] + (1.0 - m) * batch
+                 for n, batch in zip(carried, (mean, var))}
+    return masks, cls_list, new_stats
 
 
 def grads_of(loss: torch.Tensor, params: Mapping[str, torch.Tensor]

@@ -1,7 +1,8 @@
 """Card-only tests of the port's CUDA kernels: `sr_attention_fwd` (its
 scalar and tensor-core kernels) and `sr_attention_bwd` against their plain
-versions on the card, gradients through `sr_attention` on CUDA, and the
-launch counts of a small EMA step.
+versions on the card, gradients through `sr_attention` on CUDA, the
+launch counts of a small EMA step, a train-mode gradient through the
+kernels, and the augmentation on the card against the CPU.
 Marked `cuda`; each skips without a CUDA device (decided in a fixture, not
 at import). On a machine with a card and no JAX:
 
@@ -226,3 +227,75 @@ def test_ema_step_launches_both_kernels(cuda):
     assert sr_attention_bwd.launches - b0 == 2 * 4
     assert torch.isfinite(out.student_loss_total).item()
     assert int(student.count) == 1
+
+
+def test_train_mode_gradients_through_the_kernels(cuda):
+    """A train-mode forward and backward (drop-path 0.3, classifier dropout
+    0.1, BatchNorm on batch statistics) of a float32 MiT-B0 with one layer
+    per stage at 64x64, through the kernels and through the plain path with
+    the same masks (one generator seed): every parameter gradient agrees to
+    1e-4 of the largest, the new BatchNorm statistics to 1e-5."""
+    from semisupervisedobjectdetection_torch import losses
+    from semisupervisedobjectdetection_torch.core.config import mit_b0
+    from semisupervisedobjectdetection_torch.models.segformer import (
+        SegFormer,
+        init_weights,
+    )
+    from semisupervisedobjectdetection_torch.train.common import (
+        forward_masks,
+        grads_of,
+    )
+
+    cfg = mit_b0(depths=(1, 1, 1, 1), drop_path_rate=0.3,
+                 classifier_dropout=0.1)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.rand(3, 64, 64, 3, device=cuda, generator=g)
+    gt = (torch.rand(3, 64, 64, device=cuda, generator=g) > 0.6).float()
+    got = {}
+    for impl in ("kernel", "plain"):
+        model = init_weights(SegFormer(cfg.replace(attn_impl=impl)),
+                             torch.Generator().manual_seed(0)).to(cuda)
+        b0 = sr_attention_bwd.launches
+        m, _, stats = forward_masks(
+            model, x, train_mode=True,
+            generator=torch.Generator(device=cuda).manual_seed(5))
+        grads = grads_of(losses.dice_loss(m, gt),
+                         dict(model.named_parameters()))
+        torch.cuda.synchronize()
+        got[impl] = (grads, stats, sr_attention_bwd.launches - b0)
+    assert got["kernel"][2] == 4 and got["plain"][2] == 0
+    scale = max(g.abs().max().item() for g in got["plain"][0].values())
+    for n, gk in got["kernel"][0].items():
+        assert (gk - got["plain"][0][n]).abs().max().item() <= 1e-4 * scale
+    for n, s in got["kernel"][1].items():
+        torch.testing.assert_close(s, got["plain"][1][n], rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_augmentation_on_the_card_equals_the_cpu(cuda):
+    """`augment_batch` with fixed choices and `eval_batch` (grow, shrink)
+    give on the card what they give on the CPU: images to 1e-5, masks
+    exactly."""
+    from semisupervisedobjectdetection_torch.data.augment import (
+        augment_batch,
+        draw_choices,
+        eval_batch,
+    )
+
+    g = torch.Generator().manual_seed(0)
+    imgs = torch.randint(0, 256, (8, 96, 96, 3), dtype=torch.uint8,
+                         generator=g)
+    masks = (torch.rand(8, 96, 96, generator=g) > 0.5).to(torch.uint8) * 255
+    choices = draw_choices(8, 96, 96, 90, 0.75, g)
+    cpu = augment_batch(imgs, masks, crop=90, out_h=96, out_w=96,
+                        choices=choices)
+    card = augment_batch(imgs.to(cuda), masks.to(cuda), crop=90, out_h=96,
+                         out_w=96, choices=choices)
+    for out in (96, 128, 48):
+        pairs = [(cpu, card)] if out == 96 else []
+        pairs.append((eval_batch(imgs, masks, out_h=out, out_w=out),
+                      eval_batch(imgs.to(cuda), masks.to(cuda), out_h=out,
+                                 out_w=out)))
+        for (ci, cm), (gi, gm) in pairs:
+            torch.testing.assert_close(gi.cpu(), ci, rtol=0, atol=1e-5)
+            assert torch.equal(gm.cpu(), cm)

@@ -26,7 +26,10 @@ def test_every_module_imports_without_jax():
     mods = _port_modules()
     for m in ("ops.sr_attention", "losses", "bench", "train.ema",
               "train.state", "train.pseudo", "train.common",
-              "train.teacher_student"):
+              "train.teacher_student", "train.supervised", "data.synthetic",
+              "data.tiles", "data.loader", "data.augment", "data.prefetch",
+              "eval.metrics", "utils.logging", "checkpoint.io",
+              "cli.common", "cli.teacher_student"):
         assert f"semisupervisedobjectdetection_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -356,9 +356,11 @@ def test_unported_options_raise():
         MiTConfig(remat="save:ln1+q")
     with pytest.raises(ValueError, match="remat"):
         MiTConfig(remat="some")
-    model = SegFormer(MiTConfig(**EMA_TINY))
-    with pytest.raises(NotImplementedError, match="train_mode"):
-        forward_masks(model, torch.zeros(1, SIZE, SIZE, 3), train_mode=True)
+    # train mode is ported; attention dropout in train mode is not
+    model = SegFormer(MiTConfig(**EMA_TINY, attention_dropout=0.1))
+    with pytest.raises(NotImplementedError, match="attention_dropout"):
+        forward_masks(model, torch.zeros(1, SIZE, SIZE, 3), train_mode=True,
+                      generator=torch.Generator())
 
 
 def test_remat_does_not_change_gradients():
