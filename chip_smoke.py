@@ -18,7 +18,9 @@ non-zero before the final line:
                 step's) at the four MiT-B5 512x512 stage shapes at batch 8,
                 16 (student) and 32 (teacher), the scalar kernel at batch 8
                 in bfloat16 (serving's) and float32, each also at two
-                shapes with a prompt/CLS prefix: max abs
+                shapes with a prompt/CLS prefix, and the tensor-core kernel
+                at the transfer step's four shapes (10 prompt tokens per
+                stage, Nk 266) at batch 16: max abs
                 error against a stated tolerance, and CUDA-event times of
                 the kernel (for the tensor-core rows also of the scalar
                 kernel on the same inputs, the design it replaced in
@@ -29,9 +31,10 @@ non-zero before the final line:
                 67 TFLOP/s f32).
 4. kernel_bwd - `sr_attention_bwd` (K2) against its plain version at the
                 four stage shapes and the two prefix shapes at batch 16, in
-                bfloat16 and float32: max error against a stated tolerance,
-                bit-equality of two launches, and the times of the kernel,
-                the plain version and the autograd backward of
+                bfloat16 and float32, and at the rest of the transfer step's
+                shapes (Nk 266) in bfloat16: max error against a stated
+                tolerance, bit-equality of two launches, and the times of
+                the kernel, the plain version and the autograd backward of
                 `F.scaled_dot_product_attention`, beside the bound.
 5. model      - MiT-B5 at 512x512 in float32, TF32 off: the kernel path and
                 the plain path agree on a batch of two images.
@@ -83,6 +86,47 @@ non-zero before the final line:
                 checkpoint seconds, the wait on the prefetcher and the peak
                 device memory.
 
+12. supervised - the supervised `train_step` (`train/supervised.py`) at the
+                flagship point (MiT-B5 512x512 bf16, tanh GELU, 32 images per
+                step in 2 microbatches of 16, seeded random weights), in eval
+                mode (the reference-quirks default) and in train mode: two
+                steps from one state through the kernels and through the
+                plain path agree on the losses, with K1 (tensor-core)
+                launched 208 and K2 104 times per step (forward and
+                recompute, and backward, of 52 layers in 2 microbatches), the
+                plain path none; ms per step and peak memory.
+13. transfer_grad - the float32 B5 transfer configuration through
+                `SegFormerModel`: stages 0 and 1 frozen, 10 shared prompt
+                tokens per stage, quirks off (the prompts train, train-mode
+                forward), batch 2, TF32 off. Gradients through the kernels
+                agree with the plain path per tensor; the frozen layers have
+                no gradient and no moments; the prompt tokens and the stage-0
+                and stage-1 patch embeddings get non-zero gradients (through
+                the frozen layers above them, so K2 runs in all 52 layers);
+                every K1 and K2 launch has Nk = 266.
+14. transfer_step - the transfer CLI's step in bfloat16 through
+                `SegFormerModel.train_one_epoch` at the flagship point (the
+                configuration of transfer_grad, 32 images per step in 2
+                microbatches of 16): two steps through the kernels and
+                through the plain path agree on the losses, with K1
+                (tensor-core) launched 208 and K2 104 times per step, every
+                launch at Nk = 266, the plain path none.
+15. sup_cli     - `cli/supervised.py::main` at the flagship point: 64
+                synthetic tiles, batch 32 in 2 microbatches, 2 epochs with
+                --resume, then a resumed third epoch, then `--predict
+                --dump-masks` from the best checkpoint: finite CSV rows, best
+                and `_last` checkpoints, the resume at epoch 2, 21 pairs of
+                mask PNGs, 208 K1 and 104 K2 launches per train step and 52
+                K1 per eval batch; per epoch its seconds, step time, eval and
+                checkpoint seconds and peak memory.
+16. transfer_cli - `cli/transfer.py::main` at the same point with --frozen
+                0,1 --prompt-tokens 10,10,10,10 --no-quirks, warm-started
+                from sup_cli's best checkpoint, 2 epochs: the frozen layers'
+                weights equal the warm start bit for bit after training, the
+                prompt tokens moved from their seeded init, the same launch
+                counts per step; and --prompt-tokens 40,40,40,40 (Nk = 296)
+                refused before any model or data is made.
+
 Then the `kernels` summary line, the `nvidia-smi` name/power-limit line and,
 last, {"ok": true, "device": {...}}.
 """
@@ -90,6 +134,8 @@ last, {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
+import gc
 import io
 import json
 import os
@@ -170,6 +216,22 @@ AUGMENT_TOL = 1e-5
 CLI_TILES = 64
 CLI_EVAL_BATCH = max(CLI_TILES // 3, 4)        # 21 eval tiles, one batch
 CLI_STEPS_PER_EPOCH = CLI_TILES // TEACHER_BATCH
+# The supervised step: each of the 2 microbatches of 16 runs a forward, a
+# recompute (full remat) and a backward through the 52 layers.
+SUP_K1_PER_STEP = ACCUM * 2 * sum(B5_DEPTHS)   # 208
+SUP_K2_PER_STEP = ACCUM * sum(B5_DEPTHS)       # 104
+# The transfer configuration: stages 0 and 1 frozen, 10 shared prompt tokens
+# per stage, so every layer's SR-attention sees 256 + 10 keys at 512x512.
+TRANSFER_FROZEN = (0, 1)
+TRANSFER_TOKENS = (10, 10, 10, 10)
+TRANSFER_NK = 266
+# (Nq, Nk, C, heads) of the transfer step's SR-attention: the prompt tokens
+# join each stage's queries and keys.
+TRANSFER_SHAPES = tuple((nq + t, nk + t, c, h) for (nq, nk, c, h), t
+                        in zip(STAGE_SHAPES, TRANSFER_TOKENS))
+TRANSFER_REFUSED_TOKENS = (40, 40, 40, 40)     # Nk = 296 > 288
+FROZEN_PREFIXES = tuple(f"segformer.encoder.block.{i}."
+                        for i in TRANSFER_FROZEN)
 
 
 def emit(obj) -> None:
@@ -378,6 +440,7 @@ def phase_build():
     from semisupervisedobjectdetection_torch.ops.sr_attention import (
         _BWD_SOURCE,
         _SOURCE,
+        MAX_NK,
         _bwd_lib,
         _lib,
     )
@@ -387,6 +450,11 @@ def phase_build():
         lib, bwd = [f.result() for f in [pool.submit(_lib),
                                          pool.submit(_bwd_lib)]]
     seconds = time.perf_counter() - t0
+    # the CLIs refuse, before building a model, what the kernels refuse
+    limits = (lib.sr_attention_fwd_max_nk(), bwd.sr_attention_bwd_max_nk())
+    if limits != (MAX_NK, MAX_NK):
+        raise AssertionError(f"kernels take Nk <= {limits}; the wrapper's "
+                             f"MAX_NK is {MAX_NK}")
     rows = []
     for source in (_SOURCE, _BWD_SOURCE):
         info = _build.BUILD_INFO[source]
@@ -438,7 +506,8 @@ def _k1_cases():
     """(batch, shape, dtype, design) of the K1 checks: the tensor-core
     kernel at the stage shapes at the serving, student and teacher batches;
     the scalar kernel at the serving batch in bf16 and f32; all three at the
-    prefix shapes at the serving batch."""
+    prefix shapes at the serving batch; the tensor-core kernel at the
+    transfer step's shapes at the student batch."""
     cases = [(b, s, "bfloat16", "mma") for b in (BATCH, MICRO, TEACHER_BATCH)
              for s in STAGE_SHAPES]
     cases += [(BATCH, s, d, "scalar") for d in ("bfloat16", "float32")
@@ -446,6 +515,7 @@ def _k1_cases():
     cases += [(BATCH, s, d, design) for s in PREFIX_SHAPES
               for d, design in (("bfloat16", "mma"), ("bfloat16", "scalar"),
                                 ("float32", "scalar"))]
+    cases += [(MICRO, s, "bfloat16", "mma") for s in TRANSFER_SHAPES]
     return cases
 
 
@@ -524,60 +594,65 @@ def phase_kernel_bwd():
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rows = []
-    for shape in STAGE_SHAPES + PREFIX_SHAPES:
+    # every stage and prefix shape in both types; the transfer step's shapes
+    # (bf16 only: its float32 gradients are transfer_grad's) not among them
+    cases = [(s, d) for s in STAGE_SHAPES + PREFIX_SHAPES
+             for d in ("bfloat16", "float32")]
+    cases += [(s, "bfloat16") for s in TRANSFER_SHAPES
+              if s not in PREFIX_SHAPES]
+    for shape, dtype_name in cases:
         nq, nk, c, h = shape
-        for dtype_name in ("bfloat16", "float32"):
-            dtype = getattr(torch, dtype_name)
-            q, k, v, g = (torch.randn(MICRO, n, c, device="cuda",
-                                      generator=gen).to(dtype)
-                          for n in (nq, nk, nk, nq))
-            got = sr_attention_bwd(q, k, v, g, h)
-            again = sr_attention_bwd(q, k, v, g, h)
-            torch.cuda.synchronize()
-            ref = sr_attention_backward_reference(q, k, v, g, h)
-            errs = [(a.float() - r.float()).abs().max().item()
-                    for a, r in zip(got, ref)]
-            scales = [r.float().abs().max().item() for r in ref]
-            rel = _rel_err(got, ref)
-            vs_f64 = {}
-            if dtype_name == "float32":
-                f64 = _attention_bwd_f64(q, k, v, g, h)
-                vs_f64 = {"rel_err_vs_f64": _rel_err(got, f64),
-                          "plain_rel_err_vs_f64": _rel_err(ref, f64)}
-                del f64
-            same = all(torch.equal(a, a2) for a, a2 in zip(got, again))
-            finite = all(bool(torch.isfinite(a).all().item()) for a in got)
-            del got, again, ref
-            # the yardstick: the autograd backward of SDPA on the same
-            # q, k, v, g (flash/efficient kernels; the port never calls it)
-            qs, ks, vs = (_heads(t, h).detach().requires_grad_()
-                          for t in (q, k, v))
-            out = F.scaled_dot_product_attention(qs, ks, vs)
-            gs = _heads(g, h)
-            bound, by = attention_bwd_bound(MICRO, nq, nk, c, dtype_name)
-            row = {"phase": "kernel_bwd", "name": "sr_attention_bwd",
-                   "B": MICRO, "Nq": nq, "Nk": nk, "C": c, "heads": h,
-                   "dtype": dtype_name,
-                   "design": "mma" if dtype_name == "bfloat16" else "scalar",
-                   "max_abs_err": max(errs),
-                   "max_abs_err_dq_dk_dv": errs, "ref_max_dq_dk_dv": scales,
-                   "rel_err": rel, "tol_rel": KERNEL_BWD_TOL[dtype_name],
-                   **vs_f64, "bit_identical_rerun": same,
-                   "ok": finite and same and
-                   rel <= KERNEL_BWD_TOL[dtype_name],
-                   "ms": cuda_ms(lambda: sr_attention_bwd(q, k, v, g, h),
-                                 iters=10),
-                   "plain_ms": cuda_ms(
-                       lambda: sr_attention_backward_reference(q, k, v, g,
-                                                               h), iters=3),
-                   "library_ms": cuda_ms(
-                       lambda: torch.autograd.grad(out, (qs, ks, vs), gs,
-                                                   retain_graph=True),
-                       iters=10),
-                   "bound_ms": bound, "bound_by": by}
-            emit(row)
-            rows.append(row)
-            del q, k, v, g, qs, ks, vs, out, gs
+        dtype = getattr(torch, dtype_name)
+        q, k, v, g = (torch.randn(MICRO, n, c, device="cuda",
+                                  generator=gen).to(dtype)
+                      for n in (nq, nk, nk, nq))
+        got = sr_attention_bwd(q, k, v, g, h)
+        again = sr_attention_bwd(q, k, v, g, h)
+        torch.cuda.synchronize()
+        ref = sr_attention_backward_reference(q, k, v, g, h)
+        errs = [(a.float() - r.float()).abs().max().item()
+                for a, r in zip(got, ref)]
+        scales = [r.float().abs().max().item() for r in ref]
+        rel = _rel_err(got, ref)
+        vs_f64 = {}
+        if dtype_name == "float32":
+            f64 = _attention_bwd_f64(q, k, v, g, h)
+            vs_f64 = {"rel_err_vs_f64": _rel_err(got, f64),
+                      "plain_rel_err_vs_f64": _rel_err(ref, f64)}
+            del f64
+        same = all(torch.equal(a, a2) for a, a2 in zip(got, again))
+        finite = all(bool(torch.isfinite(a).all().item()) for a in got)
+        del got, again, ref
+        # the yardstick: the autograd backward of SDPA on the same
+        # q, k, v, g (flash/efficient kernels; the port never calls it)
+        qs, ks, vs = (_heads(t, h).detach().requires_grad_()
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qs, ks, vs)
+        gs = _heads(g, h)
+        bound, by = attention_bwd_bound(MICRO, nq, nk, c, dtype_name)
+        row = {"phase": "kernel_bwd", "name": "sr_attention_bwd",
+               "B": MICRO, "Nq": nq, "Nk": nk, "C": c, "heads": h,
+               "dtype": dtype_name,
+               "design": "mma" if dtype_name == "bfloat16" else "scalar",
+               "max_abs_err": max(errs),
+               "max_abs_err_dq_dk_dv": errs, "ref_max_dq_dk_dv": scales,
+               "rel_err": rel, "tol_rel": KERNEL_BWD_TOL[dtype_name],
+               **vs_f64, "bit_identical_rerun": same,
+               "ok": finite and same and
+               rel <= KERNEL_BWD_TOL[dtype_name],
+               "ms": cuda_ms(lambda: sr_attention_bwd(q, k, v, g, h),
+                             iters=10),
+               "plain_ms": cuda_ms(
+                   lambda: sr_attention_backward_reference(q, k, v, g,
+                                                           h), iters=3),
+               "library_ms": cuda_ms(
+                   lambda: torch.autograd.grad(out, (qs, ks, vs), gs,
+                                               retain_graph=True),
+                   iters=10),
+               "bound_ms": bound, "bound_by": by}
+        emit(row)
+        rows.append(row)
+        del q, k, v, g, qs, ks, vs, out, gs
     torch.cuda.empty_cache()
     bad = [r for r in rows if not r["ok"]]
     if bad:
@@ -1080,7 +1155,6 @@ def phase_augment(smi: str):
 
 
 def phase_cli(smi: str, bench_step_ms: float, train_mode_step_ms: float):
-    import csv
     import math
     import tempfile
 
@@ -1111,8 +1185,7 @@ def phase_cli(smi: str, bench_step_ms: float, train_mode_step_ms: float):
             "--epochs", "2", "--metrics-csv", os.path.join(root, "m.csv")])
         run_s = time.perf_counter() - t0
         launches = _counts()
-        with open(os.path.join(root, "m.csv")) as f:
-            rows = list(csv.DictReader(f))
+        rows = _csv_rows(os.path.join(root, "m.csv"))
         names = sorted(os.listdir(ck))
         disk = shutil.disk_usage(root)
         # load_last gives back what was saved
@@ -1148,26 +1221,16 @@ def phase_cli(smi: str, bench_step_ms: float, train_mode_step_ms: float):
             "--epochs", "3", "--prefetch", "0",
             "--metrics-csv", os.path.join(root, "m2.csv")])
         launches_second = _counts()
-        with open(os.path.join(root, "m2.csv")) as f:
-            rows2 = list(csv.DictReader(f))
+        rows2 = _csv_rows(os.path.join(root, "m2.csv"))
     finally:
         tempfile.tempdir = old_tmp
         shutil.rmtree(root, ignore_errors=True)
     per_step = [(r["launches_train"][0] / max(r["train_steps"], 1),
                  r["launches_train"][1] / max(r["train_steps"], 1))
                 for r in first + second]
-    epochs = [{k: r[k] for k in ("epoch", "epoch_s", "train_steps",
-                                 "train_s", "train_img_per_s",
-                                 "prefetch_wait_s", "eval_s", "checkpoint_s",
-                                 "peak_bytes", "launches_train",
-                                 "launches_eval_k1")}
-              for r in first + second]
+    epochs = _epochs(first + second)
     for e, depth in zip(epochs, [1] * len(first) + [0] * len(second)):
         e["prefetch"] = depth
-        steps = max(e["train_steps"], 1)
-        e["step_ms"] = e["train_s"] / steps * 1e3
-        e["step_ms_excl_wait"] = (e["train_s"] - e["prefetch_wait_s"]) \
-            / steps * 1e3
     row = {"phase": "cli", "argv": argv, "run_s": run_s,
            "epochs": epochs, "bench_step_ms": bench_step_ms,
            "train_mode_step_ms": train_mode_step_ms,
@@ -1205,34 +1268,542 @@ def phase_cli(smi: str, bench_step_ms: float, train_mode_step_ms: float):
     return row
 
 
-def _stage_sum(rows, b, key, only_bytes=False):
+def phase_supervised(smi: str):
+    import math
+
+    import numpy as np
+    import torch
+
+    from semisupervisedobjectdetection_torch import bench
+    from semisupervisedobjectdetection_torch.core.config import TrainConfig
+    from semisupervisedobjectdetection_torch.models.segformer import (
+        SegFormer,
+        init_weights,
+    )
+    from semisupervisedobjectdetection_torch.train.state import TrainState
+    from semisupervisedobjectdetection_torch.train.supervised import (
+        train_step,
+    )
+
+    dev = torch.device("cuda")
+    cfg = bench.flagship_config()
+    batch = ACCUM * MICRO
+    rng = np.random.default_rng(SEED + 2)
+    x = torch.from_numpy(rng.uniform(size=(batch, IMG, IMG, 3))
+                         .astype(np.float32)).to(dev)
+    y = torch.from_numpy((rng.uniform(size=(batch, IMG, IMG)) > 0.7)
+                         .astype(np.float32)).to(dev)
+    runs = {}
+    for mode in ("eval_mode", "train_mode"):
+        for impl in ("kernel", "plain"):
+            model = init_weights(SegFormer(cfg.replace(attn_impl=impl)),
+                                 torch.Generator().manual_seed(SEED)).to(dev)
+            state = TrainState.create(model, TrainConfig())
+            g = torch.Generator(device=dev).manual_seed(SEED)
+            torch.cuda.reset_peak_memory_stats(dev)
+            _reset_counts()
+            losses, ms = [], []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                _, loss, pred = train_step(
+                    state, x, y, train_mode=mode == "train_mode",
+                    accum=ACCUM, generator=g)
+                losses.append(float(loss))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            runs[(mode, impl)] = {
+                "losses": losses, "step_ms": ms,
+                "launches_k1_k2_k1mma": _counts(),
+                "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                "pred_shape": list(pred.shape),
+                "pred_finite": bool(torch.isfinite(pred).all().item())}
+            del model, state, pred
+            torch.cuda.empty_cache()
+    diffs = {mode: max(abs(a - b) for a, b in zip(
+        runs[(mode, "kernel")]["losses"], runs[(mode, "plain")]["losses"]))
+        for mode in ("eval_mode", "train_mode")}
+    row = {"phase": "supervised", "variant": "b5", "img": IMG,
+           "dtype": "bfloat16", "gelu": "tanh", "micro_batch": MICRO,
+           "accum": ACCUM,
+           "runs": {f"{m}/{i}": r for (m, i), r in runs.items()},
+           "loss_max_abs_diff": diffs, "loss_tol": TRAIN_LOSS_TOL,
+           "launches_expected_per_step": [SUP_K1_PER_STEP, SUP_K2_PER_STEP],
+           "card": smi}
+    emit(row)
+    for (mode, impl), r in runs.items():
+        want = (2 * SUP_K1_PER_STEP, 2 * SUP_K2_PER_STEP,
+                2 * SUP_K1_PER_STEP) if impl == "kernel" else (0, 0, 0)
+        if r["launches_k1_k2_k1mma"] != want:
+            raise AssertionError(f"supervised {mode} {impl}: launches "
+                                 f"{r['launches_k1_k2_k1mma']}, expected "
+                                 f"{want} in 2 steps")
+        if not all(math.isfinite(v) for v in r["losses"]) or \
+                not r["pred_finite"] or r["pred_shape"] != [batch, IMG, IMG]:
+            raise AssertionError(f"bad supervised step outputs: {r}")
+    if max(diffs.values()) > TRAIN_LOSS_TOL:
+        raise AssertionError(f"kernel and plain supervised steps disagree: "
+                             f"{diffs}")
+    return row
+
+
+@contextlib.contextmanager
+def _record_nk():
+    """The Nk of every K1 and K2 call made inside, read in
+    `SRAttention`'s forward and backward (the wrappers count the
+    launches)."""
+    from semisupervisedobjectdetection_torch.ops.sr_attention import (
+        SRAttention,
+    )
+
+    fwd, bwd = SRAttention.forward, SRAttention.backward
+    log = {"k1": [], "k2": []}
+
+    def rec_fwd(ctx, q, k, v, num_heads, mma=True):
+        log["k1"].append(k.shape[1])
+        ctx.recorded_nk = k.shape[1]
+        return fwd(ctx, q, k, v, num_heads, mma)
+
+    def rec_bwd(ctx, g):
+        log["k2"].append(ctx.recorded_nk)
+        return bwd(ctx, g)
+
+    SRAttention.forward = staticmethod(rec_fwd)
+    SRAttention.backward = staticmethod(rec_bwd)
+    try:
+        yield log
+    finally:
+        SRAttention.forward = staticmethod(fwd)
+        SRAttention.backward = staticmethod(bwd)
+
+
+def phase_transfer_grad():
+    import numpy as np
+    import torch
+
+    from semisupervisedobjectdetection_torch import losses
+    from semisupervisedobjectdetection_torch.api import SegFormerModel
+    from semisupervisedobjectdetection_torch.core.config import (
+        TrainConfig,
+        mit_b5,
+    )
+    from semisupervisedobjectdetection_torch.train.common import (
+        forward_masks,
+        grads_of,
+    )
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = mit_b5(dtype="float32")
+    tc = TrainConfig(reference_quirks=False)
+    rng = np.random.default_rng(SEED + 3)
+    x = torch.from_numpy(rng.uniform(size=(2, IMG, IMG, 3))
+                         .astype(np.float32)).to(dev)
+    gt = torch.from_numpy((rng.uniform(size=(2, IMG, IMG)) > 0.7)
+                          .astype(np.float32)).to(dev)
+    grads, launches, nks, masks = {}, {}, {}, {}
+    for impl in ("kernel", "plain"):
+        m = SegFormerModel(config=cfg.replace(attn_impl=impl),
+                           train_config=tc, seed=SEED)
+        m.frozen_encoder(layers=list(TRANSFER_FROZEN))
+        m.add_prompt_token(TRANSFER_TOKENS)
+        state = m.state
+        _reset_counts()
+        with _record_nk() as log:
+            pred, _, _ = forward_masks(
+                state.model, x, train_mode=True,
+                generator=torch.Generator(device=dev).manual_seed(SEED))
+            grads[impl] = grads_of(losses.dice_loss(pred, gt),
+                                   state.trainable_params)
+            torch.cuda.synchronize()
+        launches[impl] = _counts()[:2]
+        nks[impl] = log
+        masks[impl] = {
+            "frozen": sorted(n for n, p in state.params.items()
+                             if not p.requires_grad),
+            "moments": sorted(state.mu),
+            "blocks": sorted(n for n in state.params
+                             if n.startswith(FROZEN_PREFIXES))}
+        del m, state, pred
+        torch.cuda.empty_cache()
+    scales = {n: g.abs().max().item() for n, g in grads["plain"].items()}
+    floor = GRAD_SCALE_FLOOR * max(scales.values())
+    rel = {n: (gk - grads["plain"][n]).abs().max().item()
+           / max(scales[n], floor) for n, gk in grads["kernel"].items()}
+    worst = [(n, r, scales[n]) for n, r in
+             sorted(rel.items(), key=lambda kv: -kv[1])[:5]]
+    finite = all(bool(torch.isfinite(g).all().item())
+                 for g in grads["kernel"].values())
+    must_move = [f"segformer.encoder.prompt_tokens.{i}" for i in range(4)] \
+        + [f"segformer.encoder.patch_embeddings.{i}.proj.weight"
+           for i in TRANSFER_FROZEN]
+    moving = {n: float(grads["kernel"][n].abs().max()) if n in grads["kernel"]
+              else 0.0 for n in must_move}
+    km = masks["kernel"]
+    per = sum(B5_DEPTHS)
+    row = {"phase": "transfer_grad", "variant": "b5", "img": IMG,
+           "dtype": "float32", "batch": 2, "frozen": list(TRANSFER_FROZEN),
+           "prompt_tokens": list(TRANSFER_TOKENS), "quirks": False,
+           "tensors": len(rel), "max_rel_diff": worst[0][1],
+           "worst_name_rel_scale": worst, "tol_rel": GRAD_F32_TOL,
+           "scale_floor": floor,
+           "frozen_tensors": len(km["frozen"]),
+           "frozen_blocks_tensors": len(km["blocks"]),
+           "trained_tensors": len(km["moments"]),
+           "grad_max_abs_of": moving,
+           "launches_k1_k2": launches["kernel"],
+           "launches_plain_path": launches["plain"],
+           "nk_k1": sorted(set(nks["kernel"]["k1"])),
+           "nk_k2": sorted(set(nks["kernel"]["k2"])),
+           "nk_calls_k1_k2": [len(nks["kernel"]["k1"]),
+                              len(nks["kernel"]["k2"])]}
+    emit(row)
+    if km["frozen"] != km["blocks"] or set(km["moments"]) & set(km["blocks"]) \
+            or set(grads["kernel"]) & set(km["blocks"]) or not km["blocks"]:
+        raise AssertionError("the frozen layers have gradients or moments, "
+                             "or other tensors are frozen")
+    if launches["kernel"] != (2 * per, per) or launches["plain"] != (0, 0):
+        raise AssertionError(f"transfer launches {launches}: expected K1 "
+                             f"{2 * per} and K2 {per}")
+    if row["nk_k1"] != [TRANSFER_NK] or row["nk_k2"] != [TRANSFER_NK] or \
+            row["nk_calls_k1_k2"] != [2 * per, per] or \
+            nks["plain"] != {"k1": [], "k2": []}:
+        raise AssertionError(f"Nk of the launches {row['nk_k1']}, "
+                             f"{row['nk_k2']}: expected {TRANSFER_NK}")
+    if not all(v > 0 for v in moving.values()):
+        raise AssertionError(f"no gradient reaches {moving}")
+    if not finite or worst[0][1] > GRAD_F32_TOL:
+        raise AssertionError("B5 float32 transfer gradients through the "
+                             "kernels disagree with the plain path")
+    return row
+
+
+def phase_transfer_step(smi: str):
+    import math
+
+    import numpy as np
+    import torch
+
+    from semisupervisedobjectdetection_torch import bench
+    from semisupervisedobjectdetection_torch.api import SegFormerModel
+    from semisupervisedobjectdetection_torch.core.config import TrainConfig
+
+    dev = torch.device("cuda")
+    cfg = bench.flagship_config()
+    batch = ACCUM * MICRO
+    rng = np.random.default_rng(SEED + 4)
+    x = torch.from_numpy(rng.uniform(size=(batch, IMG, IMG, 3))
+                         .astype(np.float32)).to(dev)
+    y = torch.from_numpy((rng.uniform(size=(batch, IMG, IMG)) > 0.7)
+                         .astype(np.float32)).to(dev)
+    runs = {}
+    for impl in ("kernel", "plain"):
+        m = SegFormerModel(config=cfg.replace(attn_impl=impl),
+                           train_config=TrainConfig(reference_quirks=False),
+                           seed=SEED, grad_accum=ACCUM)
+        m.frozen_encoder(layers=list(TRANSFER_FROZEN))
+        m.add_prompt_token(TRANSFER_TOKENS)
+        m.generator.manual_seed(SEED)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_counts()
+        losses, ms = [], []
+        with _record_nk() as log:
+            for _ in range(2):
+                t0 = time.perf_counter()
+                loss, pred = m.train_one_epoch(x, y, lazy=True)
+                losses.append(float(loss))
+                ms.append((time.perf_counter() - t0) * 1e3)
+        runs[impl] = {
+            "losses": losses, "step_ms": ms,
+            "launches_k1_k2_k1mma": _counts(),
+            "nk_k1": sorted(set(log["k1"])), "nk_k2": sorted(set(log["k2"])),
+            "peak_bytes": torch.cuda.max_memory_allocated(dev),
+            "pred_shape": list(pred.shape),
+            "pred_finite": bool(torch.isfinite(pred).all().item())}
+        del m, pred
+        torch.cuda.empty_cache()
+    diff = max(abs(a - b) for a, b in zip(runs["kernel"]["losses"],
+                                          runs["plain"]["losses"]))
+    row = {"phase": "transfer_step", "variant": "b5", "img": IMG,
+           "dtype": "bfloat16", "gelu": "tanh", "micro_batch": MICRO,
+           "accum": ACCUM, "frozen": list(TRANSFER_FROZEN),
+           "prompt_tokens": list(TRANSFER_TOKENS), "quirks": False,
+           "runs": runs, "loss_max_abs_diff": diff,
+           "loss_tol": TRAIN_LOSS_TOL,
+           "launches_expected_per_step": [SUP_K1_PER_STEP, SUP_K2_PER_STEP],
+           "card": smi}
+    emit(row)
+    k = runs["kernel"]
+    want = (2 * SUP_K1_PER_STEP, 2 * SUP_K2_PER_STEP, 2 * SUP_K1_PER_STEP)
+    if k["launches_k1_k2_k1mma"] != want or \
+            runs["plain"]["launches_k1_k2_k1mma"] != (0, 0, 0):
+        raise AssertionError(f"transfer step launches "
+                             f"{k['launches_k1_k2_k1mma']}, plain "
+                             f"{runs['plain']['launches_k1_k2_k1mma']}: "
+                             f"expected {want} in 2 steps and none")
+    if k["nk_k1"] != [TRANSFER_NK] or k["nk_k2"] != [TRANSFER_NK]:
+        raise AssertionError(f"transfer step Nk {k['nk_k1']}, {k['nk_k2']}: "
+                             f"expected {TRANSFER_NK}")
+    for r in runs.values():
+        if not all(math.isfinite(v) for v in r["losses"]) or \
+                not r["pred_finite"] or r["pred_shape"] != [batch, IMG, IMG]:
+            raise AssertionError(f"bad transfer step outputs: {r}")
+    if diff > TRAIN_LOSS_TOL:
+        raise AssertionError(f"kernel and plain transfer steps disagree: "
+                             f"{diff}")
+    return row
+
+
+def _cli_point():
+    return ["--synthetic", "--synthetic-n", str(CLI_TILES), "--variant",
+            "b5", "--img-size", str(IMG), "--batch-size", str(TEACHER_BATCH),
+            "--grad-accum", str(ACCUM), "--perf", "--seed", str(SEED)]
+
+
+def _epochs(reports):
+    """The per-epoch numbers of `epoch_report`s, with the step time."""
+    out = []
+    for r in reports:
+        e = {k: r[k] for k in ("epoch", "epoch_s", "train_steps", "train_s",
+                               "train_img_per_s", "prefetch_wait_s",
+                               "eval_s", "checkpoint_s", "peak_bytes",
+                               "launches_train", "launches_eval_k1")}
+        steps = max(e["train_steps"], 1)
+        e["step_ms"] = e["train_s"] / steps * 1e3
+        e["step_ms_excl_wait"] = (e["train_s"] - e["prefetch_wait_s"]) \
+            / steps * 1e3
+        out.append(e)
+    return out
+
+
+def _check_cli_launches(name, reports):
+    per_step = [(r["launches_train"][0] / max(r["train_steps"], 1),
+                 r["launches_train"][1] / max(r["train_steps"], 1))
+                for r in reports]
+    if any(p != (SUP_K1_PER_STEP, SUP_K2_PER_STEP) for p in per_step) or \
+            any(r["launches_eval_k1"] != sum(B5_DEPTHS) for r in reports) \
+            or any(r["train_steps"] != CLI_STEPS_PER_EPOCH
+                   for r in reports):
+        raise AssertionError(f"{name}: launches per train step {per_step}, "
+                             f"eval {[r['launches_eval_k1'] for r in reports]}"
+                             f", steps {[r['train_steps'] for r in reports]}")
+    return per_step
+
+
+def _csv_rows(path):
+    import csv
+
+    with open(path) as f:
+        return list(csv.DictReader(f))
+
+
+def phase_sup_cli(smi: str):
+    import math
+    import tempfile
+
+    from semisupervisedobjectdetection_torch.cli import supervised
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_sup_")
+    old_tmp, tempfile.tempdir = tempfile.tempdir, root  # the tiles too
+    ck = os.path.join(root, "ck")
+    argv = _cli_point() + ["--resume", "--checkpoint-dir", ck]
+    try:
+        _reset_counts()
+        t0 = time.perf_counter()
+        first = supervised.main(argv + [
+            "--epochs", "2", "--metrics-csv", os.path.join(root, "m.csv")])
+        run_s = time.perf_counter() - t0
+        launches = _counts()
+        rows = _csv_rows(os.path.join(root, "m.csv"))
+        best = first[-1]["best_path"]
+        _reset_counts()
+        second = supervised.main(argv + [
+            "--epochs", "3", "--metrics-csv", os.path.join(root, "m2.csv")])
+        launches_second = _counts()
+        rows2 = _csv_rows(os.path.join(root, "m2.csv"))
+        names = sorted(os.listdir(ck))
+        dump = os.path.join(root, "dump")
+        _reset_counts()
+        t0 = time.perf_counter()
+        predicted = supervised.main(_cli_point() + [
+            "--predict", "--pretrain-weight", best, "--dump-masks", dump])
+        predict_s = time.perf_counter() - t0
+        launches_predict = _counts()
+        pngs = sorted(os.listdir(dump))
+    except BaseException:
+        shutil.rmtree(root, ignore_errors=True)
+        raise
+    finally:
+        tempfile.tempdir = old_tmp
+    row = {"phase": "sup_cli", "argv": argv, "run_s": run_s,
+           "epochs": _epochs(first + second), "csv_rows": rows,
+           "csv_rows_resumed": rows2, "checkpoints": names,
+           "launches_k1_k2_k1mma": launches,
+           "launches_resumed_run": launches_second,
+           "predict": predicted, "predict_s": predict_s,
+           "launches_predict": launches_predict, "mask_pngs": len(pngs),
+           "launches_expected_per_step": [SUP_K1_PER_STEP, SUP_K2_PER_STEP],
+           "card": smi, "root": root, "best": best}
+    emit({k: v for k, v in row.items() if k not in ("root",)})
+    try:
+        if len(rows) != 2 or not all(
+                math.isfinite(float(r["train_loss"]))
+                and math.isfinite(float(r["eval_loss"]))
+                and 0.0 <= float(r["miou"]) <= 1.0 for r in rows):
+            raise AssertionError(f"supervised CLI CSV rows {rows}")
+        row["launches_per_train_step"] = _check_cli_launches(
+            "sup_cli", first + second)
+        if launches[2] != launches[0]:
+            raise AssertionError("a training K1 launch was not tensor-core")
+        if "segformer_last.pt" not in names or not best or \
+                os.path.basename(best) not in names:
+            raise AssertionError(f"missing checkpoints: {names}")
+        if [r["epoch"] for r in second] != [2] or \
+                [r["step"] for r in rows2] != ["2"]:
+            raise AssertionError("the resumed supervised CLI run did not "
+                                 "start at epoch 2")
+        tiles = CLI_EVAL_BATCH
+        if predicted["dumped"] != tiles or len(pngs) != 2 * tiles or \
+                launches_predict[:2] != (sum(B5_DEPTHS), 0) or \
+                not 0.0 <= predicted["eval_loss"] <= 1.0:
+            raise AssertionError(f"--predict: {predicted}, {len(pngs)} "
+                                 f"PNGs, launches {launches_predict}")
+    except BaseException:
+        shutil.rmtree(root, ignore_errors=True)
+        raise
+    return row
+
+
+def phase_transfer_cli(smi: str, sup: dict):
+    import math
+    import tempfile
+
+    import torch
+
+    from semisupervisedobjectdetection_torch.cli import transfer
+    from semisupervisedobjectdetection_torch.core.config import mit_b5
+    from semisupervisedobjectdetection_torch.models.segformer import (
+        SegFormer,
+        init_weights,
+    )
+
+    root, best = sup["root"], sup["best"]
+    old_tmp, tempfile.tempdir = tempfile.tempdir, root
+    ck = os.path.join(root, "ck_transfer")
+    point = _cli_point() + ["--frozen", ",".join(
+        map(str, TRANSFER_FROZEN)), "--no-quirks"]
+    argv = point + ["--prompt-tokens", ",".join(map(str, TRANSFER_TOKENS)),
+                    "--pretrain-weight", best, "--resume",
+                    "--checkpoint-dir", ck, "--epochs", "2"]
+    try:
+        _reset_counts()
+        t0 = time.perf_counter()
+        reports = transfer.main(argv + [
+            "--metrics-csv", os.path.join(root, "t.csv")])
+        run_s = time.perf_counter() - t0
+        launches = _counts()
+        rows = _csv_rows(os.path.join(root, "t.csv"))
+        warm = torch.load(best, map_location="cpu", weights_only=True)
+        after = torch.load(os.path.join(ck, "segformer_last.pt"),
+                           map_location="cpu", weights_only=True)
+        seeded = init_weights(
+            SegFormer(mit_b5(dtype="bfloat16", gelu_approx=True,
+                             prompt_tokens=TRANSFER_TOKENS)),
+            torch.Generator().manual_seed(SEED)).state_dict()
+        frozen = [n for n in warm["model"] if n.startswith(FROZEN_PREFIXES)]
+        frozen_equal = bool(frozen) and all(
+            torch.equal(after["model"][n], warm["model"][n]) for n in frozen)
+        frozen_moments = [n for n in after["mu"]
+                          if n.startswith(FROZEN_PREFIXES)]
+        prompts = [f"segformer.encoder.prompt_tokens.{i}" for i in range(4)]
+        prompt_moves = {n: (after["model"][n] - seeded[n]).abs().max().item()
+                        for n in prompts}
+        trained_moved = not torch.equal(
+            after["model"]["segformer.encoder.block.2.0.mlp.dense1.weight"],
+            warm["model"]["segformer.encoder.block.2.0.mlp.dense1.weight"])
+        del warm, after, seeded
+        # a prefix past the kernels' 288 keys: refused before anything is
+        # built on the card
+        gc.collect()
+        mem0 = torch.cuda.memory_allocated()
+        _reset_counts()
+        t0 = time.perf_counter()
+        try:
+            transfer.main(point + ["--prompt-tokens", ",".join(
+                map(str, TRANSFER_REFUSED_TOKENS))])
+            refusal = None
+        except SystemExit as e:
+            refusal = str(e)
+        refusal_s = time.perf_counter() - t0
+        refusal_mem = torch.cuda.memory_allocated() - mem0
+        refusal_launches = _counts()
+    finally:
+        tempfile.tempdir = old_tmp
+        shutil.rmtree(root, ignore_errors=True)
+    row = {"phase": "transfer_cli", "argv": argv, "run_s": run_s,
+           "epochs": _epochs(reports), "csv_rows": rows,
+           "launches_k1_k2_k1mma": launches,
+           "frozen_tensors": len(frozen), "frozen_bit_equal": frozen_equal,
+           "frozen_with_moments": len(frozen_moments),
+           "prompt_max_abs_move": prompt_moves,
+           "stage2_moved": trained_moved,
+           "refused_tokens": list(TRANSFER_REFUSED_TOKENS),
+           "refusal": refusal, "refusal_s": refusal_s,
+           "refusal_memory_bytes": refusal_mem,
+           "refusal_launches": refusal_launches, "card": smi}
+    emit(row)
+    if len(rows) != 2 or not all(math.isfinite(float(r["train_loss"]))
+                                 and math.isfinite(float(r["eval_loss"]))
+                                 for r in rows):
+        raise AssertionError(f"transfer CLI CSV rows {rows}")
+    row["launches_per_train_step"] = _check_cli_launches("transfer_cli",
+                                                         reports)
+    if not frozen_equal or frozen_moments or not trained_moved:
+        raise AssertionError("the frozen layers moved or have moments, or "
+                             "the trained ones did not move")
+    if not all(v > 0 for v in prompt_moves.values()):
+        raise AssertionError(f"prompt tokens did not train: {prompt_moves}")
+    if refusal is None or "288" not in refusal or refusal_mem > 0 or \
+            refusal_launches != (0, 0, 0):
+        raise AssertionError(f"Nk > 288 not refused before a model: "
+                             f"{refusal!r}, {refusal_mem} bytes")
+    return row
+
+
+def _stage_sum(rows, b, key, only_bytes=False, shapes=STAGE_SHAPES):
     """Sum of `key` over one pass of the B5 stages in bf16 at batch b
-    (depth launches per stage shape); with `only_bytes`, over the stages
-    whose bound is the bytes."""
+    (depth launches per stage shape, the stages' `shapes`); with
+    `only_bytes`, over the stages whose bound is the bytes."""
     per = {(r["B"], r["Nq"], r["Nk"], r["C"], r["heads"]): r for r in rows
            if r["dtype"] == "bfloat16"}
-    return sum(d * per[(b,) + s][key] for d, s in zip(B5_DEPTHS, STAGE_SHAPES)
+    return sum(d * per[(b,) + s][key] for d, s in zip(B5_DEPTHS, shapes)
                if not only_bytes or per[(b,) + s]["bound_by"] == "bytes")
 
 
-def _kernel_entry(rows, passes, **fields):
-    """A `kernels` entry summed over `passes` ((batch, count) of B5 stage
-    passes): ms, plain_ms, bound_ms, library_ms and what bounds the sum."""
+def _passes_sum(rows, passes, shapes=STAGE_SHAPES):
+    """ms, plain_ms, bound_ms, library_ms summed over `passes` ((batch,
+    count) of B5 stage passes at the stages' `shapes`), and what bounds
+    the sum."""
 
     def total(key, only_bytes=False):
-        return sum(n * _stage_sum(rows, b, key, only_bytes)
+        return sum(n * _stage_sum(rows, b, key, only_bytes, shapes)
                    for b, n in passes)
 
     bound = total("bound_ms")
-    return {**fields, "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": total("ms"), "plain_ms": total("plain_ms"),
+    return {"ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": bound,
             "bound_by": "bytes" if total("bound_ms", True) >= bound / 2
             else "operations",
-            "library_ms": total("library_ms"), "ok": True}
+            "library_ms": total("library_ms")}
 
 
-def summary(k1_rows, k2_rows, train, serve, train_mode, cli):
+def _kernel_entry(rows, passes, **fields):
+    """A `kernels` entry summed over `passes` of the B5 stage shapes."""
+    return {**fields, "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **_passes_sum(rows, passes), "ok": True}
+
+
+def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
+            transfer_grad, transfer_step, sup_cli, transfer_cli):
     """The `kernels` line: each kernel's times, bound and plain/library
     times summed over what its main path runs, with its launches there: K1's
     tensor-core kernel (`sr_attention_fwd`) and K2 over one flagship EMA
@@ -1240,7 +1811,13 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli):
     in the train phase's 4 timed steps), K1's scalar kernel
     (`sr_attention_fwd_scalar`) over one serve batch-8 forward (launches in
     the serve phase). `earlier_ms` is the scalar kernel's time over the same
-    step, timed in this run."""
+    step, timed in this run. `launches_by_path` counts every path's
+    launches: the EMA phases, the supervised step, the float32 transfer
+    gradients (the scalar K1 and K2 in float32), the bf16 transfer step,
+    and the supervised and transfer CLIs. `per_transfer_step` sums the
+    tensor-core K1 and K2 over one flagship transfer step (the Nk-266 shapes
+    at batch 16: 2 microbatches, each a forward and a recompute, and a
+    backward)."""
     src = "semisupervisedobjectdetection_torch/csrc/"
     tpu = "semisupervisedobjectdetection_tpu/ops/sr_attention.py"
     step = ((TEACHER_BATCH, ACCUM), (MICRO, 2 * ACCUM))
@@ -1262,7 +1839,20 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli):
             "train_mode (2 flagship train-mode EMA steps)":
                 train_mode["launches_k1_mma"],
             "cli (2 epochs: 4 train steps, 2 eval batches of 21 x 2 "
-            "models)": cli["launches_k1_k2_k1mma"][2]})
+            "models)": cli["launches_k1_k2_k1mma"][2],
+            "supervised (2 kernel-path steps in eval and 2 in train mode)":
+                sum(sup["runs"][f"{m}/kernel"]["launches_k1_k2_k1mma"][2]
+                    for m in ("eval_mode", "train_mode")),
+            "transfer_step (2 kernel-path bf16 steps, Nk 266)":
+                transfer_step["runs"]["kernel"]["launches_k1_k2_k1mma"][2],
+            "sup_cli (2 epochs: 4 train steps, 2 eval batches of 21)":
+                sup_cli["launches_k1_k2_k1mma"][2],
+            "sup_cli --predict (1 eval batch of 21)":
+                sup_cli["launches_predict"][0],
+            "transfer_cli (2 epochs, Nk 266: 4 train steps, 2 eval "
+            "batches of 21)": transfer_cli["launches_k1_k2_k1mma"][2]},
+        per_transfer_step=_passes_sum(mma_rows, ((MICRO, 2 * ACCUM),),
+                                      TRANSFER_SHAPES))
     k1_scalar = _kernel_entry(
         [r for r in k1_rows if r["design"] == "scalar"], ((BATCH, 1),),
         name="sr_attention_fwd_scalar", route="cuda", design="scalar",
@@ -1271,7 +1861,10 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli):
         per=f"one serve forward: B5 512x512 bf16 at batch {BATCH}, "
             f"{sum(B5_DEPTHS)} launches",
         launches_per=f"the serve phase ({serve['batches']} batches)",
-        launches_by_path={"serve": serve["launches"]})
+        launches_by_path={
+            "serve": serve["launches"],
+            "transfer_grad (B5 float32, Nk 266: forward and recompute)":
+                transfer_grad["launches_k1_k2"][0]})
     k2 = _kernel_entry(
         k2_rows, ((MICRO, ACCUM),),
         name="sr_attention_bwd", route="cuda", design="mma",
@@ -1285,7 +1878,20 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli):
             "train (4 timed EMA steps)": train["launches_k2"],
             "train_mode (2 flagship train-mode EMA steps)":
                 train_mode["launches_k2"],
-            "cli (2 epochs: 4 train steps)": cli["launches_k1_k2_k1mma"][1]})
+            "cli (2 epochs: 4 train steps)": cli["launches_k1_k2_k1mma"][1],
+            "supervised (2 kernel-path steps in eval and 2 in train mode)":
+                sum(sup["runs"][f"{m}/kernel"]["launches_k1_k2_k1mma"][1]
+                    for m in ("eval_mode", "train_mode")),
+            "transfer_grad (B5 float32, Nk 266)":
+                transfer_grad["launches_k1_k2"][1],
+            "transfer_step (2 kernel-path bf16 steps, Nk 266)":
+                transfer_step["runs"]["kernel"]["launches_k1_k2_k1mma"][1],
+            "sup_cli (2 epochs: 4 train steps)":
+                sup_cli["launches_k1_k2_k1mma"][1],
+            "transfer_cli (2 epochs, Nk 266: 4 train steps)":
+                transfer_cli["launches_k1_k2_k1mma"][1]},
+        per_transfer_step=_passes_sum(k2_rows, ((MICRO, ACCUM),),
+                                      TRANSFER_SHAPES))
     return [k1, k1_scalar, k2]
 
 
@@ -1317,7 +1923,13 @@ def main() -> int:
                           ("cli", lambda: phase_cli(
                               smi, results["train"]["step_ms"],
                               results["train_mode"]["step_ms_kernel_plain"]
-                              ["kernel"][-1]))):
+                              ["kernel"][-1])),
+                          ("supervised", lambda: phase_supervised(smi)),
+                          ("transfer_grad", phase_transfer_grad),
+                          ("transfer_step", lambda: phase_transfer_step(smi)),
+                          ("sup_cli", lambda: phase_sup_cli(smi)),
+                          ("transfer_cli", lambda: phase_transfer_cli(
+                              smi, results["sup_cli"]))):
             t = time.perf_counter()
             results[phase] = fn()
             seconds[phase] = round(time.perf_counter() - t, 2)
@@ -1326,7 +1938,11 @@ def main() -> int:
                                       results["kernel_bwd"],
                                       results["train"], results["serve"],
                                       results["train_mode"],
-                                      results["cli"])}
+                                      results["cli"], results["supervised"],
+                                      results["transfer_grad"],
+                                      results["transfer_step"],
+                                      results["sup_cli"],
+                                      results["transfer_cli"])}
         emit({"phase": "total", "seconds": round(time.perf_counter() - t0,
                                                  2), "per_phase": seconds})
     except Exception as e:

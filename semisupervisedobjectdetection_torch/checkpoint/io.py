@@ -7,18 +7,21 @@ BatchNorm statistics (its `state_dict`), Adam's moments and step count, and
 the schedule's epoch, so a resumed run continues the optimisation instead
 of restarting it (the reference saves parameters only). The `_last`
 checkpoint also has a JSON sidecar with the epoch it ended and the best
-eval loss so far, which `--resume` reads. Files are written to a temporary
-name and renamed, so a crash mid-write leaves the previous file whole.
+eval loss so far, which `--resume` reads. A warm start
+(`restore_weights`) takes the weights alone, from another configuration
+too. Files are written to a temporary name and renamed, so a crash
+mid-write leaves the previous file whole.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from semisupervisedobjectdetection_torch.train.state import TrainState
 
@@ -49,23 +52,79 @@ def save_state(path: str, state: TrainState) -> None:
     _atomic_save(payload, os.path.abspath(path))
 
 
+_CLASSIFIER = ("decode_head.classifier.weight", "decode_head.classifier.bias")
+
+
+def merge_restore(template: Mapping[str, torch.Tensor],
+                   saved: Mapping[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+    """The saved tensors wherever name and shape match the template, else
+    the template's (the reference's strict=False load,
+    `segFormer_transfer_learning_main.py:26-27`, and the JAX package's
+    overlay when a model grows new parameters); a multi-channel classifier
+    restores into one channel through its channel 0
+    (`SegFormerModel.py:24-28`)."""
+    out = {}
+    for n, t in template.items():
+        r = saved.get(n)
+        if r is not None and r.shape == t.shape:
+            out[n] = r
+        elif (r is not None and n in _CLASSIFIER and t.shape[0] == 1
+              and r.shape[1:] == t.shape[1:]):
+            out[n] = r[:1]
+        else:
+            out[n] = t
+    return out
+
+
+def _read(path: str) -> dict:
+    return torch.load(os.path.abspath(path), map_location="cpu",
+                      weights_only=True)
+
+
+def _load_partial(model: nn.Module, saved: Mapping[str, torch.Tensor]
+                  ) -> None:
+    model.load_state_dict(merge_restore(model.state_dict(), saved),
+                          strict=True)
+
+
 @torch.no_grad()
-def restore_state(path: str, template: TrainState) -> TrainState:
-    """Load the file `path` into `template` (the same model and trainable
-    parameters), in place, and return it: the `--resume` semantics, with
-    Adam's state and the epoch (which drives the learning-rate decay).
-    Raises when the file holds another model. (The JAX package's warm start
-    from a checkpoint, `--pretrain-weight`, is not ported yet.)"""
-    saved = torch.load(os.path.abspath(path), map_location="cpu",
-                       weights_only=True)
-    template.model.load_state_dict(saved["model"], strict=True)
-    if set(saved["mu"]) != set(template.mu):
-        raise ValueError(f"{path}: Adam's state covers other parameters")
-    for n in template.mu:
-        template.mu[n].copy_(saved["mu"][n])
-        template.nu[n].copy_(saved["nu"][n])
-    template.count.copy_(saved["count"])
-    template.epoch.copy_(saved["epoch"])
+def restore_weights(path: str, model: nn.Module) -> None:
+    """A warm start (`--pretrain-weight`): the weights and BatchNorm
+    statistics of the file `path` into `model`, in place, by the JAX
+    package's rule for partial loads (missing or shape-incompatible entries
+    keep the model's values, a multi-channel classifier restores into
+    `num_labels=1` through channel 0). Adam's state and the epoch stay
+    where they are, as the reference builds a fresh optimizer and scheduler
+    after loading (`SegFormerModel.py:21-37`)."""
+    _load_partial(model, _read(path)["model"])
+
+
+@torch.no_grad()
+def restore_state(path: str, template: TrainState,
+                  load_opt_state: bool = True,
+                  load_epoch: bool = True) -> TrainState:
+    """Load the file `path` into `template`, in place, and return it.
+
+    By default the `--resume` semantics: the file must hold the template's
+    model and the same trainable parameters (it raises otherwise), and
+    Adam's state and the epoch (which drives the learning-rate decay) come
+    back with the weights. `load_opt_state=False` loads the weights as
+    `restore_weights` does and keeps the template's Adam state;
+    `load_epoch=False` keeps its epoch."""
+    saved = _read(path)
+    if not load_opt_state:
+        _load_partial(template.model, saved["model"])
+    else:
+        template.model.load_state_dict(saved["model"], strict=True)
+        if set(saved["mu"]) != set(template.mu):
+            raise ValueError(f"{path}: Adam's state covers other parameters")
+        for n in template.mu:
+            template.mu[n].copy_(saved["mu"][n])
+            template.nu[n].copy_(saved["nu"][n])
+        template.count.copy_(saved["count"])
+    if load_epoch:
+        template.epoch.copy_(saved["epoch"])
     return template
 
 

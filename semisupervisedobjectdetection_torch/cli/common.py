@@ -1,8 +1,10 @@
 """Shared plumbing of the port's training CLIs, the part of the JAX
-package's `cli/common.py` that the `--ema-mode` teacher-student loop reads:
-the argument parser (the same flags and defaults, plus `--device`), the
-configs from the flags, synthetic data, the tile loaders, the batch checks,
-the preemption exit, and the staging of host batches on the device.
+package's `cli/common.py` that the supervised, transfer and `--ema-mode`
+teacher-student loops read: the argument parser (the same flags and
+defaults, plus `--device`), the configs from the flags, synthetic data, the
+tile loaders, the batch checks, the check that the SR-attention kernels
+take the configuration's shapes, the preemption exit, the staging of host
+batches on the device, and the kernel-launch counts of an epoch report.
 
 Flags whose paths are not ported yet are refused by `refuse_unported`
 with a `SystemExit` that names ROADMAP.md; none of them falls back to
@@ -63,9 +65,11 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--checkpoint-dir", default="checkpoints")
     p.add_argument("--pretrain-weight",
-                   help="checkpoint to warm-start from (not ported yet)")
+                   help="port checkpoint (.pt) to warm-start from: weights "
+                        "and BatchNorm statistics, fresh Adam, epoch 0")
     p.add_argument("--hf-weights",
-                   help="torch .pth/.safetensors SegFormer weights")
+                   help="local torch .pth/.safetensors SegFormer weights "
+                        "(HF key layout)")
     p.add_argument("--metrics-csv", help="CSV metrics path")
     p.add_argument("--plot-curves", action="store_true",
                    help="render --metrics-csv to a PNG (not ported yet)")
@@ -117,8 +121,6 @@ def refuse_unported(args, extra: Tuple[Tuple[str, bool], ...] = ()) -> None:
         ("--parallel " + str(args.parallel), args.parallel != "none"),
         ("--ffn-impl", args.ffn_impl is not None),
         ("--profile-dir", bool(args.profile_dir)),
-        ("--pretrain-weight", bool(args.pretrain_weight)),
-        ("--hf-weights", bool(args.hf_weights)),
         ("--plot-curves", args.plot_curves),
     ] + list(extra)
     refused = [flag for flag, on in asked if on]
@@ -126,6 +128,39 @@ def refuse_unported(args, extra: Tuple[Tuple[str, bool], ...] = ()) -> None:
         raise SystemExit(
             f"{', '.join(refused)}: not ported to the PyTorch package yet; "
             "ROADMAP.md lists what waits (Queue 1)")
+
+
+def check_kernel_shapes(cfg, args, device: torch.device) -> None:
+    """SystemExit, before any model is built, when the SR-attention kernels
+    would refuse `cfg`'s shapes at --img-size on `device` (more than 288
+    keys: 32 prompt/CLS tokens per stage at 512x512). The CLIs never fall
+    back to the plain attention on the card."""
+    from semisupervisedobjectdetection_torch.models.segformer import (
+        check_attention_kernels,
+    )
+
+    try:
+        check_attention_kernels(cfg, args.img_size, args.img_size, device)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+
+
+def kernel_launches() -> Tuple[int, int]:
+    """The launches of SR-attention's forward and backward kernels so
+    far."""
+    from semisupervisedobjectdetection_torch.ops.sr_attention import (
+        sr_attention,
+        sr_attention_bwd,
+    )
+
+    return sr_attention.launches, sr_attention_bwd.launches
+
+
+def sync(device: torch.device) -> None:
+    """Wait for the card, so that a host clock read after it covers the
+    queued work."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def apply_perf_preset(cfg, args):

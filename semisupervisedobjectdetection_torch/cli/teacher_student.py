@@ -53,10 +53,6 @@ from semisupervisedobjectdetection_torch.models.segformer import (
     SegFormer,
     init_weights,
 )
-from semisupervisedobjectdetection_torch.ops.sr_attention import (
-    sr_attention,
-    sr_attention_bwd,
-)
 from semisupervisedobjectdetection_torch.train.ema import ema_semi_step
 from semisupervisedobjectdetection_torch.train.state import TrainState
 from semisupervisedobjectdetection_torch.train.supervised import eval_step
@@ -95,15 +91,6 @@ def train_run(args, dcfg, tc, loaders, cfg, logger, device, *, teacher_lr,
                            save_model=bool(args.checkpoint_dir))
 
 
-def _launches():
-    return sr_attention.launches, sr_attention_bwd.launches
-
-
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def _ema_train_loop(args, dcfg, tc, loaders, logger, device, *, teacher,
                     student, sup_w, threshold, epochs, ckpt_s, ckpt_t,
                     start_epoch=0, best_s=float("inf"),
@@ -128,7 +115,7 @@ def _ema_train_loop(args, dcfg, tc, loaders, logger, device, *, teacher,
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
         s_losses, p_losses, kept = [], [], []
-        k1, k2 = _launches()
+        k1, k2 = common.kernel_launches()
         wait_s, images = 0.0, 0
         t_epoch = t0 = time.perf_counter()
         batches = prefetch_paired_batches(
@@ -154,9 +141,10 @@ def _ema_train_loop(args, dcfg, tc, loaders, logger, device, *, teacher,
                     break
         finally:
             batches.close()
-        _sync(device)
+        common.sync(device)
         train_s = time.perf_counter() - t0
-        train_k1, train_k2 = (a - b for a, b in zip(_launches(), (k1, k2)))
+        train_k1, train_k2 = (a - b for a, b in
+                              zip(common.kernel_launches(), (k1, k2)))
         if preemption.stop_requested():
             _preempt_exit(args, teacher, student, epoch, best_s, best_t)
         teacher.scheduler_step()
@@ -166,7 +154,7 @@ def _ema_train_loop(args, dcfg, tc, loaders, logger, device, *, teacher,
         p_losses = [x for x in common.host_floats(p_losses)
                     if np.isfinite(x)]
 
-        k1 = _launches()[0]
+        k1 = common.kernel_launches()[0]
         t0 = time.perf_counter()
         ev_s, ev_t, mious, pi_mious = [], [], [], []
         for images_u8, masks_u8 in loaders["eval"]:
@@ -182,7 +170,7 @@ def _ema_train_loop(args, dcfg, tc, loaders, logger, device, *, teacher,
         mious = common.host_floats(mious)
         pi_mious = common.host_floats(pi_mious)
         eval_s = time.perf_counter() - t0
-        eval_k1 = _launches()[0] - k1
+        eval_k1 = common.kernel_launches()[0] - k1
         fps = len(loaders["eval"]) / max(eval_s, 1e-9)
 
         train_loss = float(np.mean(s_losses)) if s_losses else 0.0
@@ -254,7 +242,9 @@ def _save_lasts(args, teacher, student, epoch, best_s, best_t):
     save_last(args.checkpoint_dir, "ts_student", student, epoch, best_s)
 
 
-def main(argv: Optional[List[str]] = None) -> List[dict]:
+def parse_args(argv: Optional[List[str]] = None):
+    """The CLI's flags; under --ema-mode an --ema of 0 takes the
+    mean-teacher default decay 0.999 (the gradient loop keeps 0: no EMA)."""
     p = common.base_parser(__doc__.split("\n\n")[0])
     p.add_argument("--teacher-lr", type=float, default=5e-7)
     p.add_argument("--student-lr", type=float, default=3e-5)
@@ -267,7 +257,7 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
                         "gradient loop's; not ported)")
     p.add_argument("--ema", type=float, default=0.0,
                    help="EMA decay of the teacher (0 = 0.999 under "
-                        "--ema-mode)")
+                        "--ema-mode; no EMA in the gradient loop)")
     p.add_argument("--ema-mode", action="store_true",
                    help="run the mean-teacher loop (train/ema.py): a "
                         "per-step EMA with decay --ema, no teacher "
@@ -284,15 +274,22 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
                    help="grid over supervise_weight x threshold (not "
                         "ported)")
     args = p.parse_args(argv)
+    if args.ema_mode and args.ema <= 0:
+        args.ema = 0.999          # mean-teacher default decay
+    return args
+
+
+def main(argv: Optional[List[str]] = None) -> List[dict]:
+    args = parse_args(argv)
     common.refuse_unported(args, (
         ("the gradient teacher-student loop (no --ema-mode)",
          not args.ema_mode),
         ("--tune", args.tune), ("--int8-teacher", args.int8_teacher),
         ("--async-checkpoint", args.async_checkpoint),
-        ("--reset-teacher", args.reset_teacher)))
+        ("--reset-teacher", args.reset_teacher),
+        ("--pretrain-weight", bool(args.pretrain_weight)),
+        ("--hf-weights", bool(args.hf_weights))))
     device = resolve_device(args.device)
-    if args.ema <= 0:
-        args.ema = 0.999          # mean-teacher default decay
     dcfg, tc = common.configs_from_args(args)
     dcfg = common.ensure_data(args, dcfg, need_unlabeled=True)
     loaders = common.make_loaders(dcfg, args.seed,

@@ -117,6 +117,25 @@ def upload(x: Optional[np.ndarray], device: torch.device
     return t.to(device)
 
 
+def prefetch_train_batches(loader: Iterable, seed: int, dcfg,
+                           device: torch.device, depth: int = 1):
+    """Staged (imgs, masks) train batches on `device` for the supervised
+    step, through the train augmentation. Batch `idx` draws its choices
+    from `fold_in(seed, idx)`, so every depth (0 stages inline) stages the
+    same batches."""
+    from semisupervisedobjectdetection_torch.cli.common import (
+        device_train_batch,
+    )
+
+    def stage(idx, images_u8, masks_u8):
+        g = torch.Generator().manual_seed(fold_in(seed, idx))
+        return device_train_batch(g, images_u8, masks_u8, dcfg, device)
+
+    if depth < 1:
+        return (stage(i, *_as_args(item)) for i, item in enumerate(loader))
+    return iter(DevicePrefetcher(loader, stage, depth=depth))
+
+
 def paired_host_batches(train_loader: Iterable, pseudo_loader: Iterable
                         ) -> Iterator[tuple]:
     """(images_u8, masks_u8, unlabeled_u8 | None) per labeled batch, with

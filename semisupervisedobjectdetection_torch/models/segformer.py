@@ -51,6 +51,8 @@ from torch.utils.checkpoint import checkpoint
 
 from semisupervisedobjectdetection_torch.core.config import MiTConfig
 from semisupervisedobjectdetection_torch.ops.sr_attention import (
+    HEAD_DIMS,
+    MAX_NK,
     sr_attention,
     sr_attention_reference,
 )
@@ -127,6 +129,46 @@ def _drop_path(x: torch.Tensor, keep: Optional[torch.Tensor],
     if keep is None:
         return x
     return x / keep_prob * keep.view(-1, *([1] * (x.dim() - 1)))
+
+
+def attention_shapes(cfg: MiTConfig, h: int, w: int
+                     ) -> List[Tuple[int, int, int]]:
+    """(Nq, Nk, head width) of each stage's SR-attention on an h x w input:
+    the stage's tokens and its reduced key/value tokens (a stride-`sr`
+    conv), each with the stage's prompt and CLS prefix. MiT-B5 at 512x512:
+    Nk = 256 + prefix at every stage."""
+    out = []
+    for i in range(cfg.num_stages):
+        p, s = cfg.patch_sizes[i], cfg.strides[i]
+        h = (h + 2 * (p // 2) - p) // s + 1
+        w = (w + 2 * (p // 2) - p) // s + 1
+        r = cfg.sr_ratios[i]
+        prefix = cfg.prompt_tokens[i] + cfg.cls_tokens[i]
+        out.append((h * w + prefix, (h // r) * (w // r) + prefix,
+                    cfg.hidden_sizes[i] // cfg.num_heads[i]))
+    return out
+
+
+def check_attention_kernels(cfg: MiTConfig, h: int, w: int,
+                            device: torch.device) -> None:
+    """Raise ValueError, before a model is built, when `cfg` at h x w would
+    send the SR-attention kernels shapes they refuse on `device` (a CUDA
+    device with `attn_impl="kernel"`): Nk above `MAX_NK` or a head width
+    outside `HEAD_DIMS`. Nothing falls back to the plain attention."""
+    if torch.device(device).type != "cuda" or cfg.attn_impl != "kernel":
+        return
+    for i, (_, nk, d) in enumerate(attention_shapes(cfg, h, w)):
+        if nk > MAX_NK:
+            prompt, cls = cfg.prompt_tokens[i], cfg.cls_tokens[i]
+            raise ValueError(
+                f"stage {i}: SR-attention over Nk={nk} keys "
+                f"({nk - prompt - cls} reduced tokens + {prompt} prompt + "
+                f"{cls} CLS) at {h}x{w}; the kernels take Nk <= {MAX_NK} "
+                "(a K/V loop that lifts the limit is ROADMAP.md Queue 2 "
+                "work)")
+        if d not in HEAD_DIMS:
+            raise ValueError(f"stage {i}: head width {d}; the SR-attention "
+                             f"kernels take {HEAD_DIMS}")
 
 
 class Linear(nn.Linear):

@@ -26,6 +26,10 @@ _SOURCE = "sr_attention_fwd.cu"
 _BWD_SOURCE = "sr_attention_bwd.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64)
+# The most keys either kernel takes (`kMaxSlots * 32` in both sources): one
+# (batch, head)'s K and V sit on chip and each lane holds 9 key columns of
+# the score row. Larger Nk needs a loop over K/V blocks (ROADMAP.md Queue 2).
+MAX_NK = 288
 BLOCK_Q = 128
 # The backward's key pass in float32 (scalar kernel): blocks of 32 keys per
 # (batch, head), query rows in tiles of 32; its rows are split so that about

@@ -50,7 +50,10 @@ def forward_masks(model: segformer.SegFormer, images: torch.Tensor, *,
 def grads_of(loss: torch.Tensor, params: Mapping[str, torch.Tensor]
              ) -> Dict[str, torch.Tensor]:
     """d loss / d params as name -> tensor (zeros where a parameter does not
-    reach the loss)."""
+    reach the loss, and everywhere when the loss is piecewise constant, as
+    the binarised dice is)."""
+    if not loss.requires_grad:
+        return {n: torch.zeros_like(p) for n, p in params.items()}
     got = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
     return {n: torch.zeros_like(p) if g is None else g
             for (n, p), g in zip(params.items(), got)}

@@ -83,7 +83,7 @@ def _targets(teacher, unlabeled, images, ground_truth, denoise_label,
 def _student_loss_and_grads(student: TrainState, images, ground_truth,
                             teacher_mask, supervise_weight, train_mode,
                             generator, stats=None):
-    params = student.params
+    params = student.trainable_params
     pred, _, new_stats = forward_masks(student.model, images,
                                        train_mode=train_mode,
                                        generator=generator, stats=stats)
@@ -92,14 +92,6 @@ def _student_loss_and_grads(student: TrainState, images, ground_truth,
     total = supervise_weight * sup + (1.0 - supervise_weight) * self_sup
     grads = grads_of(total, params)
     return total.detach(), sup.detach(), self_sup.detach(), grads, new_stats
-
-
-@torch.no_grad()
-def _set_batch_stats(state: TrainState, stats) -> None:
-    if stats is not None:
-        live = state.batch_stats
-        for n, t in stats.items():
-            live[n].copy_(t)
 
 
 def _ema_semi_impl(teacher: TrainState, student: TrainState, unlabeled,
@@ -114,7 +106,7 @@ def _ema_semi_impl(teacher: TrainState, student: TrainState, unlabeled,
         train_mode, generator)
     student.apply_gradients(grads, total)
     del grads
-    _set_batch_stats(student, new_stats)
+    student.set_batch_stats(new_stats)
     ema_update(teacher, student, ema_decay)
     return EmaStepOut(teacher, student, total, sup, self_sup, labels.loss,
                       labels.n_kept, labels.pseudo_mask)
@@ -156,7 +148,8 @@ def _ema_semi_accum(teacher: TrainState, student: TrainState, unlabeled,
     z = torch.zeros((), device=images.device)
     sums_zero = dict(total=z, sup=z, self_sup=z, p_sum=z, kept=z)
     gsum, stats, sums, p_masks = accumulate_microbatches(
-        micro, student.params, student.batch_stats, sums_zero, xs)
+        micro, student.trainable_params, student.batch_stats, sums_zero,
+        xs)
     grads = {n: g / accum for n, g in gsum.items()}
     del gsum
     total, sup, self_sup = (sums["total"] / accum, sums["sup"] / accum,
@@ -168,7 +161,7 @@ def _ema_semi_accum(teacher: TrainState, student: TrainState, unlabeled,
     student.apply_gradients(grads, total)
     del grads
     if train_mode:
-        _set_batch_stats(student, stats)
+        student.set_batch_stats(stats)
     ema_update(teacher, student, ema_decay)
     return EmaStepOut(teacher, student, total, sup, self_sup, pseudo_loss,
                       n_kept, p_masks.reshape(bu, *p_masks.shape[2:]))

@@ -7,7 +7,10 @@ bias correction -> times -lr, where lr = base_lr * lr_decay**epoch. A step
 whose loss is not finite changes nothing: the params, the moments and Adam's
 count keep their values, chosen on the device with `torch.where` so no
 step waits on the host. Parameters masked out by `trainable_mask` take no
-update and carry no moments.
+update and carry no moments, and are marked `requires_grad=False`, so
+autograd builds no gradient for them; `trainable_mask_from` and
+`frozen_stage_predicate` build the masks of frozen encoder stages and of
+the reference's untrained prompt/CLS tokens.
 
 Unlike the JAX state, this one is updated in place: it holds the model
 whose float32 parameters it trains, and `apply_gradients` writes them.
@@ -16,7 +19,7 @@ whose float32 parameters it trains, and `apply_gradients` writes them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional
+from typing import Callable, Dict, Mapping, Optional, Union
 
 import torch
 from torch import nn
@@ -46,13 +49,19 @@ class TrainState:
                trainable_mask: Optional[Mapping[str, bool]] = None
                ) -> "TrainState":
         """A fresh state for `model` (its parameters float32, on their
-        device): zero moments for every trainable parameter."""
+        device): zero moments for every trainable parameter. A parameter
+        that `trainable_mask` masks out gets `requires_grad=False`: no
+        gradient is built for it, while gradients still flow through it to
+        the trainable parameters below (a frozen encoder stage passes them
+        on to the patch embeddings under it)."""
         params = dict(model.named_parameters())
         mask = dict(trainable_mask) if trainable_mask is not None else None
         if mask is not None and set(mask) != set(params):
             raise ValueError("trainable_mask must name every parameter")
         dev = next(iter(params.values())).device
         trained = [n for n in params if mask is None or mask[n]]
+        for n, p in params.items():
+            p.requires_grad_(mask is None or bool(mask[n]))
 
         def scalar(x, dtype=torch.float32):
             return torch.tensor(x, dtype=dtype, device=dev)
@@ -69,10 +78,26 @@ class TrainState:
         return dict(self.model.named_parameters())
 
     @property
+    def trainable_params(self) -> Dict[str, nn.Parameter]:
+        """The parameters the optimizer updates (those with moments)."""
+        params = self.params
+        return {n: params[n] for n in self.mu}
+
+    @property
     def batch_stats(self) -> Dict[str, torch.Tensor]:
         """The BatchNorm running statistics (the JAX `batch_stats`)."""
         return {n: b for n, b in self.model.named_buffers()
                 if n.endswith(_STATS)}
+
+    @torch.no_grad()
+    def set_batch_stats(self, stats: Optional[Mapping[str, torch.Tensor]]
+                        ) -> None:
+        """Copy new BatchNorm running statistics (name -> tensor) into the
+        model; None keeps them."""
+        if stats is not None:
+            live = self.batch_stats
+            for n, t in stats.items():
+                live[n].copy_(t)
 
     @property
     def lr(self) -> torch.Tensor:
@@ -120,3 +145,44 @@ class TrainState:
         """The per-epoch exponential learning-rate step."""
         self.epoch = self.epoch + 1.0
         return self
+
+
+def trainable_mask_from(params: Union[nn.Module, Mapping[str, torch.Tensor]],
+                        frozen_predicate: Callable[[str], bool]
+                        ) -> Dict[str, bool]:
+    """name -> trainable, False where `frozen_predicate(name)` is True, over
+    the parameters of a model (or a name -> tensor mapping), for
+    `TrainState.create(trainable_mask=...)`."""
+    if isinstance(params, nn.Module):
+        params = dict(params.named_parameters())
+    return {n: not frozen_predicate(n) for n in params}
+
+
+_BLOCK = "segformer.encoder.block."
+_PROMPT = "segformer.encoder.prompt_tokens."
+_CLS = "segformer.encoder.cls_token."
+
+
+def frozen_stage_predicate(frozen_stages, freeze_prompts: bool = False,
+                           freeze_cls: bool = False
+                           ) -> Callable[[str], bool]:
+    """A predicate for `trainable_mask_from` that freezes the layers of the
+    encoder stages in `frozen_stages` (`segformer.encoder.block.<i>.*`, the
+    reference's `frozen_encoder(layers=[...])`). As in the reference, only
+    `encoder.block[i]` freezes: the stage's patch embedding and final
+    LayerNorm stay trainable. `freeze_prompts` / `freeze_cls` also freeze
+    the prompt tokens (`segformer.encoder.prompt_tokens.<i>`) / CLS tokens
+    (`segformer.encoder.cls_token.<i>`), the reference's quirk of tokens
+    the optimizer never sees."""
+    frozen = {int(i) for i in frozen_stages}
+
+    def predicate(name: str) -> bool:
+        if name.startswith(_PROMPT):
+            return freeze_prompts
+        if name.startswith(_CLS):
+            return freeze_cls
+        if name.startswith(_BLOCK):
+            return int(name[len(_BLOCK):].split(".", 1)[0]) in frozen
+        return False
+
+    return predicate

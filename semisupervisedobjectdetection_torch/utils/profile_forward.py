@@ -1,9 +1,10 @@
-"""Where a served SegFormer batch, or an EMA training step, spends its time
-on the card.
+"""Where a served SegFormer batch, or an EMA or supervised training step,
+spends its time on the card.
 
     python -m semisupervisedobjectdetection_torch.utils.profile_forward \
-        [--step predict|ema] [--variant b5] [--img-size 512] [--batch 8] \
-        [--dtype bfloat16] [--grad-accum 2] [--iters 10] [--out prof/]
+        [--step predict|ema|supervised] [--variant b5] [--img-size 512] \
+        [--batch 8] [--dtype bfloat16] [--grad-accum 2] [--iters 10] \
+        [--out prof/]
 
 Prints JSON lines with the card's name and power limit beside every number.
 `--step predict` (the default):
@@ -25,6 +26,11 @@ Prints JSON lines with the card's name and power limit beside every number.
   time, the idle share, the kernel launches, the SR-attention kernels' time
   and launches, the top kernels by device time and the top host operators
   by their own CPU time.
+
+`--step supervised`: `SegFormerModel.train_one_epoch` at the same point
+(`--batch` images per step, default 32, in `--grad-accum` microbatches, the
+reference-quirks eval-mode forward), printed as `supervised_step` and
+`supervised_profile` lines of the same fields.
 
 With `--out`, the profiler's table and a Chrome trace are written there.
 Runs on the card only.
@@ -87,41 +93,36 @@ def _write(prof, out: str) -> None:
     prof.export_chrome_trace(os.path.join(out, "trace.json"))
 
 
-def profile_ema(args, card: str) -> None:
-    from semisupervisedobjectdetection_torch.bench import (
-        flagship_config,
-        make_workload,
-    )
-
-    accum = args.grad_accum
-    batch = args.batch or 16 * accum
+def _profile_step(name: str, step, images_per_step: int, args, card: str,
+                  **fields) -> None:
+    """Time `step()` (which ends by reading its loss on the host): two
+    warm-up calls, `--iters` timed ones and one under `torch.profiler`;
+    prints the `{name}_step` and `{name}_profile` lines."""
     dev = torch.device("cuda")
-    torch.cuda.reset_peak_memory_stats(dev)
-    w = make_workload(flagship_config(), batch, args.img_size, accum, dev)
     for _ in range(2):
-        float(w.step().student_loss_total)
+        step()
+    torch.cuda.reset_peak_memory_stats(dev)
     iters = args.iters or 3
     t0 = time.perf_counter()
     for _ in range(iters):
-        float(w.step().student_loss_total)
+        step()
     step_ms = (time.perf_counter() - t0) / iters * 1e3
-    print(json.dumps({"ema_step": {
-        "ms": step_ms, "images_per_step": w.images_per_step,
-        "img_per_s": w.images_per_step / step_ms * 1e3,
-        "batch": batch, "grad_accum": accum,
+    print(json.dumps({f"{name}_step": {
+        "ms": step_ms, "images_per_step": images_per_step,
+        "img_per_s": images_per_step / step_ms * 1e3, **fields,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev),
         "card": card}}), flush=True)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        float(w.step().student_loss_total)
+        step()
         wall_ms = (time.perf_counter() - t0) * 1e3
     summary = _kernel_summary(prof, 1)
     host = sorted((e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CPU),
                   key=lambda e: e.self_cpu_time_total, reverse=True)
-    print(json.dumps({"ema_profile": {
+    print(json.dumps({f"{name}_profile": {
         "wall_ms_per_step": wall_ms,
         "idle_share": 1.0 - summary["device_busy_ms_per_iter"] / wall_ms,
         **summary,
@@ -133,6 +134,44 @@ def profile_ema(args, card: str) -> None:
         _write(prof, args.out)
 
 
+def profile_ema(args, card: str) -> None:
+    from semisupervisedobjectdetection_torch.bench import (
+        flagship_config,
+        make_workload,
+    )
+
+    accum = args.grad_accum
+    batch = args.batch or 16 * accum
+    w = make_workload(flagship_config(), batch, args.img_size, accum,
+                      torch.device("cuda"))
+    _profile_step("ema", lambda: float(w.step().student_loss_total),
+                  w.images_per_step, args, card, batch=batch,
+                  grad_accum=accum)
+
+
+def profile_supervised(args, card: str) -> None:
+    """`SegFormerModel.train_one_epoch` at the flagship point: `--batch`
+    images per step (default 32) in `--grad-accum` microbatches, the
+    reference-quirks forward (eval mode), seeded random weights and
+    images."""
+    from semisupervisedobjectdetection_torch.api import SegFormerModel
+    from semisupervisedobjectdetection_torch.bench import flagship_config
+
+    accum = args.grad_accum
+    batch = args.batch or 16 * accum
+    model = SegFormerModel(config=flagship_config(), seed=0,
+                           grad_accum=accum)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.uniform(size=(
+        batch, args.img_size, args.img_size, 3)).astype(np.float32)).cuda()
+    y = torch.from_numpy((rng.uniform(size=(
+        batch, args.img_size, args.img_size)) > 0.7).astype(
+            np.float32)).cuda()
+    _profile_step("supervised",
+                  lambda: float(model.train_one_epoch(x, y, lazy=True)[0]),
+                  batch, args, card, batch=batch, grad_accum=accum)
+
+
 def main(argv=None) -> None:
     from semisupervisedobjectdetection_torch.api import SegFormerModel
     from semisupervisedobjectdetection_torch.core.config import MIT_VARIANTS
@@ -141,16 +180,18 @@ def main(argv=None) -> None:
     )
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--step", default="predict", choices=["predict", "ema"])
+    p.add_argument("--step", default="predict",
+                   choices=["predict", "ema", "supervised"])
     p.add_argument("--variant", default="b5")
     p.add_argument("--img-size", type=int, default=512)
     p.add_argument("--batch", type=int, default=0,
-                   help="predict: 8; ema: 16 * grad-accum per phase")
+                   help="predict: 8; ema: 16 * grad-accum per phase; "
+                        "supervised: 16 * grad-accum")
     p.add_argument("--dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--grad-accum", type=int, default=2)
     p.add_argument("--iters", type=int, default=0,
-                   help="predict: 10; ema: 3")
+                   help="predict: 10; ema and supervised: 3")
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -158,8 +199,9 @@ def main(argv=None) -> None:
     card = _smi()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if args.step == "ema":
-        profile_ema(args, card)
+    if args.step in ("ema", "supervised"):
+        (profile_ema if args.step == "ema" else profile_supervised)(args,
+                                                                    card)
         return
     args.batch = args.batch or 8
     args.iters = args.iters or 10

@@ -19,6 +19,7 @@ from semisupervisedobjectdetection_torch.checkpoint.io import (
     load_last,
     restore_state,
     save_last,
+    save_state,
 )
 from semisupervisedobjectdetection_torch.cli import teacher_student
 from semisupervisedobjectdetection_torch.core.config import (
@@ -119,6 +120,39 @@ def test_last_checkpoint_round_trip_is_exact(tmp_path):
         num_heads=(1, 2, 4, 8), decoder_hidden=16)), TrainConfig())
     with pytest.raises(RuntimeError, match="size mismatch"):
         restore_state(os.path.join(str(tmp_path), "m_last.pt"), other)
+
+
+def test_restore_state_options(tmp_path):
+    """`load_opt_state=False` loads the weights by the partial-load rule
+    (another decoder width keeps the template's decoder) and keeps the
+    template's Adam state; `load_epoch=False` keeps its epoch."""
+    a = _state(1)
+    with torch.no_grad():
+        for n in a.mu:
+            a.mu[n].normal_()
+    a.count.fill_(3)
+    a.scheduler_step()
+    path = os.path.join(str(tmp_path), "a.pt")
+    save_state(path, a)
+    b = _state(2)
+    restore_state(path, b, load_opt_state=True, load_epoch=False)
+    assert all(torch.equal(b.mu[n], a.mu[n]) for n in a.mu)
+    assert (int(b.count), float(b.epoch)) == (3, 0.0)
+    c = _state(3)
+    restore_state(path, c, load_opt_state=False, load_epoch=False)
+    for k, v in a.model.state_dict().items():
+        assert torch.equal(c.model.state_dict()[k], v), k
+    assert all(not m.any() for m in c.mu.values())
+    assert (int(c.count), float(c.epoch)) == (0, 0.0)
+    other = TrainState.create(SegFormer(MiTConfig(
+        depths=(1, 1, 1, 1), hidden_sizes=(8, 16, 32, 64),
+        num_heads=(1, 2, 4, 8), decoder_hidden=16)), TrainConfig())
+    fuse = other.model.decode_head.linear_fuse.weight.detach().clone()
+    restore_state(path, other, load_opt_state=False, load_epoch=False)
+    assert torch.equal(other.model.decode_head.linear_fuse.weight, fuse)
+    key = "segformer.encoder.block.0.0.mlp.dense1.weight"
+    assert torch.equal(other.model.state_dict()[key],
+                       a.model.state_dict()[key])
 
 
 def test_best_checkpointer_gate(tmp_path):

@@ -29,7 +29,8 @@ def test_every_module_imports_without_jax():
               "train.teacher_student", "train.supervised", "data.synthetic",
               "data.tiles", "data.loader", "data.augment", "data.prefetch",
               "eval.metrics", "utils.logging", "checkpoint.io",
-              "cli.common", "cli.teacher_student"):
+              "cli.common", "cli.teacher_student", "cli.supervised",
+              "cli.transfer", "api", "utils.profile_forward"):
         assert f"semisupervisedobjectdetection_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
