@@ -127,6 +127,41 @@ non-zero before the final line:
                 counts per step; and --prompt-tokens 40,40,40,40 (Nk = 296)
                 refused before any model or data is made.
 
+17. ts_step    - the gradient teacher-student steps
+                (`train/teacher_student.py`) at the flagship point (MiT-B5
+                512x512 bf16, tanh GELU, 32 labeled + 32 unlabeled images,
+                microbatch 16 x accum 2, eval-mode forwards, a seeded pair
+                with the classifier bias at 2 so the pseudo-label gate keeps
+                every sample): pseudo_label_step with the gate on, then off
+                (the teacher's parameters, moments and count bit-equal
+                across it), two pseudo_label_infer_steps and two
+                labeled_steps, through the kernels and through the plain
+                path: losses within TRAIN_LOSS_TOL, kept counts within 1,
+                launches per call (pseudo_label_step 208 K1 and 104 K2, the
+                infer step 52 and 0, labeled_step 416 and 208, 104 of them
+                in the teacher's backward), the plain path none; ms per call
+                and peak memory.
+18. ts_cli     - `cli/teacher_student.py::main` without --ema-mode at the
+                CLI point: 2 epochs --no-quirks --resume warm-started by
+                --pretrain-weight from those seeded weights (epoch 0 updates
+                the teacher in phase A, epoch 1 only pseudo-labels), then 1
+                epoch in the default quirks mode (train mode) in a fresh
+                directory: launches per phase from `epoch_report`, the
+                teacher's Adam count after phase A, finite CSV rows,
+                `load_last` exact for both models, the train-mode student's
+                BatchNorm statistics moved.
+19. ae_step    - two autoencoder steps (`train/autoencoder.py`, num_labels
+                3, train mode) at the flagship point through the kernels and
+                the plain path, then `ae_eval_step`: the MSE losses per
+                element within TRAIN_LOSS_TOL, 208 K1 and 104 K2 per step
+                and 52 K1 in the eval, the plain path none.
+20. ae_cli     - `cli/autoencoder.py::main` at the CLI point, 2 epochs with
+                --resume (the labeled, then the unlabeled tiles), then
+                `cli/transfer.py::main --pretrain-weight <its best>` for 1
+                epoch: at the transfer model's first use its encoder and
+                decoder equal the checkpoint's and its classifier the
+                checkpoint's channel 0; launches per train step and eval.
+
 Then the `kernels` summary line, the `nvidia-smi` name/power-limit line and,
 last, {"ok": true, "device": {...}}.
 """
@@ -232,6 +267,23 @@ TRANSFER_SHAPES = tuple((nq + t, nk + t, c, h) for (nq, nk, c, h), t
 TRANSFER_REFUSED_TOKENS = (40, 40, 40, 40)     # Nk = 296 > 288
 FROZEN_PREFIXES = tuple(f"segformer.encoder.block.{i}."
                         for i in TRANSFER_FROZEN)
+# The gradient teacher-student steps at the flagship point (ts_step): a
+# model's forward and recompute of a microbatch of 16 run K1 in each of the
+# 52 layers, its backward K2. pseudo_label_step: the teacher over 2
+# microbatches; pseudo_label_infer_step: one no-grad forward of 32;
+# labeled_step: both models over 2 microbatches.
+PSEUDO_K = (ACCUM * 2 * sum(B5_DEPTHS), ACCUM * sum(B5_DEPTHS))   # 208, 104
+INFER_K = (sum(B5_DEPTHS), 0)                                   # 52, 0
+LABELED_K = (2 * PSEUDO_K[0], 2 * PSEUDO_K[1])                  # 416, 208
+# The CLI defaults of the two models' learning rates; the classifier bias of
+# the ts phases' seeded weights, which puts the soft masks near 0.88 so the
+# pseudo-label gate keeps every sample and phase A's update really moves
+# the teacher.
+TEACHER_LR, STUDENT_LR = 5e-7, 3e-5
+TS_CLS_BIAS = 2.0
+# The autoencoder: 3 labels; its CLI takes the labeled and then the
+# unlabeled tiles, CLI_STEPS_PER_EPOCH train steps each.
+AE_LABELS = 3
 
 
 def emit(obj) -> None:
@@ -1769,6 +1821,511 @@ def phase_transfer_cli(smi: str, sup: dict):
     return row
 
 
+def _ts_models(cfg, dev):
+    """A teacher (lr 5e-7) and a student (lr 3e-5) of one seeded MiT-B5 on
+    `dev`, the classifier bias at TS_CLS_BIAS."""
+    import copy
+
+    import torch
+
+    from semisupervisedobjectdetection_torch.core.config import TrainConfig
+    from semisupervisedobjectdetection_torch.models.segformer import (
+        SegFormer,
+        init_weights,
+    )
+    from semisupervisedobjectdetection_torch.train.state import TrainState
+
+    model = init_weights(SegFormer(cfg), torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        model.decode_head.classifier.bias.fill_(TS_CLS_BIAS)
+    teacher = TrainState.create(copy.deepcopy(model).to(dev), TrainConfig(),
+                                lr=TEACHER_LR)
+    student = TrainState.create(model.to(dev), TrainConfig(), lr=STUDENT_LR)
+    return teacher, student
+
+
+def _ts_snapshot(state):
+    return ([p.detach().clone() for p in state.params.values()]
+            + [m.clone() for m in state.mu.values()]
+            + [v.clone() for v in state.nu.values()]
+            + [state.count.clone()])
+
+
+def phase_ts_step(smi: str):
+    """The gradient teacher-student steps at the flagship point (eval-mode
+    forwards, the --no-quirks path whose phase A updates the teacher):
+    pseudo_label_step with the gate on and then off, two
+    pseudo_label_infer_steps and two labeled_steps, through the kernels and
+    through the plain path, from one seeded teacher/student pair each."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from semisupervisedobjectdetection_torch import bench
+    from semisupervisedobjectdetection_torch.train import teacher_student \
+        as ts
+
+    dev = torch.device("cuda")
+    cfg = bench.flagship_config()
+    batch = ACCUM * MICRO
+    rng = np.random.default_rng(SEED + 5)
+    u = torch.from_numpy(rng.uniform(size=(batch, IMG, IMG, 3))
+                         .astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.uniform(size=(batch, IMG, IMG, 3))
+                         .astype(np.float32)).to(dev)
+    y = torch.from_numpy((rng.uniform(size=(batch, IMG, IMG)) > 0.7)
+                         .astype(np.float32)).to(dev)
+    on = torch.ones((), dtype=torch.bool, device=dev)
+    off = torch.zeros((), dtype=torch.bool, device=dev)
+    runs = {}
+    real_grads_of = ts.grads_of
+    for impl in ("kernel", "plain"):
+        teacher, student = _ts_models(cfg.replace(attn_impl=impl), dev)
+        first_teacher_param = next(iter(teacher.params.values()))
+        calls, by_model = [], {"teacher": [0, 0], "student": [0, 0]}
+
+        def spy(loss, params):
+            # the K1 (recompute) and K2 launches of each model's backward
+            k0 = _counts()
+            grads = real_grads_of(loss, params)
+            who = "teacher" if next(iter(params.values())) is \
+                first_teacher_param else "student"
+            for i in range(2):
+                by_model[who][i] += _counts()[i] - k0[i]
+            return grads
+
+        def timed(name, fn):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            _reset_counts()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            k1, k2, k1_mma = _counts()
+            pseudo = name.startswith("pseudo")
+            losses = [float(v) for v in (out[1:2] if pseudo else out[2:])]
+            calls.append({"call": name, "ms": ms,
+                          "launches_k1_k2_k1mma": [k1, k2, k1_mma],
+                          "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                          "losses": losses,
+                          "n_kept": float(out.n_kept) if pseudo else None,
+                          "teacher_count": int(teacher.count),
+                          "student_count": int(student.count)})
+            return out
+
+        timed("pseudo_label_step(enable=True)", lambda: ts.pseudo_label_step(
+            teacher, u, on, accum=ACCUM))
+        before = _ts_snapshot(teacher)
+        timed("pseudo_label_step(enable=False)",
+              lambda: ts.pseudo_label_step(teacher, u, off, accum=ACCUM))
+        gate_equal = all(torch.equal(a, b) for a, b in
+                         zip(before, _ts_snapshot(teacher)))
+        del before
+        for _ in range(2):
+            timed("pseudo_label_infer_step",
+                  lambda: ts.pseudo_label_infer_step(teacher, u))
+        ts.grads_of = spy
+        try:
+            for _ in range(2):
+                timed("labeled_step", lambda: ts.labeled_step(
+                    teacher, student, x, y, 0.8, accum=ACCUM))
+        finally:
+            ts.grads_of = real_grads_of
+        runs[impl] = {"calls": calls, "gate_off_bit_equal": gate_equal,
+                      "labeled_backward_launches_by_model": by_model}
+        del teacher, student
+        torch.cuda.empty_cache()
+
+    pairs = list(zip(runs["kernel"]["calls"], runs["plain"]["calls"]))
+    kept_diff = max(abs(a["n_kept"] - b["n_kept"]) for a, b in pairs
+                    if a["n_kept"] is not None)
+    # a pseudo loss is compared where both paths kept the same samples
+    loss_diff = max(abs(p - q) for a, b in pairs
+                    if a["n_kept"] == b["n_kept"]
+                    for p, q in zip(a["losses"], b["losses"]))
+    k = runs["kernel"]
+    row = {"phase": "ts_step", "variant": "b5", "img": IMG,
+           "dtype": "bfloat16", "gelu": "tanh", "micro_batch": MICRO,
+           "accum": ACCUM, "train_mode": False,
+           "lr_teacher_student": [TEACHER_LR, STUDENT_LR],
+           "classifier_bias": TS_CLS_BIAS, "runs": runs,
+           "loss_max_abs_diff": loss_diff, "loss_tol": TRAIN_LOSS_TOL,
+           "kept_max_diff": kept_diff, "kept_tol": TRAIN_KEPT_TOL,
+           "launches_expected": {"pseudo_label_step": list(PSEUDO_K),
+                                 "pseudo_label_infer_step": list(INFER_K),
+                                 "labeled_step": list(LABELED_K)},
+           "card": smi}
+    emit(row)
+    want = {"pseudo_label_step(enable=True)": PSEUDO_K,
+            "pseudo_label_step(enable=False)": PSEUDO_K,
+            "pseudo_label_infer_step": INFER_K, "labeled_step": LABELED_K}
+    for c in k["calls"]:
+        k1, k2, k1_mma = c["launches_k1_k2_k1mma"]
+        if (k1, k2) != want[c["call"]] or k1_mma != k1:
+            raise AssertionError(f"ts_step {c['call']}: launches "
+                                 f"{c['launches_k1_k2_k1mma']}, expected "
+                                 f"{want[c['call']]} (tensor-core K1)")
+    if any(c["launches_k1_k2_k1mma"] != [0, 0, 0]
+           for c in runs["plain"]["calls"]):
+        raise AssertionError("the plain ts path launched a kernel")
+    by_model = k["labeled_backward_launches_by_model"]
+    if [by_model[m][1] for m in ("teacher", "student")] != \
+            [2 * PSEUDO_K[1]] * 2:             # over the two labeled_steps
+        raise AssertionError(f"labeled_step K2 by model {by_model}: "
+                             f"expected {PSEUDO_K[1]} each per step")
+    for r in runs.values():
+        counts = [(c["teacher_count"], c["student_count"])
+                  for c in r["calls"]]
+        if not r["gate_off_bit_equal"] or counts != [
+                (1, 0), (1, 0), (1, 0), (1, 0), (2, 1), (3, 2)]:
+            raise AssertionError(f"ts_step gate: bit-equal "
+                                 f"{r['gate_off_bit_equal']}, Adam counts "
+                                 f"{counts}")
+        if not all(math.isfinite(v) for c in r["calls"]
+                   for v in c["losses"]):
+            raise AssertionError(f"ts_step losses not finite: {r['calls']}")
+    if loss_diff > TRAIN_LOSS_TOL or kept_diff > TRAIN_KEPT_TOL:
+        raise AssertionError(f"kernel and plain ts steps disagree: losses "
+                             f"{loss_diff}, kept counts {kept_diff}")
+    row["ms_per_call_kernel"] = {c["call"]: c["ms"] for c in k["calls"]}
+    return row
+
+
+def _state_tensors(state):
+    return {**{"model." + n: t for n, t in
+               state.model.state_dict().items()},
+            **{"mu." + n: t for n, t in state.mu.items()},
+            **{"nu." + n: t for n, t in state.nu.items()},
+            "count": state.count, "epoch": state.epoch}
+
+
+def phase_ts_cli(smi: str):
+    """`cli/teacher_student.py::main` without --ema-mode at the flagship
+    point: 2 epochs --no-quirks --resume warm-started from seeded weights
+    with the classifier bias at TS_CLS_BIAS (epoch 0 updates the teacher in
+    phase A, epoch 1 does not), then 1 epoch in the default quirks mode
+    (train mode, phase A never updates) in a fresh directory."""
+    import math
+    import tempfile
+
+    import torch
+
+    from semisupervisedobjectdetection_torch.checkpoint.io import load_last
+    from semisupervisedobjectdetection_torch.cli import teacher_student
+    from semisupervisedobjectdetection_torch.core.config import (
+        TrainConfig,
+        mit_b5,
+    )
+    from semisupervisedobjectdetection_torch.models.segformer import (
+        SegFormer,
+        init_weights,
+    )
+    from semisupervisedobjectdetection_torch.train.state import TrainState
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_ts_")
+    old_tmp, tempfile.tempdir = tempfile.tempdir, root  # the tiles too
+    cfg = mit_b5(dtype="bfloat16", gelu_approx=True)
+    ck, ck_q = os.path.join(root, "ck"), os.path.join(root, "ck_quirks")
+    warm = os.path.join(root, "warm.pt")
+    argv = _cli_point() + ["--no-quirks", "--resume", "--pretrain-weight",
+                           warm, "--checkpoint-dir", ck, "--epochs", "2"]
+    try:
+        model = init_weights(SegFormer(cfg),
+                             torch.Generator().manual_seed(SEED))
+        with torch.no_grad():
+            model.decode_head.classifier.bias.fill_(TS_CLS_BIAS)
+        torch.save({"model": model.state_dict()}, warm)
+        del model
+        _reset_counts()
+        t0 = time.perf_counter()
+        first = teacher_student.main(argv + [
+            "--metrics-csv", os.path.join(root, "m.csv")])
+        run_s = time.perf_counter() - t0
+        launches = _counts()
+        rows = _csv_rows(os.path.join(root, "m.csv"))
+        names = sorted(os.listdir(ck))
+        exact = {}
+        for prefix in ("ts_teacher", "ts_student"):
+            saved = torch.load(os.path.join(ck, prefix + "_last.pt"),
+                               map_location="cpu", weights_only=True)
+            template = TrainState.create(SegFormer(cfg).cuda(),
+                                         TrainConfig())
+            got = load_last(ck, prefix, template)
+            want = {**{"model." + n: t for n, t in saved["model"].items()},
+                    **{"mu." + n: t for n, t in saved["mu"].items()},
+                    **{"nu." + n: t for n, t in saved["nu"].items()},
+                    "count": saved["count"], "epoch": saved["epoch"]}
+            have = _state_tensors(template)
+            exact[prefix] = {
+                "exact": set(want) == set(have) and all(
+                    torch.equal(have[n].cpu(), t) for n, t in want.items()),
+                "next_epoch": got[1], "count": int(saved["count"])}
+            del saved, template, got, want, have
+            torch.cuda.empty_cache()
+        _reset_counts()
+        t0 = time.perf_counter()
+        quirks = teacher_student.main(_cli_point() + [
+            "--checkpoint-dir", ck_q, "--epochs", "1",
+            "--metrics-csv", os.path.join(root, "q.csv")])
+        quirks_s = time.perf_counter() - t0
+        launches_quirks = _counts()
+        rows_q = _csv_rows(os.path.join(root, "q.csv"))
+        best_q = [n for n in os.listdir(ck_q)
+                  if n.startswith("ts_student_epoch_")]
+        bn_moved = False
+        if best_q:
+            sd = torch.load(os.path.join(ck_q, best_q[0]),
+                            map_location="cpu", weights_only=True)["model"]
+            bn_moved = bool(sd["decode_head.batch_norm.running_mean"]
+                            .abs().max() > 0)
+    finally:
+        tempfile.tempdir = old_tmp
+        shutil.rmtree(root, ignore_errors=True)
+    reports = first + quirks
+    phases = [{"epoch": r["epoch"], "quirks": i == 2,
+               "phase_a": r["phase_a"], "phase_b": r["phase_b"],
+               "eval_k1": r["launches_eval_k1"]}
+              for i, r in enumerate(reports)]
+    row = {"phase": "ts_cli", "argv": argv, "run_s": run_s,
+           "quirks_run_s": quirks_s, "epochs": _epochs(reports),
+           "phases": phases, "csv_rows": rows, "csv_rows_quirks": rows_q,
+           "checkpoints": names, "launches_k1_k2_k1mma": launches,
+           "launches_quirks_run": launches_quirks, "load_last": exact,
+           "quirks_student_bn_moved": bn_moved, "card": smi}
+    emit(row)
+    steps = CLI_STEPS_PER_EPOCH
+    want = [  # (update, phase A launches, teacher count after A)
+        (True, [steps * PSEUDO_K[0], steps * PSEUDO_K[1]], steps),
+        (False, [steps * INFER_K[0], 0], 2 * steps),
+        (False, [steps * INFER_K[0], 0], 0)]
+    got = [(p["phase_a"]["update"], p["phase_a"]["launches"],
+            p["phase_a"]["teacher_adam_count"]) for p in phases]
+    if got != want or any(
+            p["phase_b"]["launches"] != [steps * LABELED_K[0],
+                                         steps * LABELED_K[1]]
+            or p["phase_b"]["steps"] != steps
+            or p["eval_k1"] != 2 * sum(B5_DEPTHS) for p in phases):
+        raise AssertionError(f"ts_cli phases {phases}: expected phase A "
+                             f"{want}")
+    if launches[2] != launches[0] or launches_quirks[2] != \
+            launches_quirks[0]:
+        raise AssertionError("a ts_cli K1 launch was not tensor-core")
+    if len(rows) != 2 or len(rows_q) != 1 or not all(
+            math.isfinite(float(r["train_loss"]))
+            and math.isfinite(float(r["eval_loss"]))
+            and math.isfinite(float(r["teacher_train"]))
+            for r in rows + rows_q):
+        raise AssertionError(f"ts_cli CSV rows {rows}, {rows_q}")
+    if any(not e["exact"] or e["next_epoch"] != 2
+           for e in exact.values()) or \
+            exact["ts_teacher"]["count"] != 3 * steps or not bn_moved:
+        raise AssertionError(f"ts_cli load_last {exact}, quirks BatchNorm "
+                             f"moved {bn_moved}")
+    return row
+
+
+def phase_ae_step(smi: str):
+    """Two autoencoder steps (`train/autoencoder.py::ae_train_step`,
+    num_labels 3, train mode: drop-path 0.1, classifier dropout 0.1) at the
+    flagship point through the kernels and through the plain path from one
+    seeded state and generator seed each, then `ae_eval_step`."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from semisupervisedobjectdetection_torch import bench
+    from semisupervisedobjectdetection_torch.core.config import TrainConfig
+    from semisupervisedobjectdetection_torch.models.segformer import (
+        SegFormer,
+        init_weights,
+    )
+    from semisupervisedobjectdetection_torch.train.autoencoder import (
+        ae_eval_step,
+        ae_train_step,
+    )
+    from semisupervisedobjectdetection_torch.train.state import TrainState
+
+    dev = torch.device("cuda")
+    cfg = bench.flagship_config().replace(num_labels=AE_LABELS)
+    batch = ACCUM * MICRO
+    x = torch.from_numpy(np.random.default_rng(SEED + 6).uniform(
+        size=(batch, IMG, IMG, 3)).astype(np.float32)).to(dev)
+    # the reference's MSE sums each sample's squared errors and divides by
+    # B*3: times B*3 / (H*W*3) it is the mean squared error per element, a
+    # mean over 32 x 512 x 512 x 3 values in [0, 1] like the dice losses
+    # TRAIN_LOSS_TOL holds
+    per_element = batch / (IMG * IMG)
+    runs = {}
+    for impl in ("kernel", "plain"):
+        model = init_weights(SegFormer(cfg.replace(attn_impl=impl)),
+                             torch.Generator().manual_seed(SEED)).to(dev)
+        state = TrainState.create(model, TrainConfig())
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_counts()
+        losses, ms = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            _, loss, recon = ae_train_step(state, x, g, accum=ACCUM)
+            losses.append(float(loss))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        train_launches = _counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        _reset_counts()
+        t0 = time.perf_counter()
+        ev_loss, ev_recon = ae_eval_step(state, x)
+        ev_loss = float(ev_loss)
+        eval_ms = (time.perf_counter() - t0) * 1e3
+        runs[impl] = {
+            "losses": losses, "step_ms": ms,
+            "launches_k1_k2_k1mma": train_launches, "peak_bytes": peak,
+            "eval_loss": ev_loss, "eval_ms": eval_ms,
+            "eval_launches_k1_k2_k1mma": _counts(),
+            "recon_shape": list(recon.shape),
+            "recon_finite": bool(torch.isfinite(recon).all().item()
+                                 and torch.isfinite(ev_recon).all().item()),
+            "count": int(state.count)}
+        del model, state, recon, ev_recon
+        torch.cuda.empty_cache()
+    k, p = runs["kernel"], runs["plain"]
+    diff = max(abs(a - b) for a, b in zip(k["losses"] + [k["eval_loss"]],
+                                          p["losses"] + [p["eval_loss"]]))
+    row = {"phase": "ae_step", "variant": "b5", "img": IMG,
+           "dtype": "bfloat16", "gelu": "tanh", "num_labels": AE_LABELS,
+           "micro_batch": MICRO, "accum": ACCUM, "train_mode": True,
+           "runs": runs, "loss_max_abs_diff": diff,
+           "loss_max_abs_diff_per_element": diff * per_element,
+           "loss_tol_per_element": TRAIN_LOSS_TOL,
+           "launches_expected_per_step": [SUP_K1_PER_STEP, SUP_K2_PER_STEP],
+           "card": smi}
+    emit(row)
+    want = (2 * SUP_K1_PER_STEP, 2 * SUP_K2_PER_STEP, 2 * SUP_K1_PER_STEP)
+    if k["launches_k1_k2_k1mma"] != want or \
+            k["eval_launches_k1_k2_k1mma"] != (sum(B5_DEPTHS), 0,
+                                               sum(B5_DEPTHS)) or \
+            p["launches_k1_k2_k1mma"] != (0, 0, 0) or \
+            p["eval_launches_k1_k2_k1mma"] != (0, 0, 0):
+        raise AssertionError(f"ae_step launches {k['launches_k1_k2_k1mma']}"
+                             f", eval {k['eval_launches_k1_k2_k1mma']}: "
+                             f"expected {want} in 2 steps, "
+                             f"{sum(B5_DEPTHS)} in the eval, none plain")
+    for r in runs.values():
+        if not all(math.isfinite(v) for v in r["losses"]) or \
+                not r["recon_finite"] or r["count"] != 2 or \
+                r["recon_shape"] != [batch, IMG, IMG, AE_LABELS]:
+            raise AssertionError(f"bad ae_step outputs: {r}")
+    if diff * per_element > TRAIN_LOSS_TOL:
+        raise AssertionError(f"kernel and plain autoencoder steps disagree:"
+                             f" {diff} ({diff * per_element} per element)")
+    return row
+
+
+def phase_ae_cli(smi: str):
+    """`cli/autoencoder.py::main` at the flagship point, 2 epochs with
+    --resume, then `cli/transfer.py::main` warm-started from its best
+    checkpoint for 1 epoch (frozen stages 0-1, 10 prompt tokens, quirks
+    off): at the transfer model's first use its encoder and decoder equal
+    the checkpoint's and its 1-label classifier is the checkpoint's channel
+    0."""
+    import math
+    import tempfile
+
+    import torch
+
+    from semisupervisedobjectdetection_torch.cli import (
+        autoencoder,
+        transfer,
+    )
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_ae_")
+    old_tmp, tempfile.tempdir = tempfile.tempdir, root  # the tiles too
+    ck = os.path.join(root, "ae")
+    argv = _cli_point() + ["--resume", "--checkpoint-dir", ck, "--epochs",
+                           "2"]
+    real_loop = transfer.train_loop
+    at_load = {}
+    try:
+        _reset_counts()
+        t0 = time.perf_counter()
+        reports = autoencoder.main(argv + [
+            "--metrics-csv", os.path.join(root, "ae.csv")])
+        run_s = time.perf_counter() - t0
+        launches = _counts()
+        rows = _csv_rows(os.path.join(root, "ae.csv"))
+        best = reports[-1]["best_path"]
+        names = sorted(os.listdir(ck))
+        saved = torch.load(best, map_location="cpu",
+                           weights_only=True)["model"]
+
+        def check_then_train(model, *args, **kw):
+            have = model.state.model.state_dict()
+            cls = ("decode_head.classifier.weight",
+                   "decode_head.classifier.bias")
+            carried = [n for n in saved if n not in cls]
+            at_load.update(
+                carried=len(carried),
+                missing=[n for n in carried if n not in have],
+                carried_equal=all(torch.equal(have[n].cpu(), saved[n])
+                                  for n in carried if n in have),
+                classifier_channel0=all(
+                    torch.equal(have[n].cpu(), saved[n][:1]) for n in cls),
+                saved_classifier_rows=int(saved[cls[0]].shape[0]))
+            return real_loop(model, *args, **kw)
+
+        transfer.train_loop = check_then_train
+        t_argv = _cli_point() + [
+            "--frozen", ",".join(map(str, TRANSFER_FROZEN)), "--no-quirks",
+            "--prompt-tokens", ",".join(map(str, TRANSFER_TOKENS)),
+            "--pretrain-weight", best, "--checkpoint-dir",
+            os.path.join(root, "tr"), "--epochs", "1"]
+        _reset_counts()
+        t0 = time.perf_counter()
+        t_reports = transfer.main(t_argv)
+        transfer_s = time.perf_counter() - t0
+        launches_transfer = _counts()
+        del saved
+    finally:
+        transfer.train_loop = real_loop
+        tempfile.tempdir = old_tmp
+        shutil.rmtree(root, ignore_errors=True)
+    row = {"phase": "ae_cli", "argv": argv, "run_s": run_s,
+           "epochs": _epochs(reports), "csv_rows": rows,
+           "checkpoints": names, "launches_k1_k2_k1mma": launches,
+           "transfer_argv": t_argv, "transfer_s": transfer_s,
+           "transfer_epochs": _epochs(t_reports),
+           "launches_transfer": launches_transfer,
+           "transfer_at_load": at_load, "card": smi}
+    emit(row)
+    steps = 2 * CLI_STEPS_PER_EPOCH        # labeled, then unlabeled tiles
+    per_step = [(r["launches_train"][0] / max(r["train_steps"], 1),
+                 r["launches_train"][1] / max(r["train_steps"], 1))
+                for r in reports]
+    if any(pp != (SUP_K1_PER_STEP, SUP_K2_PER_STEP) for pp in per_step) or \
+            any(r["train_steps"] != steps or
+                r["launches_eval_k1"] != sum(B5_DEPTHS) for r in reports) \
+            or launches[2] != launches[0]:
+        raise AssertionError(f"ae_cli launches per step {per_step}, steps "
+                             f"{[r['train_steps'] for r in reports]}")
+    if len(rows) != 2 or not all(math.isfinite(float(r["train_loss"]))
+                                 and math.isfinite(float(r["eval_loss"]))
+                                 for r in rows):
+        raise AssertionError(f"ae_cli CSV rows {rows}")
+    if "segformer_autoencoder_last.pt" not in names or not best or \
+            os.path.basename(best) not in names:
+        raise AssertionError(f"ae_cli checkpoints {names}")
+    row["transfer_launches_per_step"] = _check_cli_launches(
+        "ae_cli transfer", t_reports)
+    if at_load.get("missing") or not at_load.get("carried_equal") or \
+            not at_load.get("classifier_channel0") or \
+            at_load.get("saved_classifier_rows") != AE_LABELS:
+        raise AssertionError(f"transfer warm start from the autoencoder: "
+                             f"{at_load}")
+    return row
+
+
 def _stage_sum(rows, b, key, only_bytes=False, shapes=STAGE_SHAPES):
     """Sum of `key` over one pass of the B5 stages in bf16 at batch b
     (depth launches per stage shape, the stages' `shapes`); with
@@ -1803,7 +2360,8 @@ def _kernel_entry(rows, passes, **fields):
 
 
 def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
-            transfer_grad, transfer_step, sup_cli, transfer_cli):
+            transfer_grad, transfer_step, sup_cli, transfer_cli, ts_step,
+            ts_cli, ae_step, ae_cli):
     """The `kernels` line: each kernel's times, bound and plain/library
     times summed over what its main path runs, with its launches there: K1's
     tensor-core kernel (`sr_attention_fwd`) and K2 over one flagship EMA
@@ -1817,7 +2375,29 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
     and the supervised and transfer CLIs. `per_transfer_step` sums the
     tensor-core K1 and K2 over one flagship transfer step (the Nk-266 shapes
     at batch 16: 2 microbatches, each a forward and a recompute, and a
-    backward)."""
+    backward), `per_labeled_step` over one flagship `labeled_step` (both
+    models: 2 microbatches of 16 each, a forward and a recompute, and a
+    backward, per model). The gradient teacher-student phases (ts_step,
+    ts_cli) and the autoencoder phases (ae_step, ae_cli, the latter with
+    its transfer epoch) join `launches_by_path`."""
+
+    def kernel_calls(i):
+        return sum(c["launches_k1_k2_k1mma"][i]
+                   for c in ts_step["runs"]["kernel"]["calls"])
+
+    def ae(i):
+        k = ae_step["runs"]["kernel"]
+        return k["launches_k1_k2_k1mma"][i] + \
+            k["eval_launches_k1_k2_k1mma"][i]
+
+    ts_step_path = ("ts_step (kernel path: 2 pseudo_label_step, 2 "
+                    "pseudo_label_infer_step, 2 labeled_step)")
+    ts_cli_path = ("ts_cli (3 epochs: phase A 2 pseudo_label_step or 2 "
+                   "pseudo_label_infer_step, phase B 2 labeled_step, 2 eval "
+                   "batches of 21 x 2 models)")
+    ae_step_path = "ae_step (2 kernel-path train steps, 1 eval of 32)"
+    ae_cli_path = ("ae_cli (2 epochs: 8 train steps, 2 eval batches of 21; "
+                   "then 1 transfer epoch, Nk 266)")
     src = "semisupervisedobjectdetection_torch/csrc/"
     tpu = "semisupervisedobjectdetection_tpu/ops/sr_attention.py"
     step = ((TEACHER_BATCH, ACCUM), (MICRO, 2 * ACCUM))
@@ -1850,9 +2430,16 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
             "sup_cli --predict (1 eval batch of 21)":
                 sup_cli["launches_predict"][0],
             "transfer_cli (2 epochs, Nk 266: 4 train steps, 2 eval "
-            "batches of 21)": transfer_cli["launches_k1_k2_k1mma"][2]},
+            "batches of 21)": transfer_cli["launches_k1_k2_k1mma"][2],
+            ts_step_path: kernel_calls(2),
+            ts_cli_path: ts_cli["launches_k1_k2_k1mma"][2]
+            + ts_cli["launches_quirks_run"][2],
+            ae_step_path: ae(2),
+            ae_cli_path: ae_cli["launches_k1_k2_k1mma"][2]
+            + ae_cli["launches_transfer"][2]},
         per_transfer_step=_passes_sum(mma_rows, ((MICRO, 2 * ACCUM),),
-                                      TRANSFER_SHAPES))
+                                      TRANSFER_SHAPES),
+        per_labeled_step=_passes_sum(mma_rows, ((MICRO, 4 * ACCUM),)))
     k1_scalar = _kernel_entry(
         [r for r in k1_rows if r["design"] == "scalar"], ((BATCH, 1),),
         name="sr_attention_fwd_scalar", route="cuda", design="scalar",
@@ -1889,9 +2476,16 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
             "sup_cli (2 epochs: 4 train steps)":
                 sup_cli["launches_k1_k2_k1mma"][1],
             "transfer_cli (2 epochs, Nk 266: 4 train steps)":
-                transfer_cli["launches_k1_k2_k1mma"][1]},
+                transfer_cli["launches_k1_k2_k1mma"][1],
+            ts_step_path: kernel_calls(1),
+            ts_cli_path: ts_cli["launches_k1_k2_k1mma"][1]
+            + ts_cli["launches_quirks_run"][1],
+            ae_step_path: ae(1),
+            ae_cli_path: ae_cli["launches_k1_k2_k1mma"][1]
+            + ae_cli["launches_transfer"][1]},
         per_transfer_step=_passes_sum(k2_rows, ((MICRO, ACCUM),),
-                                      TRANSFER_SHAPES))
+                                      TRANSFER_SHAPES),
+        per_labeled_step=_passes_sum(k2_rows, ((MICRO, 2 * ACCUM),)))
     return [k1, k1_scalar, k2]
 
 
@@ -1929,7 +2523,11 @@ def main() -> int:
                           ("transfer_step", lambda: phase_transfer_step(smi)),
                           ("sup_cli", lambda: phase_sup_cli(smi)),
                           ("transfer_cli", lambda: phase_transfer_cli(
-                              smi, results["sup_cli"]))):
+                              smi, results["sup_cli"])),
+                          ("ts_step", lambda: phase_ts_step(smi)),
+                          ("ts_cli", lambda: phase_ts_cli(smi)),
+                          ("ae_step", lambda: phase_ae_step(smi)),
+                          ("ae_cli", lambda: phase_ae_cli(smi))):
             t = time.perf_counter()
             results[phase] = fn()
             seconds[phase] = round(time.perf_counter() - t, 2)
@@ -1942,7 +2540,11 @@ def main() -> int:
                                       results["transfer_grad"],
                                       results["transfer_step"],
                                       results["sup_cli"],
-                                      results["transfer_cli"])}
+                                      results["transfer_cli"],
+                                      results["ts_step"],
+                                      results["ts_cli"],
+                                      results["ae_step"],
+                                      results["ae_cli"])}
         emit({"phase": "total", "seconds": round(time.perf_counter() - t0,
                                                  2), "per_phase": seconds})
     except Exception as e:

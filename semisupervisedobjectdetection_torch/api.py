@@ -6,11 +6,13 @@ from the first training use on, its `TrainState` (Adam's state, the
 trainable mask); it serves from a copy of the model:
 
 - training: `train_one_epoch` (one supervised step, the name of the
-  reference's method), `eval_one_epoch`, `scheduler_step`, and the
-  structural changes `frozen_encoder`, `unfroze_encoder`,
-  `add_prompt_token` and `add_cls_token`, which rebuild the state with
-  fresh Adam moments and keep the old weights wherever the name and shape
-  match (new tokens come from the seeded init, as in the JAX package);
+  reference's method), `eval_one_epoch`, the autoencoder's
+  `train_one_epoch_without_mask` and `eval_one_epoch_without_mask`,
+  `scheduler_step`, and the structural changes `frozen_encoder`,
+  `unfroze_encoder`, `add_prompt_token` and `add_cls_token`, which rebuild
+  the state with fresh Adam moments and keep the old weights wherever the
+  name and shape match (new tokens come from the seeded init, as in the
+  JAX package);
 - serving: `predict` runs a bfloat16 (or float32) copy of the state's model
   whose dense and conv weights are cast once, with SR-attention's scalar
   forward kernel pinned (its bf16 outputs equal the plain path's bit for
@@ -32,11 +34,15 @@ runs the forward in eval mode; `reference_quirks=False` trains the tokens
 and runs it in train mode, its drop-path and dropout masks drawn from
 `generator`.
 
+The autoencoder's methods (`train_one_epoch_without_mask`,
+`eval_one_epoch_without_mask`, and `predict(use_loss="mse")`) serve a
+`num_labels=3` model: its train step always runs in train mode, as the
+reference's does.
+
 Not ported yet, each raising NotImplementedError that names ROADMAP.md:
-the "mse" and "bce" losses, `output_cls_token`, the autoencoder methods
-(`train_one_epoch_without_mask`, `eval_one_epoch_without_mask`), the
-quantized serving snapshot (`quantize`, `dequantize`, `save_quantized`,
-`load_quantized`), `export_serving` and `export_hf`.
+the "bce" loss, `output_cls_token`, the quantized serving snapshot
+(`quantize`, `dequantize`, `save_quantized`, `load_quantized`),
+`export_serving` and `export_hf`.
 """
 
 from __future__ import annotations
@@ -68,9 +74,11 @@ from semisupervisedobjectdetection_torch.models.segformer import (
     EfficientSelfAttention,
     SegFormer,
     cast_to_compute_dtype,
+    forward_logits,
     forward_masks,
     init_weights,
 )
+from semisupervisedobjectdetection_torch.train import autoencoder
 from semisupervisedobjectdetection_torch.train import state as state_lib
 from semisupervisedobjectdetection_torch.train import supervised
 from semisupervisedobjectdetection_torch.train.state import TrainState
@@ -256,12 +264,22 @@ class SegFormerModel:
         """Sigmoid masks (B, H, W) float32 of an NHWC or NCHW float batch
         (num_labels as a last axis when it is above 1); with a target
         `mask`, (loss, masks), the loss "dice" or "dice_argmax" (ref
-        `:103-139`)."""
-        if use_loss in ("mse", "bce"):
+        `:103-139`). `use_loss="mse"` (the autoencoder's) returns (loss,
+        masks) without a target: the reference's MSE of the images against
+        the raw logits upsampled to their size, divisor B*3 (ref `:133`)."""
+        if use_loss == "bce":
             _not_ported(f"predict(use_loss={use_loss!r})")
         if output_cls_token:
             _not_ported("predict(output_cls_token=True)")
         images = self._images(img)
+        if use_loss == "mse":
+            logits, _ = forward_logits(self.model, images)
+            masks = torch.sigmoid(logits)
+            if masks.shape[-1] == 1:
+                masks = masks[..., 0]
+            loss = losses.mse_loss(images, logits,
+                                   divisor=images.shape[0] * 3)
+            return loss, masks.cpu().numpy()
         masks, _ = forward_masks(self.model, images)
         if mask is None:
             return masks.cpu().numpy()
@@ -291,6 +309,23 @@ class SegFormerModel:
         loss, pred = supervised.eval_step(self.state, self._images(imgs),
                                           self._targets(masks))
         return loss, (pred if lazy else pred.cpu().numpy())
+
+    def train_one_epoch_without_mask(self, imgs, lazy: bool = False):
+        """One autoencoder step, reconstructing the input in train mode
+        (ref `:198-219`): (loss, (B, H, W, 3) reconstruction), left on the
+        device with `lazy`."""
+        _, loss, recon = autoencoder.ae_train_step(
+            self.state, self._images(imgs), self.generator,
+            accum=self.grad_accum)
+        self._changed()
+        return loss, (recon if lazy else recon.cpu().numpy())
+
+    def eval_one_epoch_without_mask(self, imgs, lazy: bool = False):
+        """The autoencoder's eval step (ref `:177-196`): (MSE loss,
+        reconstruction) in eval mode."""
+        loss, recon = autoencoder.ae_eval_step(self.state,
+                                               self._images(imgs))
+        return loss, (recon if lazy else recon.cpu().numpy())
 
     def scheduler_step(self) -> None:
         """The per-epoch ExponentialLR step (ref `:164-165`)."""
@@ -366,12 +401,6 @@ class SegFormerModel:
         print("Pretrained model loaded")
 
     # ---------------------------------------------------- not ported yet
-    def train_one_epoch_without_mask(self, imgs, lazy: bool = False):
-        _not_ported("the autoencoder step (train_one_epoch_without_mask)")
-
-    def eval_one_epoch_without_mask(self, imgs, lazy: bool = False):
-        _not_ported("the autoencoder step (eval_one_epoch_without_mask)")
-
     def quantize(self, kind: str = "int8") -> None:
         _not_ported("quantized serving (quantize)")
 

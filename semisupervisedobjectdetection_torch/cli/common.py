@@ -1,10 +1,11 @@
 """Shared plumbing of the port's training CLIs, the part of the JAX
-package's `cli/common.py` that the supervised, transfer and `--ema-mode`
-teacher-student loops read: the argument parser (the same flags and
+package's `cli/common.py` that the supervised, transfer, teacher-student
+and autoencoder loops read: the argument parser (the same flags and
 defaults, plus `--device`), the configs from the flags, synthetic data, the
 tile loaders, the batch checks, the check that the SR-attention kernels
 take the configuration's shapes, the preemption exit, the staging of host
-batches on the device, and the kernel-launch counts of an epoch report.
+batches on the device, the timed run of a loop's phase, and the
+kernel-launch counts of an epoch report.
 
 Flags whose paths are not ported yet are refused by `refuse_unported`
 with a `SystemExit` that names ROADMAP.md; none of them falls back to
@@ -16,7 +17,8 @@ from __future__ import annotations
 import argparse
 import os
 import tempfile
-from typing import List, Tuple
+import time
+from typing import Callable, List, Tuple
 
 import torch
 
@@ -161,6 +163,36 @@ def sync(device: torch.device) -> None:
     queued work."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def run_phase(batches, step: Callable, device: torch.device) -> dict:
+    """Feed every staged batch of `batches` to `step` until they end or a
+    preemption is asked for. Returns the seconds (ended by a device
+    synchronisation), the seconds waited on the prefetcher within them,
+    the steps, and the K1 and K2 launches."""
+    from semisupervisedobjectdetection_torch.utils import preemption
+
+    k0 = kernel_launches()
+    wait_s, steps = 0.0, 0
+    t0 = time.perf_counter()
+    try:
+        while True:
+            t = time.perf_counter()
+            staged = next(batches, None)
+            wait_s += time.perf_counter() - t
+            if staged is None:
+                break
+            step(*staged)
+            steps += 1
+            if preemption.stop_requested():
+                break
+    finally:
+        batches.close()
+    sync(device)
+    return {"s": time.perf_counter() - t0, "wait_s": wait_s,
+            "steps": steps,
+            "launches": [a - b for a, b in
+                         zip(kernel_launches(), k0)]}
 
 
 def apply_perf_preset(cfg, args):

@@ -1,7 +1,8 @@
-"""Segmentation losses of the JAX package's `losses.py` that the EMA step
-and its evaluation use, in PyTorch: dice with smooth 1 over each sample
-flattened, the binarised ("argmax") dice of the eval metric, and the
-`segmentation_loss` front end over the two. Everything is float32."""
+"""Segmentation losses of the JAX package's `losses.py` that the training
+steps and their evaluation use, in PyTorch: dice with smooth 1 over each
+sample flattened, the binarised ("argmax") dice of the eval metric, the
+reference's MSE of the autoencoder, and the `segmentation_loss` front end
+over the three. Everything is float32."""
 
 from __future__ import annotations
 
@@ -45,18 +46,39 @@ def dice_argmax_loss(pred: torch.Tensor, gt: torch.Tensor,
     return 1.0 - dice_coeff(pred_bin, gt, sample_weight=sample_weight)
 
 
+def mse_loss(pred: torch.Tensor, gt: torch.Tensor,
+             sample_weight: Optional[torch.Tensor] = None,
+             divisor: Optional[int] = None) -> torch.Tensor:
+    """The reference's MSE (`Loss.py:44-54`): per sample, the sum of squared
+    errors over every element divided by `divisor` (not by the pixel
+    count), then the batch mean (`sample_weight` re-weights it). The
+    reference's divisor is gt.shape[0] * gt.shape[1] of a (B, C, H, W)
+    tensor, B*C; that formula is the default on whatever layout is given,
+    so NHWC call sites pass `divisor=B*C`."""
+    if divisor is None:
+        divisor = gt.shape[0] * gt.shape[1]
+    err = (_flatten_per_sample(gt) - _flatten_per_sample(pred)).square() \
+        .sum(1) / divisor
+    if sample_weight is None:
+        return err.mean()
+    w = sample_weight.float()
+    return (err * w).sum() / w.sum().clamp_min(1e-8)
+
+
 def segmentation_loss(pred: torch.Tensor, gt: torch.Tensor,
                       loss_type: str = "dice",
                       sample_weight: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
     """The reference's `SegmentationLoss.forward` for one class, over the
-    ported branches: "dice" and "dice_argmax" (alias "argmax"). The "mse"
-    and "cross_entropy" branches belong to loops not ported yet."""
+    ported branches: "dice", "dice_argmax" (alias "argmax") and "mse". The
+    "cross_entropy" branch belongs to a loop not ported yet."""
     if loss_type == "dice":
         return dice_loss(pred, gt, sample_weight)
     if loss_type in ("dice_argmax", "argmax"):
         return dice_argmax_loss(pred, gt, sample_weight)
-    if loss_type in ("mse", "cross_entropy"):
+    if loss_type == "mse":
+        return mse_loss(pred, gt, sample_weight)
+    if loss_type == "cross_entropy":
         raise NotImplementedError(
             f"loss_type {loss_type!r} is not ported yet; ROADMAP.md "
             "Queue 1 names the loops that use it")

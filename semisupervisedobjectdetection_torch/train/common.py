@@ -68,8 +68,9 @@ def accumulate_microbatches(micro_fn: Callable, params: Mapping,
     ``grads`` (name -> tensor, ``params``' names) and ``sums`` (name ->
     scalar, ``sums_zero``'s names) are summed; BatchNorm statistics thread
     through as sequential forwards would (``new_stats=None`` keeps the
-    carried ones); ``out`` is stacked. Returns ``(summed_grads, final_stats,
-    summed_sums, stacked_out)``, as the JAX `lax.scan` does."""
+    carried ones); ``out`` (a tensor or a tuple of tensors) is stacked.
+    Returns ``(summed_grads, final_stats, summed_sums, stacked_out)``, as
+    the JAX `lax.scan` does."""
     names = list(params)
     gsum = [torch.zeros_like(params[n]) for n in names]
     stats, ssum, outs = init_stats, dict(sums_zero), []
@@ -79,4 +80,6 @@ def accumulate_microbatches(micro_fn: Callable, params: Mapping,
         torch._foreach_add_(gsum, [grads[n] for n in names])
         ssum = {k: ssum[k] + sums[k] for k in ssum}
         outs.append(out)
-    return dict(zip(names, gsum)), stats, ssum, torch.stack(outs)
+    stacked = (tuple(torch.stack(o) for o in zip(*outs))
+               if isinstance(outs[0], tuple) else torch.stack(outs))
+    return dict(zip(names, gsum)), stats, ssum, stacked

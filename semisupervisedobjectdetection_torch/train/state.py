@@ -105,9 +105,12 @@ class TrainState:
 
     @torch.no_grad()
     def apply_gradients(self, grads: Mapping[str, torch.Tensor],
-                        loss: torch.Tensor) -> "TrainState":
+                        loss: torch.Tensor,
+                        enable: Optional[torch.Tensor] = None
+                        ) -> "TrainState":
         """One optimizer step from `grads` (name -> gradient), skipped
-        entirely when `loss` is not finite."""
+        entirely when `loss` is not finite or when `enable` (a bool tensor
+        on the state's device, the teacher's update gate) is False."""
         tc = self.tc
         params = self.params
         names = list(self.mu)
@@ -134,6 +137,8 @@ class TrainState:
         torch._foreach_mul_(update, -1.0)
         torch._foreach_mul_(update, self.lr)
         ok = torch.isfinite(loss)
+        if enable is not None:
+            ok = ok & enable
         for p, m, v, u, m1, v1 in zip(ps, mu, nu, update, mu_new, nu_new):
             p.copy_(torch.where(ok, p + u, p))
             m.copy_(torch.where(ok, m1, m))

@@ -4,7 +4,8 @@ the structural rebuilds keep the old weights, `save`/`load` warm-start or
 restore the full state, a 3-label checkpoint restores into 1 label through
 channel 0, `predict` with a target equals `eval_one_epoch`, the serving
 copy follows the trained state and `resume`, a model that only serves holds
-no train state, and what is not ported raises."""
+no train state, and what is not ported raises. (The autoencoder's methods
+are held in tests/test_torch_autoencoder.py.)"""
 
 import numpy as np
 import pytest
@@ -206,21 +207,17 @@ def test_train_mode_without_quirks_is_seeded():
 
 
 @pytest.mark.parametrize("call", [
-    lambda m: m.predict(np.zeros((1, SIZE, SIZE, 3)), use_loss="mse"),
     lambda m: m.predict(np.zeros((1, SIZE, SIZE, 3)),
                         np.zeros((1, SIZE, SIZE)), use_loss="bce"),
     lambda m: m.predict(np.zeros((1, SIZE, SIZE, 3)), output_cls_token=True),
     lambda m: m.train_one_epoch(np.zeros((1, SIZE, SIZE, 3)),
                                 np.zeros((1, SIZE, SIZE)),
                                 output_cls_token=True),
-    lambda m: m.train_one_epoch_without_mask(np.zeros((1, SIZE, SIZE, 3))),
-    lambda m: m.eval_one_epoch_without_mask(np.zeros((1, SIZE, SIZE, 3))),
     lambda m: m.quantize(), lambda m: m.dequantize(),
     lambda m: m.save_quantized("q"), lambda m: m.load_quantized("q"),
     lambda m: m.export_serving("a", 1), lambda m: m.export_hf("h.pth"),
-], ids=["mse", "bce", "predict_cls", "train_cls", "ae_train", "ae_eval",
-        "quantize", "dequantize", "save_quantized", "load_quantized",
-        "export_serving", "export_hf"])
+], ids=["bce", "predict_cls", "train_cls", "quantize", "dequantize",
+        "save_quantized", "load_quantized", "export_serving", "export_hf"])
 def test_unported_surface_raises(call):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call(_model())

@@ -24,6 +24,7 @@ import torch
 
 from semisupervisedobjectdetection_torch.api import SegFormerModel
 from semisupervisedobjectdetection_torch.cli import (
+    autoencoder,
     common,
     supervised,
     teacher_student,
@@ -135,6 +136,7 @@ def test_transfer_cli_keeps_frozen_stages_and_trains_prompts(tmp_path,
     (supervised, ["--plot-curves"]), (supervised, ["--profile-dir", "p"]),
     (supervised, ["--ffn-impl", "xla"]),
     (transfer, ["--tune"]), (transfer, ["--parallel", "dp"]),
+    (autoencoder, ["--tune"]),
 ], ids=lambda v: v.__name__.rsplit(".", 1)[-1] if hasattr(v, "__name__")
     else " ".join(v))
 def test_unported_flags_are_refused(cli, flags):
@@ -142,8 +144,8 @@ def test_unported_flags_are_refused(cli, flags):
         cli.main(["--device", "cpu", "--synthetic"] + flags)
 
 
-@pytest.mark.parametrize("cli", [supervised, transfer],
-                         ids=["supervised", "transfer"])
+@pytest.mark.parametrize("cli", [supervised, transfer, autoencoder],
+                         ids=["supervised", "transfer", "autoencoder"])
 def test_default_device_needs_a_card(cli, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -30,7 +30,8 @@ def test_every_module_imports_without_jax():
               "data.tiles", "data.loader", "data.augment", "data.prefetch",
               "eval.metrics", "utils.logging", "checkpoint.io",
               "cli.common", "cli.teacher_student", "cli.supervised",
-              "cli.transfer", "api", "utils.profile_forward"):
+              "cli.transfer", "api", "utils.profile_forward",
+              "train.autoencoder", "cli.autoencoder"):
         assert f"semisupervisedobjectdetection_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
