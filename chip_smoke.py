@@ -20,7 +20,9 @@ non-zero before the final line:
                 in bfloat16 (serving's) and float32, each also at two
                 shapes with a prompt/CLS prefix, and the tensor-core kernel
                 at the transfer step's four shapes (10 prompt tokens per
-                stage, Nk 266) at batch 16: max abs
+                stage, Nk 266) at batch 16, and at the few-shot step's
+                four shapes (Nq = H*W + 1, Nk 257) at batch 2 the
+                tensor-core kernel in bf16 and the scalar one in f32: max abs
                 error against a stated tolerance, and CUDA-event times of
                 the kernel (for the tensor-core rows also of the scalar
                 kernel on the same inputs, the design it replaced in
@@ -32,10 +34,13 @@ non-zero before the final line:
 4. kernel_bwd - `sr_attention_bwd` (K2) against its plain version at the
                 four stage shapes and the two prefix shapes at batch 16, in
                 bfloat16 and float32, and at the rest of the transfer step's
-                shapes (Nk 266) in bfloat16: max error against a stated
-                tolerance, bit-equality of two launches, and the times of
-                the kernel, the plain version and the autograd backward of
-                `F.scaled_dot_product_attention`, beside the bound.
+                shapes (Nk 266) in bfloat16, and at the four few-shot
+                shapes (a CLS query row and key per stage) at batch 2 in
+                both types: max error against a stated tolerance,
+                bit-equality of two launches, the key pass's split count,
+                and the times of the kernel, the plain version and the
+                autograd backward of `F.scaled_dot_product_attention`,
+                beside the bound.
 5. model      - MiT-B5 at 512x512 in float32, TF32 off: the kernel path and
                 the plain path agree on a batch of two images.
 6. serve      - the port's InferenceServer (MiT-B5, 512x512, bfloat16,
@@ -73,7 +78,8 @@ non-zero before the final line:
                 the CPU with the same choices, and their times on the card.
 11. cli       - the `--ema-mode` teacher-student CLI
                 (`cli/teacher_student.py::main`, in this process) at the
-                flagship point: MiT-B5 512x512 bf16, 64 synthetic tiles,
+                flagship point: MiT-B5 512x512 bf16, 32 synthetic tiles
+                (CLI_TILES; one step an epoch, as in every CLI phase),
                 batch 32 in 2 microbatches, train mode (the default), 2
                 epochs with --resume: 2 finite CSV rows, K1 312 and K2 104
                 launches per train step and 52 K1 launches per model per
@@ -111,11 +117,11 @@ non-zero before the final line:
                 through the plain path agree on the losses, with K1
                 (tensor-core) launched 208 and K2 104 times per step, every
                 launch at Nk = 266, the plain path none.
-15. sup_cli     - `cli/supervised.py::main` at the flagship point: 64
+15. sup_cli     - `cli/supervised.py::main` at the flagship point: 32
                 synthetic tiles, batch 32 in 2 microbatches, 2 epochs with
                 --resume, then a resumed third epoch, then `--predict
                 --dump-masks` from the best checkpoint: finite CSV rows, best
-                and `_last` checkpoints, the resume at epoch 2, 21 pairs of
+                and `_last` checkpoints, the resume at epoch 2, 10 pairs of
                 mask PNGs, 208 K1 and 104 K2 launches per train step and 52
                 K1 per eval batch; per epoch its seconds, step time, eval and
                 checkpoint seconds and peak memory.
@@ -161,6 +167,33 @@ non-zero before the final line:
                 epoch: at the transfer model's first use its encoder and
                 decoder equal the checkpoint's and its classifier the
                 checkpoint's channel 0; launches per train step and eval.
+
+21. serve_ckpt - (run right after sup_cli) `cli/serve.py::main
+                --pretrain-weight <sup_cli's best checkpoint>` at MiT-B5
+                512x512 bf16: the server's weights equal the checkpoint's,
+                and the masks it serves over HTTP equal
+                `SegFormerModel.load(<checkpoint>).predict` of the same
+                padded batches bit for bit, 52 scalar K1 launches per batch.
+22. fewshot_grad - MiT-B5 512x512 float32 (TF32 off) with a CLS token per
+                stage, batch 2: the gradients of the autoencoder's pair loss
+                (3 labels; recon + 100 x the cosine losses on the CLS token)
+                and of the seg pair loss with cls_loss_weight 1.0 through
+                the scalar kernels and through the plain path agree per
+                tensor (GRAD_F32_TOL); every CLS token's gradient is
+                non-zero; 208 K1 and 104 K2 launches per loss.
+23. fewshot_step - at the flagship point (bf16, tanh GELU) with CLS tokens:
+                two `fewshot_ae_step`s and two `fewshot_seg_step`s
+                (cls_loss_weight 0, then 1.0) on batches of 2, through the
+                kernels and through the plain path from one seeded state
+                each: the losses within TRAIN_LOSS_TOL (the reconstruction
+                MSE per element), 416/208 and 208/104 K1/K2 launches per
+                step, the plain path none; ms per call and peak memory.
+24. fewshot_cli - `cli/fewshot.py::main --synthetic --variant b5 --img-size
+                512 --perf --iterations 4`: `--mode ae` 2 epochs with
+                --resume, then a resumed third epoch; `--mode seg` 1 epoch,
+                then `--predict` from its best checkpoint: CSV rows,
+                checkpoint names, and the `epoch_report` launches per step
+                and per eval batch.
 
 Then the `kernels` summary line, the `nvidia-smi` name/power-limit line and,
 last, {"ok": true, "device": {...}}.
@@ -247,9 +280,11 @@ TRAIN_MODE_BN_TOL = 1e-5
 # summed in another order (images); gathers and nearest resizes (masks,
 # exact).
 AUGMENT_TOL = 1e-5
-# The CLI phase: bench.py's flagship point through the CLI.
-CLI_TILES = 64
-CLI_EVAL_BATCH = max(CLI_TILES // 3, 4)        # 21 eval tiles, one batch
+# The CLI phases: bench.py's flagship point through the CLIs, one train
+# step (of TEACHER_BATCH tiles) per epoch and loop, which keeps every check
+# within the script's time limit.
+CLI_TILES = 32
+CLI_EVAL_BATCH = max(CLI_TILES // 3, 4)        # 10 eval tiles, one batch
 CLI_STEPS_PER_EPOCH = CLI_TILES // TEACHER_BATCH
 # The supervised step: each of the 2 microbatches of 16 runs a forward, a
 # recompute (full remat) and a backward through the 52 layers.
@@ -284,6 +319,22 @@ TS_CLS_BIAS = 2.0
 # The autoencoder: 3 labels; its CLI takes the labeled and then the
 # unlabeled tiles, CLI_STEPS_PER_EPOCH train steps each.
 AE_LABELS = 3
+# Few-shot domain prompting (train/fewshot.py, cli/fewshot.py): batches of
+# DataConfig.few_shot_batch_size, one CLS token per stage, so every layer's
+# SR-attention has the CLS query row and one CLS key: Nq = H*W + 1 and
+# Nk = 256 + 1 at 512x512.
+FEW_BATCH = 2
+FEW_CLS = (1, 1, 1, 1)
+FEWSHOT_SHAPES = tuple((nq + 1, nk + 1, c, h) for nq, nk, c, h
+                       in STAGE_SHAPES)
+# A seg step runs 2 categories, the AE step 4 (two pairs): each a forward
+# and a recompute (full remat) and a backward through the 52 layers.
+FEWSHOT_SEG_K = (2 * 2 * sum(B5_DEPTHS), 2 * sum(B5_DEPTHS))   # 208, 104
+FEWSHOT_AE_K = (2 * FEWSHOT_SEG_K[0], 2 * FEWSHOT_SEG_K[1])    # 416, 208
+# The few-shot CLI phase: 6 synthetic tiles per domain (3 domains per
+# group), 4 eval tiles in one batch, 4 iterations an epoch.
+FEWSHOT_CLI_TILES = 6
+FEWSHOT_CLI_ITERS = 4
 
 
 def emit(obj) -> None:
@@ -559,7 +610,9 @@ def _k1_cases():
     kernel at the stage shapes at the serving, student and teacher batches;
     the scalar kernel at the serving batch in bf16 and f32; all three at the
     prefix shapes at the serving batch; the tensor-core kernel at the
-    transfer step's shapes at the student batch."""
+    transfer step's shapes at the student batch; at the few-shot shapes
+    (batch 2) the tensor-core kernel in bf16 and the scalar one in f32, as
+    the few-shot step and its float32 gradients run them."""
     cases = [(b, s, "bfloat16", "mma") for b in (BATCH, MICRO, TEACHER_BATCH)
              for s in STAGE_SHAPES]
     cases += [(BATCH, s, d, "scalar") for d in ("bfloat16", "float32")
@@ -568,6 +621,8 @@ def _k1_cases():
               for d, design in (("bfloat16", "mma"), ("bfloat16", "scalar"),
                                 ("float32", "scalar"))]
     cases += [(MICRO, s, "bfloat16", "mma") for s in TRANSFER_SHAPES]
+    cases += [(FEW_BATCH, s, d, design) for s in FEWSHOT_SHAPES
+              for d, design in (("bfloat16", "mma"), ("float32", "scalar"))]
     return cases
 
 
@@ -638,6 +693,7 @@ def phase_kernel_bwd():
     import torch.nn.functional as F
 
     from semisupervisedobjectdetection_torch.ops.sr_attention import (
+        bwd_key_splits,
         sr_attention_backward_reference,
         sr_attention_bwd,
     )
@@ -647,15 +703,18 @@ def phase_kernel_bwd():
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rows = []
     # every stage and prefix shape in both types; the transfer step's shapes
-    # (bf16 only: its float32 gradients are transfer_grad's) not among them
-    cases = [(s, d) for s in STAGE_SHAPES + PREFIX_SHAPES
+    # (bf16 only: its float32 gradients are transfer_grad's) not among them;
+    # the few-shot shapes at batch 2 in both types
+    cases = [(MICRO, s, d) for s in STAGE_SHAPES + PREFIX_SHAPES
              for d in ("bfloat16", "float32")]
-    cases += [(s, "bfloat16") for s in TRANSFER_SHAPES
+    cases += [(MICRO, s, "bfloat16") for s in TRANSFER_SHAPES
               if s not in PREFIX_SHAPES]
-    for shape, dtype_name in cases:
+    cases += [(FEW_BATCH, s, d) for s in FEWSHOT_SHAPES
+              for d in ("bfloat16", "float32")]
+    for b, shape, dtype_name in cases:
         nq, nk, c, h = shape
         dtype = getattr(torch, dtype_name)
-        q, k, v, g = (torch.randn(MICRO, n, c, device="cuda",
+        q, k, v, g = (torch.randn(b, n, c, device="cuda",
                                   generator=gen).to(dtype)
                       for n in (nq, nk, nk, nq))
         got = sr_attention_bwd(q, k, v, g, h)
@@ -681,11 +740,12 @@ def phase_kernel_bwd():
                       for t in (q, k, v))
         out = F.scaled_dot_product_attention(qs, ks, vs)
         gs = _heads(g, h)
-        bound, by = attention_bwd_bound(MICRO, nq, nk, c, dtype_name)
+        bound, by = attention_bwd_bound(b, nq, nk, c, dtype_name)
         row = {"phase": "kernel_bwd", "name": "sr_attention_bwd",
-               "B": MICRO, "Nq": nq, "Nk": nk, "C": c, "heads": h,
+               "B": b, "Nq": nq, "Nk": nk, "C": c, "heads": h,
                "dtype": dtype_name,
                "design": "mma" if dtype_name == "bfloat16" else "scalar",
+               "key_pass_splits": bwd_key_splits(b, nq, nk, h, dtype),
                "max_abs_err": max(errs),
                "max_abs_err_dq_dk_dv": errs, "ref_max_dq_dk_dv": scales,
                "rel_err": rel, "tol_rel": KERNEL_BWD_TOL[dtype_name],
@@ -2326,6 +2386,382 @@ def phase_ae_cli(smi: str):
     return row
 
 
+def phase_serve_ckpt(smi: str, sup: dict):
+    """`cli/serve.py::main --pretrain-weight` on sup_cli's best checkpoint:
+    the served weights are the checkpoint's, and each served mask equals
+    `SegFormerModel.load(...).predict` of the batch the server ran (the
+    tile, then zeros up to max_batch)."""
+    import numpy as np
+    import torch
+
+    from semisupervisedobjectdetection_torch.api import SegFormerModel
+    from semisupervisedobjectdetection_torch.cli import serve
+    from semisupervisedobjectdetection_torch.core.config import mit_b5
+
+    best = sup["best"]
+    n = 4
+    tiles = np.random.default_rng(SEED + 10).integers(
+        0, 256, (n, IMG, IMG, 3), dtype=np.uint8)
+    got = {}
+
+    def serve_then_stop(srv):
+        base = f"http://127.0.0.1:{srv._httpd.server_address[1]}"
+        try:
+            _reset_counts()
+            t0 = time.perf_counter()
+            got["masks"] = [np.load(io.BytesIO(_post(
+                base + "/predict?format=npy", t.tobytes(), raw=True)[2]))
+                for t in tiles]
+            got["wall_s"] = time.perf_counter() - t0
+            got["launches"] = _counts()
+            saved = torch.load(best, map_location="cpu",
+                               weights_only=True)["model"]
+            have = srv.model._net.state_dict()
+            got["weights_equal"] = set(saved) == set(have) and all(
+                torch.equal(have[k].cpu(), saved[k]) for k in saved)
+            del saved
+        finally:
+            srv.stop()
+
+    real = serve._serve_until_signal
+    serve._serve_until_signal = serve_then_stop
+    try:
+        t0 = time.perf_counter()
+        serve.main(["--variant", "b5", "--img-size", str(IMG), "--perf",
+                    "--max-batch", str(BATCH), "--port", "0",
+                    "--pretrain-weight", best])
+        run_s = time.perf_counter() - t0
+    finally:
+        serve._serve_until_signal = real
+    ref = SegFormerModel(config=mit_b5(dtype="bfloat16", gelu_approx=True),
+                         seed=SEED)
+    ref.load(best)
+    want = []
+    for t in tiles:
+        padded = np.zeros((BATCH, IMG, IMG, 3), np.float32)
+        padded[0] = t.astype(np.float32) / 255.0
+        want.append(ref.predict(padded)[0])
+    seeded = SegFormerModel(config=mit_b5(dtype="bfloat16",
+                                          gelu_approx=True), seed=SEED)
+    seeded_mask = seeded.predict(padded)[0]
+    del ref, seeded
+    torch.cuda.empty_cache()
+    err = max(float(np.abs(a - b).max()) for a, b in zip(got["masks"], want))
+    row = {"phase": "serve_ckpt", "checkpoint": os.path.basename(best),
+           "requests": n, "run_s": run_s, "serve_wall_s": got["wall_s"],
+           "launches_k1_k2_k1mma": got["launches"],
+           "launches_expected": [sum(B5_DEPTHS) * n, 0, 0],
+           "weights_equal_checkpoint": got["weights_equal"],
+           "max_abs_err_vs_load_predict": err,
+           "max_abs_diff_vs_seeded_weights": float(
+               np.abs(got["masks"][-1] - seeded_mask).max()),
+           "card": smi}
+    emit(row)
+    if not got["weights_equal"]:
+        raise AssertionError("the server's weights are not the checkpoint's")
+    if err != 0.0 or any(m.shape != (IMG, IMG) for m in got["masks"]):
+        raise AssertionError(f"served masks differ from SegFormerModel.load"
+                             f"(...).predict by {err}")
+    if got["launches"] != (sum(B5_DEPTHS) * n, 0, 0):
+        raise AssertionError(f"serve_ckpt launches {got['launches']}")
+    return row
+
+
+def _fewshot_inputs(dev, seed):
+    """Four batches of FEW_BATCH images in [0, 1] and two of masks, on
+    `dev`."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    imgs = [torch.from_numpy(rng.uniform(size=(FEW_BATCH, IMG, IMG, 3))
+                             .astype(np.float32)).to(dev) for _ in range(4)]
+    masks = [torch.from_numpy((rng.uniform(size=(FEW_BATCH, IMG, IMG))
+                               > 0.6).astype(np.float32)).to(dev)
+             for _ in range(2)]
+    return imgs, masks
+
+
+def phase_fewshot_grad():
+    """B5 float32 with a CLS token per stage, batch 2: the gradients of the
+    autoencoder's pair loss and of the seg pair loss (cls_loss_weight 1.0),
+    through the scalar kernels and through the plain path."""
+    import numpy as np
+    import torch
+
+    from semisupervisedobjectdetection_torch.core.config import mit_b5
+    from semisupervisedobjectdetection_torch.models.segformer import (
+        SegFormer,
+        init_weights,
+    )
+    from semisupervisedobjectdetection_torch.train import fewshot as fw
+    from semisupervisedobjectdetection_torch.train.common import grads_of
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = mit_b5(dtype="float32", cls_tokens=FEW_CLS)
+    (x1, x2, _, _), (m1, m2) = _fewshot_inputs(dev, SEED + 8)
+    cls_names = [f"segformer.encoder.cls_token.{i}" for i in range(4)]
+    rows = []
+    for name, labels in (("ae_pair", AE_LABELS), ("seg_pair_cls1", 1)):
+        grads, launches, loss_values = {}, {}, {}
+        for impl in ("kernel", "plain"):
+            model = init_weights(
+                SegFormer(cfg.replace(num_labels=labels, attn_impl=impl)),
+                torch.Generator().manual_seed(SEED)).to(dev)
+            _reset_counts()
+            if name == "ae_pair":
+                loss = fw.pair_ae_loss(model, x1, x2)[0]
+            else:
+                loss = fw.pair_seg_loss(model, x1, m1, x2, m2, 1.0)[0]
+            grads[impl] = grads_of(loss, dict(model.named_parameters()))
+            loss_values[impl] = float(loss)
+            torch.cuda.synchronize()
+            launches[impl] = _counts()
+            del model, loss
+        scales = {n: g.abs().max().item() for n, g in grads["plain"].items()}
+        floor = GRAD_SCALE_FLOOR * max(scales.values())
+        rel = {n: (gk - grads["plain"][n]).abs().max().item()
+               / max(scales[n], floor) for n, gk in grads["kernel"].items()}
+        worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
+        cls_grad = {n: grads["kernel"][n].abs().max().item()
+                    for n in cls_names}
+        finite = all(bool(torch.isfinite(g).all().item())
+                     for g in grads["kernel"].values())
+        row = {"phase": "fewshot_grad", "loss": name, "variant": "b5",
+               "img": IMG, "dtype": "float32", "batch": FEW_BATCH,
+               "cls_tokens": list(FEW_CLS), "num_labels": labels,
+               "loss_kernel_plain": loss_values, "tensors": len(rel),
+               "max_rel_diff": worst[0][1],
+               "worst_name_rel": [(n, r, scales[n]) for n, r in worst],
+               "cls_rel_diff": {n: rel[n] for n in cls_names},
+               "cls_grad_max_abs": cls_grad, "tol_rel": GRAD_F32_TOL,
+               "scale_floor": floor,
+               "median_rel_diff": float(np.median(list(rel.values()))),
+               "launches_k1_k2_k1mma": launches["kernel"],
+               "launches_plain_path": launches["plain"]}
+        emit(row)
+        rows.append(row)
+        del grads
+        torch.cuda.empty_cache()
+        want = FEWSHOT_SEG_K + (0,)     # float32: the scalar kernels
+        if launches["kernel"] != want or launches["plain"] != (0, 0, 0):
+            raise AssertionError(f"fewshot_grad {name} launches {launches}:"
+                                 f" expected {want}, none plain")
+        if not finite or worst[0][1] > GRAD_F32_TOL:
+            raise AssertionError(f"fewshot_grad {name}: gradients through "
+                                 f"the kernels disagree with the plain path")
+        if not all(v > 0.0 for v in cls_grad.values()):
+            raise AssertionError(f"fewshot_grad {name}: a CLS token has no "
+                                 f"gradient: {cls_grad}")
+    return rows
+
+
+def phase_fewshot_step(smi: str):
+    """Two `fewshot_ae_step`s and two `fewshot_seg_step`s (cls_loss_weight
+    0, then 1.0) at the flagship point with CLS tokens, through the
+    kernels and through the plain path, each from one seeded state."""
+    import math
+
+    import torch
+
+    from semisupervisedobjectdetection_torch import bench
+    from semisupervisedobjectdetection_torch.core.config import TrainConfig
+    from semisupervisedobjectdetection_torch.models.segformer import (
+        SegFormer,
+        init_weights,
+    )
+    from semisupervisedobjectdetection_torch.train import fewshot as fw
+    from semisupervisedobjectdetection_torch.train.state import TrainState
+
+    dev = torch.device("cuda")
+    cfg = bench.flagship_config().replace(cls_tokens=FEW_CLS)
+    imgs, masks = _fewshot_inputs(dev, SEED + 9)
+    cls_names = [f"segformer.encoder.cls_token.{i}" for i in range(4)]
+    # the reference's MSE over B*3: times B*3 / (H*W*3), the squared error
+    # per element
+    per_element = FEW_BATCH / (IMG * IMG)
+    runs = {}
+    for impl in ("kernel", "plain"):
+        for mode, labels in (("ae", AE_LABELS), ("seg", 1)):
+            model = init_weights(
+                SegFormer(cfg.replace(num_labels=labels, attn_impl=impl)),
+                torch.Generator().manual_seed(SEED)).to(dev)
+            state = TrainState.create(model, TrainConfig())
+            start = {n: state.params[n].detach().clone() for n in cls_names}
+            torch.cuda.reset_peak_memory_stats(dev)
+            calls = []
+            for i in range(2):
+                _reset_counts()
+                t0 = time.perf_counter()
+                if mode == "ae":
+                    out = fw.fewshot_ae_step(state, *imgs)
+                    recons = out.recon_losses.tolist()
+                    loss = float(out.loss)
+                    call = {"loss": loss,
+                            "recon_per_element": [r * per_element
+                                                  for r in recons],
+                            "inter": out.inter_losses.tolist(),
+                            # 100 x (mean inter + mean intra)
+                            "cls_part": (loss - sum(recons) / 4) / 100.0}
+                else:
+                    w = float(i)          # 0, then 1.0
+                    out = fw.fewshot_seg_step(state, imgs[0], masks[0],
+                                              imgs[1], masks[1], w)
+                    call = {"cls_loss_weight": w, "loss": float(out.loss),
+                            "loss_1": float(out.loss_1),
+                            "loss_2": float(out.loss_2),
+                            "pred_1_finite": bool(torch.isfinite(
+                                out.pred_1).all().item())}
+                call["ms"] = (time.perf_counter() - t0) * 1e3
+                call["launches_k1_k2_k1mma"] = _counts()
+                calls.append(call)
+            runs[f"{mode}/{impl}"] = {
+                "calls": calls,
+                "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                "count": int(state.count),
+                "cls_moved": all(not torch.equal(state.params[n], start[n])
+                                 for n in cls_names)}
+            del model, state, out
+            torch.cuda.empty_cache()
+
+    def diffs(mode, keys):
+        k, p = runs[f"{mode}/kernel"], runs[f"{mode}/plain"]
+        out = 0.0
+        for ck, cp in zip(k["calls"], p["calls"]):
+            for key in keys:
+                a, b = ck[key], cp[key]
+                a, b = (a, b) if isinstance(a, list) else ([a], [b])
+                out = max(out, max(abs(x - y) for x, y in zip(a, b)))
+        return out
+
+    ae_diff = diffs("ae", ("recon_per_element", "inter", "cls_part"))
+    seg_diff = diffs("seg", ("loss", "loss_1", "loss_2"))
+    row = {"phase": "fewshot_step", "variant": "b5", "img": IMG,
+           "dtype": "bfloat16", "gelu": "tanh", "batch": FEW_BATCH,
+           "cls_tokens": list(FEW_CLS), "runs": runs,
+           "ae_max_abs_diff": ae_diff, "seg_max_abs_diff": seg_diff,
+           "loss_tol": TRAIN_LOSS_TOL,
+           "launches_expected_ae_seg": [list(FEWSHOT_AE_K),
+                                        list(FEWSHOT_SEG_K)],
+           "card": smi}
+    emit(row)
+    for mode, want in (("ae", FEWSHOT_AE_K), ("seg", FEWSHOT_SEG_K)):
+        for impl in ("kernel", "plain"):
+            r = runs[f"{mode}/{impl}"]
+            expect = want + (want[0],) if impl == "kernel" else (0, 0, 0)
+            got = [c["launches_k1_k2_k1mma"] for c in r["calls"]]
+            if any(g != expect for g in got):
+                raise AssertionError(f"fewshot_step {mode}/{impl} launches "
+                                     f"{got}: expected {expect} per step")
+            if r["count"] != 2 or not r["cls_moved"] or not all(
+                    math.isfinite(c["loss"]) for c in r["calls"]) or (
+                    mode == "seg" and not all(c["pred_1_finite"]
+                                              for c in r["calls"])):
+                raise AssertionError(f"bad fewshot_step {mode}/{impl}: {r}")
+    if ae_diff > TRAIN_LOSS_TOL or seg_diff > TRAIN_LOSS_TOL:
+        raise AssertionError(f"kernel and plain few-shot steps disagree: ae "
+                             f"{ae_diff}, seg {seg_diff}")
+    return row
+
+
+def phase_fewshot_cli(smi: str):
+    """`cli/fewshot.py::main` at MiT-B5 512x512 bf16 (--perf) on synthetic
+    domains, 4 iterations an epoch: `--mode ae` 2 epochs with --resume and
+    a resumed third; `--mode seg` 1 epoch, then `--predict` from its best
+    checkpoint."""
+    import math
+    import tempfile
+
+    from semisupervisedobjectdetection_torch.cli import fewshot
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_fewshot_")
+    old_tmp, tempfile.tempdir = tempfile.tempdir, root  # the tiles too
+    point = ["--synthetic", "--synthetic-n", str(FEWSHOT_CLI_TILES),
+             "--variant", "b5", "--img-size", str(IMG), "--perf", "--seed",
+             str(SEED), "--iterations", str(FEWSHOT_CLI_ITERS)]
+    ck, ck_seg = os.path.join(root, "ae"), os.path.join(root, "seg")
+    ae_argv = point + ["--mode", "ae", "--resume", "--checkpoint-dir", ck]
+    seg_argv = point + ["--mode", "seg", "--checkpoint-dir", ck_seg,
+                        "--epochs", "1"]
+    try:
+        _reset_counts()
+        t0 = time.perf_counter()
+        ae = fewshot.main(ae_argv + [
+            "--epochs", "2", "--metrics-csv", os.path.join(root, "ae.csv")])
+        ae_s = time.perf_counter() - t0
+        ae_launches = _counts()
+        ae_rows = _csv_rows(os.path.join(root, "ae.csv"))
+        resumed = fewshot.main(ae_argv + [
+            "--epochs", "3", "--metrics-csv", os.path.join(root, "ae2.csv")])
+        ae_rows2 = _csv_rows(os.path.join(root, "ae2.csv"))
+        ae_names = sorted(os.listdir(ck))
+        _reset_counts()
+        t0 = time.perf_counter()
+        seg = fewshot.main(seg_argv + [
+            "--metrics-csv", os.path.join(root, "seg.csv")])
+        seg_s = time.perf_counter() - t0
+        seg_launches = _counts()
+        seg_rows = _csv_rows(os.path.join(root, "seg.csv"))
+        seg_names = sorted(os.listdir(ck_seg))
+        seg_best = seg[-1]["best_path"]
+        _reset_counts()
+        t0 = time.perf_counter()
+        predicted = fewshot.main(point + ["--mode", "seg", "--predict",
+                                          "--pretrain-weight", seg_best])
+        predict_s = time.perf_counter() - t0
+        predict_launches = _counts()
+    finally:
+        tempfile.tempdir = old_tmp
+        shutil.rmtree(root, ignore_errors=True)
+    row = {"phase": "fewshot_cli", "ae_argv": ae_argv, "seg_argv": seg_argv,
+           "ae_s": ae_s, "ae_epochs": _epochs(ae + resumed),
+           "ae_csv_rows": ae_rows, "ae_csv_rows_resumed": ae_rows2,
+           "ae_checkpoints": ae_names, "ae_launches_k1_k2_k1mma": ae_launches,
+           "seg_s": seg_s, "seg_epochs": _epochs(seg),
+           "seg_csv_rows": seg_rows, "seg_checkpoints": seg_names,
+           "seg_launches_k1_k2_k1mma": seg_launches, "predict": predicted,
+           "predict_s": predict_s, "predict_launches": predict_launches,
+           "card": smi}
+    emit(row)
+    per = sum(B5_DEPTHS)
+    for name, reports, want in (("ae", ae + resumed, FEWSHOT_AE_K),
+                                ("seg", seg, FEWSHOT_SEG_K)):
+        per_step = [tuple(n / max(r["train_steps"], 1)
+                          for n in r["launches_train"]) for r in reports]
+        if any(p != want for p in per_step) or any(
+                r["train_steps"] != FEWSHOT_CLI_ITERS
+                or r["launches_eval_k1"] != per for r in reports):
+            steps = [r["train_steps"] for r in reports]
+            evals = [r["launches_eval_k1"] for r in reports]
+            raise AssertionError(f"fewshot_cli {name}: launches per step "
+                                 f"{per_step} (expected {want}), steps "
+                                 f"{steps}, eval {evals}")
+    if ae_launches[2] != ae_launches[0] or seg_launches[2] != seg_launches[0]:
+        raise AssertionError("a few-shot training K1 launch was not "
+                             "tensor-core")
+    rows = ae_rows + ae_rows2 + seg_rows
+    if [r["step"] for r in rows] != ["0", "1", "2", "0"] or not all(
+            math.isfinite(float(r["train_loss"]))
+            and math.isfinite(float(r["eval_loss"])) for r in rows):
+        raise AssertionError(f"fewshot_cli CSV rows {rows}")
+    if [r["epoch"] for r in resumed] != [2]:
+        raise AssertionError("the resumed few-shot run did not start at "
+                             "epoch 2")
+    if "fewshot_ae_last.pt" not in ae_names or not any(
+            n.startswith("fewshot_ae_epoch_") for n in ae_names) or \
+            seg_names != [os.path.basename(seg_best)] or \
+            not seg_names[0].startswith("fewshot_seg_epoch_0_"):
+        raise AssertionError(f"fewshot_cli checkpoints {ae_names}, "
+                             f"{seg_names}")
+    if predict_launches[:2] != (per, 0) or \
+            not 0.0 <= predicted["eval_loss"] <= 1.0:
+        raise AssertionError(f"fewshot --predict {predicted}, launches "
+                             f"{predict_launches}")
+    return row
+
+
 def _stage_sum(rows, b, key, only_bytes=False, shapes=STAGE_SHAPES):
     """Sum of `key` over one pass of the B5 stages in bf16 at batch b
     (depth launches per stage shape, the stages' `shapes`); with
@@ -2361,7 +2797,8 @@ def _kernel_entry(rows, passes, **fields):
 
 def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
             transfer_grad, transfer_step, sup_cli, transfer_cli, ts_step,
-            ts_cli, ae_step, ae_cli):
+            ts_cli, ae_step, ae_cli, serve_ckpt, fewshot_grad, fewshot_step,
+            fewshot_cli):
     """The `kernels` line: each kernel's times, bound and plain/library
     times summed over what its main path runs, with its launches there: K1's
     tensor-core kernel (`sr_attention_fwd`) and K2 over one flagship EMA
@@ -2379,7 +2816,12 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
     models: 2 microbatches of 16 each, a forward and a recompute, and a
     backward, per model). The gradient teacher-student phases (ts_step,
     ts_cli) and the autoencoder phases (ae_step, ae_cli, the latter with
-    its transfer epoch) join `launches_by_path`."""
+    its transfer epoch) join `launches_by_path`, and so do the few-shot
+    phases (fewshot_grad's float32 scalar kernels, fewshot_step,
+    fewshot_cli) and serve_ckpt; `per_fewshot_ae_step` and
+    `per_fewshot_seg_step` sum each kernel over one few-shot step at batch
+    2 (the CLS shapes: 4 or 2 categories, each a forward and a recompute,
+    and a backward)."""
 
     def kernel_calls(i):
         return sum(c["launches_k1_k2_k1mma"][i]
@@ -2392,12 +2834,38 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
 
     ts_step_path = ("ts_step (kernel path: 2 pseudo_label_step, 2 "
                     "pseudo_label_infer_step, 2 labeled_step)")
-    ts_cli_path = ("ts_cli (3 epochs: phase A 2 pseudo_label_step or 2 "
-                   "pseudo_label_infer_step, phase B 2 labeled_step, 2 eval "
-                   "batches of 21 x 2 models)")
+    n_ev, n_st = CLI_EVAL_BATCH, CLI_STEPS_PER_EPOCH
+    ts_cli_path = (f"ts_cli (3 epochs: phase A {n_st} pseudo_label_step or "
+                   f"{n_st} pseudo_label_infer_step, phase B {n_st} "
+                   f"labeled_step, an eval batch of {n_ev} x 2 models)")
+    cli_path = (f"cli (2 epochs: {2 * n_st} train steps, 2 eval batches of "
+                f"{n_ev} x 2 models)")
+    sup_cli_path = (f"sup_cli (2 epochs: {2 * n_st} train steps, 2 eval "
+                    f"batches of {n_ev})")
+    transfer_cli_path = (f"transfer_cli (2 epochs, Nk 266: {2 * n_st} train "
+                         f"steps, 2 eval batches of {n_ev})")
     ae_step_path = "ae_step (2 kernel-path train steps, 1 eval of 32)"
-    ae_cli_path = ("ae_cli (2 epochs: 8 train steps, 2 eval batches of 21; "
-                   "then 1 transfer epoch, Nk 266)")
+    ae_cli_path = (f"ae_cli (2 epochs: {4 * n_st} train steps, 2 eval "
+                   f"batches of {n_ev}; then 1 transfer epoch, Nk 266)")
+    few_step_path = ("fewshot_step (kernel path: 2 fewshot_ae_step, 2 "
+                     "fewshot_seg_step, batch 2, Nk 257)")
+    few_cli_path = ("fewshot_cli (ae 3 epochs and seg 1 epoch of 4 steps, "
+                    "an eval batch of 4 each, --predict)")
+    few_grad_path = ("fewshot_grad (B5 float32, Nk 257: the AE and seg "
+                     "pair losses)")
+
+    def few_step(i):
+        return sum(c["launches_k1_k2_k1mma"][i]
+                   for m in ("ae", "seg")
+                   for c in fewshot_step["runs"][f"{m}/kernel"]["calls"])
+
+    def few_cli(i):
+        return fewshot_cli["ae_launches_k1_k2_k1mma"][i] + \
+            fewshot_cli["seg_launches_k1_k2_k1mma"][i] + \
+            fewshot_cli["predict_launches"][i]
+
+    def few_grad(i):
+        return sum(r["launches_k1_k2_k1mma"][i] for r in fewshot_grad)
     src = "semisupervisedobjectdetection_torch/csrc/"
     tpu = "semisupervisedobjectdetection_tpu/ops/sr_attention.py"
     step = ((TEACHER_BATCH, ACCUM), (MICRO, 2 * ACCUM))
@@ -2418,28 +2886,31 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
             "train (4 timed EMA steps)": train["launches_k1_mma"],
             "train_mode (2 flagship train-mode EMA steps)":
                 train_mode["launches_k1_mma"],
-            "cli (2 epochs: 4 train steps, 2 eval batches of 21 x 2 "
-            "models)": cli["launches_k1_k2_k1mma"][2],
+            cli_path: cli["launches_k1_k2_k1mma"][2],
             "supervised (2 kernel-path steps in eval and 2 in train mode)":
                 sum(sup["runs"][f"{m}/kernel"]["launches_k1_k2_k1mma"][2]
                     for m in ("eval_mode", "train_mode")),
             "transfer_step (2 kernel-path bf16 steps, Nk 266)":
                 transfer_step["runs"]["kernel"]["launches_k1_k2_k1mma"][2],
-            "sup_cli (2 epochs: 4 train steps, 2 eval batches of 21)":
-                sup_cli["launches_k1_k2_k1mma"][2],
-            "sup_cli --predict (1 eval batch of 21)":
+            sup_cli_path: sup_cli["launches_k1_k2_k1mma"][2],
+            f"sup_cli --predict (1 eval batch of {n_ev})":
                 sup_cli["launches_predict"][0],
-            "transfer_cli (2 epochs, Nk 266: 4 train steps, 2 eval "
-            "batches of 21)": transfer_cli["launches_k1_k2_k1mma"][2],
+            transfer_cli_path: transfer_cli["launches_k1_k2_k1mma"][2],
             ts_step_path: kernel_calls(2),
             ts_cli_path: ts_cli["launches_k1_k2_k1mma"][2]
             + ts_cli["launches_quirks_run"][2],
             ae_step_path: ae(2),
             ae_cli_path: ae_cli["launches_k1_k2_k1mma"][2]
-            + ae_cli["launches_transfer"][2]},
+            + ae_cli["launches_transfer"][2],
+            few_step_path: few_step(2),
+            few_cli_path: few_cli(2)},
         per_transfer_step=_passes_sum(mma_rows, ((MICRO, 2 * ACCUM),),
                                       TRANSFER_SHAPES),
-        per_labeled_step=_passes_sum(mma_rows, ((MICRO, 4 * ACCUM),)))
+        per_labeled_step=_passes_sum(mma_rows, ((MICRO, 4 * ACCUM),)),
+        per_fewshot_ae_step=_passes_sum(mma_rows, ((FEW_BATCH, 8),),
+                                        FEWSHOT_SHAPES),
+        per_fewshot_seg_step=_passes_sum(mma_rows, ((FEW_BATCH, 4),),
+                                         FEWSHOT_SHAPES))
     k1_scalar = _kernel_entry(
         [r for r in k1_rows if r["design"] == "scalar"], ((BATCH, 1),),
         name="sr_attention_fwd_scalar", route="cuda", design="scalar",
@@ -2451,7 +2922,10 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
         launches_by_path={
             "serve": serve["launches"],
             "transfer_grad (B5 float32, Nk 266: forward and recompute)":
-                transfer_grad["launches_k1_k2"][0]})
+                transfer_grad["launches_k1_k2"][0],
+            few_grad_path + ": forward and recompute": few_grad(0),
+            "serve_ckpt (4 batches from sup_cli's checkpoint)":
+                serve_ckpt["launches_k1_k2_k1mma"][0]})
     k2 = _kernel_entry(
         k2_rows, ((MICRO, ACCUM),),
         name="sr_attention_bwd", route="cuda", design="mma",
@@ -2465,7 +2939,7 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
             "train (4 timed EMA steps)": train["launches_k2"],
             "train_mode (2 flagship train-mode EMA steps)":
                 train_mode["launches_k2"],
-            "cli (2 epochs: 4 train steps)": cli["launches_k1_k2_k1mma"][1],
+            cli_path: cli["launches_k1_k2_k1mma"][1],
             "supervised (2 kernel-path steps in eval and 2 in train mode)":
                 sum(sup["runs"][f"{m}/kernel"]["launches_k1_k2_k1mma"][1]
                     for m in ("eval_mode", "train_mode")),
@@ -2473,19 +2947,28 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
                 transfer_grad["launches_k1_k2"][1],
             "transfer_step (2 kernel-path bf16 steps, Nk 266)":
                 transfer_step["runs"]["kernel"]["launches_k1_k2_k1mma"][1],
-            "sup_cli (2 epochs: 4 train steps)":
-                sup_cli["launches_k1_k2_k1mma"][1],
-            "transfer_cli (2 epochs, Nk 266: 4 train steps)":
-                transfer_cli["launches_k1_k2_k1mma"][1],
+            sup_cli_path: sup_cli["launches_k1_k2_k1mma"][1],
+            transfer_cli_path: transfer_cli["launches_k1_k2_k1mma"][1],
             ts_step_path: kernel_calls(1),
             ts_cli_path: ts_cli["launches_k1_k2_k1mma"][1]
             + ts_cli["launches_quirks_run"][1],
             ae_step_path: ae(1),
             ae_cli_path: ae_cli["launches_k1_k2_k1mma"][1]
-            + ae_cli["launches_transfer"][1]},
+            + ae_cli["launches_transfer"][1],
+            few_grad_path: few_grad(1),
+            few_step_path: few_step(1),
+            few_cli_path: few_cli(1)},
         per_transfer_step=_passes_sum(k2_rows, ((MICRO, ACCUM),),
                                       TRANSFER_SHAPES),
-        per_labeled_step=_passes_sum(k2_rows, ((MICRO, 2 * ACCUM),)))
+        per_labeled_step=_passes_sum(k2_rows, ((MICRO, 2 * ACCUM),)),
+        per_fewshot_ae_step=_passes_sum(k2_rows, ((FEW_BATCH, 4),),
+                                        FEWSHOT_SHAPES),
+        per_fewshot_seg_step=_passes_sum(k2_rows, ((FEW_BATCH, 2),),
+                                         FEWSHOT_SHAPES),
+        key_pass_splits_fewshot=[
+            r["key_pass_splits"] for s in FEWSHOT_SHAPES for r in k2_rows
+            if r["dtype"] == "bfloat16" and r["B"] == FEW_BATCH
+            and (r["Nq"], r["Nk"], r["C"], r["heads"]) == s])
     return [k1, k1_scalar, k2]
 
 
@@ -2522,12 +3005,17 @@ def main() -> int:
                           ("transfer_grad", phase_transfer_grad),
                           ("transfer_step", lambda: phase_transfer_step(smi)),
                           ("sup_cli", lambda: phase_sup_cli(smi)),
+                          ("serve_ckpt", lambda: phase_serve_ckpt(
+                              smi, results["sup_cli"])),
                           ("transfer_cli", lambda: phase_transfer_cli(
                               smi, results["sup_cli"])),
                           ("ts_step", lambda: phase_ts_step(smi)),
                           ("ts_cli", lambda: phase_ts_cli(smi)),
                           ("ae_step", lambda: phase_ae_step(smi)),
-                          ("ae_cli", lambda: phase_ae_cli(smi))):
+                          ("ae_cli", lambda: phase_ae_cli(smi)),
+                          ("fewshot_grad", phase_fewshot_grad),
+                          ("fewshot_step", lambda: phase_fewshot_step(smi)),
+                          ("fewshot_cli", lambda: phase_fewshot_cli(smi))):
             t = time.perf_counter()
             results[phase] = fn()
             seconds[phase] = round(time.perf_counter() - t, 2)
@@ -2544,7 +3032,11 @@ def main() -> int:
                                       results["ts_step"],
                                       results["ts_cli"],
                                       results["ae_step"],
-                                      results["ae_cli"])}
+                                      results["ae_cli"],
+                                      results["serve_ckpt"],
+                                      results["fewshot_grad"],
+                                      results["fewshot_step"],
+                                      results["fewshot_cli"])}
         emit({"phase": "total", "seconds": round(time.perf_counter() - t0,
                                                  2), "per_phase": seconds})
     except Exception as e:

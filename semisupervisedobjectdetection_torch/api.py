@@ -39,8 +39,13 @@ The autoencoder's methods (`train_one_epoch_without_mask`,
 `num_labels=3` model: its train step always runs in train mode, as the
 reference's does.
 
+`predict(output_cls_token=True)` also returns sigmoid of the last stage's
+carried CLS token, the domain token the few-shot loop trains
+(`cli/fewshot.py`); `train_one_epoch(output_cls_token=True)` returns None in
+its place, as the JAX package does.
+
 Not ported yet, each raising NotImplementedError that names ROADMAP.md:
-the "bce" loss, `output_cls_token`, the quantized serving snapshot
+the "bce" loss, the quantized serving snapshot
 (`quantize`, `dequantize`, `save_quantized`, `load_quantized`),
 `export_serving` and `export_hf`.
 """
@@ -81,6 +86,7 @@ from semisupervisedobjectdetection_torch.models.segformer import (
 from semisupervisedobjectdetection_torch.train import autoencoder
 from semisupervisedobjectdetection_torch.train import state as state_lib
 from semisupervisedobjectdetection_torch.train import supervised
+from semisupervisedobjectdetection_torch.train.fewshot import cls_activation
 from semisupervisedobjectdetection_torch.train.state import TrainState
 from semisupervisedobjectdetection_torch.utils.device import resolve_device
 
@@ -266,25 +272,37 @@ class SegFormerModel:
         `mask`, (loss, masks), the loss "dice" or "dice_argmax" (ref
         `:103-139`). `use_loss="mse"` (the autoencoder's) returns (loss,
         masks) without a target: the reference's MSE of the images against
-        the raw logits upsampled to their size, divisor B*3 (ref `:133`)."""
+        the raw logits upsampled to their size, divisor B*3 (ref `:133`).
+
+        `output_cls_token=True` adds a third value where a loss is
+        returned: sigmoid of the last stage's carried CLS token, (B, 1, C)
+        float32 (the reference forward's, `modeling_segformer.py:848-850`),
+        from the same forward, or None for a model without CLS tokens."""
         if use_loss == "bce":
             _not_ported(f"predict(use_loss={use_loss!r})")
-        if output_cls_token:
-            _not_ported("predict(output_cls_token=True)")
         images = self._images(img)
-        if use_loss == "mse":
-            logits, _ = forward_logits(self.model, images)
+        if use_loss == "mse" or (output_cls_token and self.cfg.use_cls):
+            # one forward gives the raw logits and the tokens; the masks
+            # are their sigmoid
+            logits, cls_list = forward_logits(self.model, images)
             masks = torch.sigmoid(logits)
             if masks.shape[-1] == 1:
                 masks = masks[..., 0]
+            token = cls_activation(cls_list) if self.cfg.use_cls else None
+        else:
+            masks, _ = forward_masks(self.model, images)
+            token = None
+        if mask is None and use_loss != "mse":
+            return masks.cpu().numpy()
+        if use_loss == "mse":
             loss = losses.mse_loss(images, logits,
                                    divisor=images.shape[0] * 3)
-            return loss, masks.cpu().numpy()
-        masks, _ = forward_masks(self.model, images)
-        if mask is None:
-            return masks.cpu().numpy()
-        loss = losses.segmentation_loss(masks, self._targets(mask),
-                                        use_loss)
+        else:
+            loss = losses.segmentation_loss(masks, self._targets(mask),
+                                            use_loss)
+        if output_cls_token:
+            return loss, masks.cpu().numpy(), \
+                (None if token is None else token.cpu().numpy())
         return loss, masks.cpu().numpy()
 
     # ---------------------------------------------------------- training
@@ -293,15 +311,18 @@ class SegFormerModel:
         """One supervised step on a batch (ref `:146-156`; the reference's
         name, which also steps per batch): (loss, predicted masks). `lazy`
         keeps the masks on the device (no host copy per step; the loops
-        read their metrics once per epoch)."""
-        if output_cls_token:
-            _not_ported("train_one_epoch(output_cls_token=True)")
+        read their metrics once per epoch). `output_cls_token=True` returns
+        (loss, masks, None), as the JAX package does: the few-shot loop,
+        which needs the token, has its own step (`train/fewshot.py`)."""
         _, loss, pred = supervised.train_step(
             self.state, self._images(imgs), self._targets(masks),
             loss_type=use_loss, train_mode=not self.tc.reference_quirks,
             accum=self.grad_accum, generator=self.generator)
         self._changed()
-        return loss, (pred if lazy else pred.cpu().numpy())
+        pred = pred if lazy else pred.cpu().numpy()
+        if output_cls_token:
+            return loss, pred, None
+        return loss, pred
 
     def eval_one_epoch(self, imgs, masks, lazy: bool = False):
         """The binarised-dice eval step (ref `:141-144`): (loss, predicted

@@ -26,7 +26,14 @@ Endpoints:
                     binarized mask bytes, shape in X-Mask-Shape),
                     &threshold=0.5 (binarize level).
 
-Run: python -m semisupervisedobjectdetection_torch.cli.serve --variant b5
+Run: python -m semisupervisedobjectdetection_torch.cli.serve --variant b5 \
+         [--pretrain-weight <a checkpoint of this package's training CLIs>]
+
+The weights are seeded random ones unless --pretrain-weight (a `.pt`
+checkpoint of the port's CLIs, loaded as `SegFormerModel.load` does) or
+--hf-weights is given. The quantized snapshots (--int8, --fp8,
+--int8-snapshot) and the AOT artifact (--artifact) are not ported yet and
+are refused with a message naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -339,8 +346,21 @@ def main(argv=None):
     p.add_argument("--img-size", type=int, default=512)
     p.add_argument("--dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
+    p.add_argument("--pretrain-weight",
+                   help="checkpoint (.pt) written by one of this package's "
+                        "training CLIs, loaded through SegFormerModel.load; "
+                        "a checkpoint of the JAX package (orbax) is "
+                        "converted first on a host with JAX, by "
+                        "checkpoint/convert.py::state_dict_from_flax")
     p.add_argument("--hf-weights",
                    help="torch .pth/.safetensors SegFormer weights")
+    p.add_argument("--artifact", help="AOT serving artifact (not ported)")
+    p.add_argument("--int8", action="store_true",
+                   help="serve an int8 snapshot (not ported)")
+    p.add_argument("--fp8", action="store_true",
+                   help="serve an fp8 snapshot (not ported)")
+    p.add_argument("--int8-snapshot",
+                   help="with --int8/--fp8: snapshot dir (not ported)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8765)
     p.add_argument("--max-batch", type=int, default=8)
@@ -351,6 +371,14 @@ def main(argv=None):
                    help="torch device to serve on (default cuda; 'cpu' to "
                         "run without a card)")
     args = p.parse_args(argv)
+    refused = [flag for flag, on in (
+        ("--artifact", bool(args.artifact)), ("--int8", args.int8),
+        ("--fp8", args.fp8), ("--int8-snapshot", bool(args.int8_snapshot)))
+        if on]
+    if refused:
+        raise SystemExit(
+            f"{', '.join(refused)}: not ported to the PyTorch package yet; "
+            "ROADMAP.md lists what waits (Queue 1, serving)")
 
     import torch
 
@@ -362,11 +390,12 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     cfg = MIT_VARIANTS[args.variant](dtype=args.dtype,
                                      gelu_approx=args.perf)
-    model = SegFormerModel(config=cfg, hf_weights=args.hf_weights,
+    model = SegFormerModel(pretrain_weight=args.pretrain_weight,
+                           config=cfg, hf_weights=args.hf_weights,
                            device=args.device)
-    if not args.hf_weights:
+    if not (args.pretrain_weight or args.hf_weights):
         print("WARNING: serving randomly initialized weights "
-              "(no --hf-weights)")
+              "(no --pretrain-weight / --hf-weights)")
     srv = InferenceServer(model, img_size=args.img_size,
                           max_batch=args.max_batch,
                           batch_window_ms=args.batch_window_ms,

@@ -1,8 +1,9 @@
 """Segmentation losses of the JAX package's `losses.py` that the training
 steps and their evaluation use, in PyTorch: dice with smooth 1 over each
 sample flattened, the binarised ("argmax") dice of the eval metric, the
-reference's MSE of the autoencoder, and the `segmentation_loss` front end
-over the three. Everything is float32."""
+reference's MSE of the autoencoder, the `segmentation_loss` front end over
+the three, and the few-shot loop's cosine losses on the domain CLS tokens.
+Everything is float32."""
 
 from __future__ import annotations
 
@@ -63,6 +64,37 @@ def mse_loss(pred: torch.Tensor, gt: torch.Tensor,
         return err.mean()
     w = sample_weight.float()
     return (err * w).sum() / w.sum().clamp_min(1e-8)
+
+
+def cosine_similarity(a: torch.Tensor, b: torch.Tensor, dim: int = -1,
+                      eps: float = 1e-8) -> torch.Tensor:
+    """dot(a, b) / max(|a| * |b|, eps) along `dim`, in float32: the JAX
+    package's formula, whose eps bounds the product of the norms (torch's
+    `F.cosine_similarity` bounds each norm on its own)."""
+    a, b = a.float(), b.float()
+    dot = (a * b).sum(dim)
+    na = (a * a).sum(dim).sqrt()
+    nb = (b * b).sum(dim).sqrt()
+    return dot / torch.clamp_min(na * nb, eps)
+
+
+def inter_domain_loss(cls_a: torch.Tensor, cls_b: torch.Tensor
+                      ) -> torch.Tensor:
+    """0.5 + 0.5 * mean(cos(cls_a, cls_b)) over the channels of (B, 1, C)
+    CLS tokens of two domains: pushes them apart
+    (`segFormer_fewshot_learning.py:219-220`)."""
+    return 0.5 + 0.5 * cosine_similarity(cls_a.squeeze(1), cls_b.squeeze(1),
+                                         dim=1).mean()
+
+
+def intra_domain_loss(cls_tokens: torch.Tensor) -> torch.Tensor:
+    """0.5 - 0.5 * mean(cos(first half, last half)) of one domain's (B, 1,
+    C) CLS tokens: pulls them together (`:222-225`). The halves are
+    [:B//2] and [-(B//2):], so an odd batch leaves its middle sample out."""
+    half = cls_tokens.shape[0] // 2
+    return 0.5 - 0.5 * cosine_similarity(cls_tokens[:half].squeeze(1),
+                                         cls_tokens[-half:].squeeze(1),
+                                         dim=1).mean()
 
 
 def segmentation_loss(pred: torch.Tensor, gt: torch.Tensor,

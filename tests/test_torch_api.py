@@ -5,7 +5,8 @@ restore the full state, a 3-label checkpoint restores into 1 label through
 channel 0, `predict` with a target equals `eval_one_epoch`, the serving
 copy follows the trained state and `resume`, a model that only serves holds
 no train state, and what is not ported raises. (The autoencoder's methods
-are held in tests/test_torch_autoencoder.py.)"""
+are held in tests/test_torch_autoencoder.py, `output_cls_token` in
+tests/test_torch_fewshot.py.)"""
 
 import numpy as np
 import pytest
@@ -209,14 +210,10 @@ def test_train_mode_without_quirks_is_seeded():
 @pytest.mark.parametrize("call", [
     lambda m: m.predict(np.zeros((1, SIZE, SIZE, 3)),
                         np.zeros((1, SIZE, SIZE)), use_loss="bce"),
-    lambda m: m.predict(np.zeros((1, SIZE, SIZE, 3)), output_cls_token=True),
-    lambda m: m.train_one_epoch(np.zeros((1, SIZE, SIZE, 3)),
-                                np.zeros((1, SIZE, SIZE)),
-                                output_cls_token=True),
     lambda m: m.quantize(), lambda m: m.dequantize(),
     lambda m: m.save_quantized("q"), lambda m: m.load_quantized("q"),
     lambda m: m.export_serving("a", 1), lambda m: m.export_hf("h.pth"),
-], ids=["bce", "predict_cls", "train_cls", "quantize", "dequantize",
+], ids=["bce", "quantize", "dequantize",
         "save_quantized", "load_quantized", "export_serving", "export_hf"])
 def test_unported_surface_raises(call):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

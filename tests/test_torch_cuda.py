@@ -1,8 +1,9 @@
 """Card-only tests of the port's CUDA kernels: `sr_attention_fwd` (its
 scalar and tensor-core kernels) and `sr_attention_bwd` against their plain
-versions on the card, gradients through `sr_attention` on CUDA, the
-launch counts of a small EMA step, a train-mode gradient through the
-kernels, and the augmentation on the card against the CPU.
+versions on the card (also at the few-shot step's shapes), gradients
+through `sr_attention` on CUDA, the launch counts of a small EMA step, a
+train-mode gradient through the kernels, and the augmentation on the card
+against the CPU.
 Marked `cuda`; each skips without a CUDA device (decided in a fixture, not
 at import). On a machine with a card and no JAX:
 
@@ -156,6 +157,36 @@ def test_bwd_kernel_matches_plain_and_is_deterministic(cuda, dtype, b, nq,
         assert a.dtype == dtype and a.shape == x.shape
         assert torch.equal(a, a2)
         assert _rel_err(a, r) <= BWD_TOL[dtype]
+
+
+# The few-shot step's shapes at 512x512 (batch 2, one CLS token per stage:
+# Nq = H*W + 1, Nk = 256 + 1) and K2's tolerance at them: dk and dv sum up
+# to 16385 query rows, which the kernel takes in splits and the plain
+# version in one sequence (float32 ~sqrt(16k) * 2**-24 apart; chip_smoke's
+# KERNEL_BWD_TOL).
+FEWSHOT_SHAPES = [(2, 16385, 257, 64, 1), (2, 4097, 257, 128, 2),
+                  (2, 1025, 257, 320, 5), (2, 257, 257, 512, 8)]
+FEWSHOT_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,nq,nk,c,h", FEWSHOT_SHAPES)
+def test_kernels_at_fewshot_shapes(cuda, dtype, b, nq, nk, c, h):
+    """K1 (the tensor-core kernel in bfloat16, the scalar one in float32)
+    and K2 against their plain versions at the few-shot shapes; two K2
+    launches give the same bits."""
+    q, k, v = _qkv(cuda, b, nq, nk, c, dtype)
+    g = _qkv(cuda, b, nq, nk, c, dtype, seed=1)[0]
+    out = sr_attention(q, k, v, h)
+    got = sr_attention_bwd(q, k, v, g, h)
+    again = sr_attention_bwd(q, k, v, g, h)
+    torch.cuda.synchronize()
+    ref = sr_attention_reference(q, k, v, h)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+    for a, a2, r in zip(got, again,
+                        sr_attention_backward_reference(q, k, v, g, h)):
+        assert torch.equal(a, a2)
+        assert _rel_err(a, r) <= FEWSHOT_BWD_TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

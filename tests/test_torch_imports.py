@@ -31,7 +31,8 @@ def test_every_module_imports_without_jax():
               "eval.metrics", "utils.logging", "checkpoint.io",
               "cli.common", "cli.teacher_student", "cli.supervised",
               "cli.transfer", "api", "utils.profile_forward",
-              "train.autoencoder", "cli.autoencoder"):
+              "train.autoencoder", "cli.autoencoder", "train.fewshot",
+              "data.classified", "cli.fewshot"):
         assert f"semisupervisedobjectdetection_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -1,8 +1,11 @@
 """The port's HTTP inference server (`semisupervisedobjectdetection_torch/
 cli/serve.py`) on the CPU, in the manner of tests/test_serve.py: routes,
-batching, formats, drain-stop, and served masks equal to the JAX package's
-`forward_masks` with the same weights."""
+batching, formats, drain-stop, served masks equal to the JAX package's
+`forward_masks` with the same weights, `main --pretrain-weight` serving a
+checkpoint of the port's own CLIs, and the quantized and artifact flags
+refused."""
 
+import contextlib
 import io
 import json
 import threading
@@ -222,3 +225,46 @@ def test_main_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--variant", "b0", "--img-size", "64", "--port", "0"])
+
+
+def test_main_serves_a_port_checkpoint(tmp_path, monkeypatch):
+    """`--pretrain-weight` loads a checkpoint saved by the port (here by
+    `SegFormerModel.save`, as the training CLIs save theirs): the served
+    masks equal `SegFormerModel.load(...).predict` of the same tiles."""
+    cfg = mit_b0(dtype="float32")
+    trained = SegFormerModel(config=cfg, device="cpu", seed=7)
+    path = str(tmp_path / "sup.pt")
+    trained.save(path)
+    x = np.random.default_rng(8).uniform(
+        size=(2, SIZE, SIZE, 3)).astype(np.float32)
+    served = {}
+
+    def serve_then_stop(srv):
+        served["masks"] = np.stack([srv.submit(t, timeout=120.0) for t in x])
+        srv.stop()
+
+    monkeypatch.setattr(serve, "_serve_until_signal", serve_then_stop)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve.main(["--variant", "b0", "--img-size", str(SIZE),
+                    "--max-batch", "2", "--dtype", "float32", "--port", "0",
+                    "--device", "cpu", "--pretrain-weight", path])
+    assert "Pretrained model loaded" in out.getvalue()
+    assert "randomly initialized" not in out.getvalue()
+    want = SegFormerModel(config=cfg, device="cpu", seed=0)
+    want.load(path)
+    np.testing.assert_allclose(served["masks"], want.predict(x), atol=1e-6)
+    # not the seeded weights the server would otherwise serve
+    assert not np.allclose(served["masks"],
+                           SegFormerModel(config=cfg, device="cpu")
+                           .predict(x), atol=1e-3)
+
+
+@pytest.mark.parametrize("flags", [["--int8"], ["--fp8"],
+                                   ["--int8-snapshot", "snap"],
+                                   ["--artifact", "a.bin"]],
+                         ids=["int8", "fp8", "int8_snapshot", "artifact"])
+def test_main_refuses_unported_serving(flags):
+    """Refused before any model is built, naming ROADMAP.md."""
+    with pytest.raises(SystemExit, match="ROADMAP.md"):
+        serve.main(["--variant", "b0", "--device", "cpu"] + flags)
