@@ -11,26 +11,29 @@ non-zero before the final line:
                 for every kernel instantiation its registers, stack and
                 spills (from `-Xptxas -v`) and its count of tensor-core
                 instructions (HMMA, HGMMA) in the SASS of the built library
-                (`cuobjdump --dump-sass`). The tensor-core kernels must
-                show tensor-core instructions and no stack frame or spills.
+                (`cuobjdump --dump-sass`), ptxas's warnings, and the wgmma
+                kernel's shared memory and CTAs per SM. K1's wgmma kernels
+                must show HGMMA, K2's bf16 kernels HMMA, and neither a stack
+                frame or spills.
 3. kernel     - `sr_attention_fwd` (K1) against its plain PyTorch version:
-                the tensor-core kernel (bfloat16, the default, the training
-                step's) at the four MiT-B5 512x512 stage shapes at batch 8,
-                16 (student) and 32 (teacher), the scalar kernel at batch 8
-                in bfloat16 (serving's) and float32, each also at two
-                shapes with a prompt/CLS prefix, and the tensor-core kernel
-                at the transfer step's four shapes (10 prompt tokens per
-                stage, Nk 266) at batch 16, and at the few-shot step's
-                four shapes (Nq = H*W + 1, Nk 257) at batch 2 the
-                tensor-core kernel in bf16 and the scalar one in f32: max abs
-                error against a stated tolerance, and CUDA-event times of
-                the kernel (for the tensor-core rows also of the scalar
-                kernel on the same inputs, the design it replaced in
-                training), the plain version and
-                `F.scaled_dot_product_attention` (a yardstick only; the port
-                never calls it), beside the bound from shapes (each byte in
-                and out once at 3.35 TB/s; flops at 989 TFLOP/s bf16,
-                67 TFLOP/s f32).
+                the wgmma kernel (bfloat16, the default, every bf16 path's)
+                at the four MiT-B5 512x512 stage shapes at batch 8
+                (serving), 16 (student) and 32 (teacher), the scalar kernel
+                at batch 8 in bfloat16 (the serve gate's `scalar` path) and
+                float32, each also at two shapes with a prompt/CLS prefix,
+                and the wgmma kernel at the transfer step's four shapes (10
+                prompt tokens per stage, Nk 266) at batch 16, and at the
+                few-shot step's four shapes (Nq = H*W + 1, Nk 257) at batch
+                2 the wgmma kernel in bf16 and the scalar one in f32: max
+                abs error against a stated tolerance, bit-equal reruns, and
+                CUDA-event device times (queued behind a sleep kernel, so
+                not paced by the host) of the kernel (for the wgmma rows
+                also of the scalar kernel on the same inputs, and the host
+                microseconds of a call and of its four tensor maps), the
+                plain version and `F.scaled_dot_product_attention` (a
+                yardstick only; the port never calls it), beside the bound
+                from shapes (each byte in and out once at 3.35 TB/s; flops
+                at 989 TFLOP/s bf16, 67 TFLOP/s f32).
 4. kernel_bwd - `sr_attention_bwd` (K2) against its plain version at the
                 four stage shapes and the two prefix shapes at batch 16, in
                 bfloat16 and float32, and at the rest of the transfer step's
@@ -47,9 +50,14 @@ non-zero before the final line:
                 max_batch 8, seeded random weights) answers 16 concurrent raw
                 requests and 2 PNG requests over HTTP; every request succeeds
                 with a finite mask of the right shape, K1 ran exactly 52
-                times per batch served (3+6+40+3 layers; its scalar kernel,
-                which `SegFormerModel` pins), and the served masks agree
-                with the plain path on the same inputs.
+                times per batch served (3+6+40+3 layers), all on its wgmma
+                kernel; and the serve gate: the same 16 raw images through
+                the bf16 model with the scalar forward (52 scalar
+                launches per batch, no wgmma one), the plain bf16 path
+                and the float32 model (plain attention, TF32 off) in
+                batches of 8 (`utils/serve_gate.py`), the served masks no
+                further from float32 than the plain bf16 path's (pixel
+                flips, mean error) and within a bound of the plain path.
 7. grad       - MiT-B5 512x512 float32, TF32 off, batch 2: the EMA step's
                 student loss backward through the kernels and through the
                 plain path give the same gradient for every parameter
@@ -173,7 +181,7 @@ non-zero before the final line:
                 512x512 bf16: the server's weights equal the checkpoint's,
                 and the masks it serves over HTTP equal
                 `SegFormerModel.load(<checkpoint>).predict` of the same
-                padded batches bit for bit, 52 scalar K1 launches per batch.
+                padded batches bit for bit, 52 wgmma K1 launches per batch.
 22. fewshot_grad - MiT-B5 512x512 float32 (TF32 off) with a CLS token per
                 stage, batch 2: the gradients of the autoencoder's pair loss
                 (3 labels; recon + 100 x the cosine losses on the CLS token)
@@ -220,6 +228,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SEED = 0
+# cuda_ms's sleep kernel: ~20 ms at the H100's 1.5-2 GHz clock.
+SLEEP_CYCLES = 35_000_000
 BATCH = 8
 IMG = 512
 B5_DEPTHS = (3, 6, 40, 3)
@@ -251,12 +261,21 @@ KERNEL_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
 KERNEL_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # B5 in float32 through 52 layers: kernel vs plain mask probabilities.
 MODEL_F32_TOL = 1e-4
-# B5 in bfloat16: every layer rounds to bf16, so one-ulp differences in
-# attention outputs travel through 52 residual layers; the probabilities
-# are compared with this bound and the 0.5-thresholded masks must agree
-# on all but this share of pixels.
-SERVE_PROB_TOL = 5e-2
+# The serve gate: served bf16 masks are held to the float32 model (plain
+# attention, TF32 off) no less closely than the plain bf16 path is. Every
+# layer rounds to bf16, so one-ulp differences in attention outputs travel
+# through 52 residual layers; two bf16 paths that sum in different orders
+# are equally far from float32 but not bit-equal to each other.
+# (1) The share of pixels whose 0.5-thresholded mask differs from float32's
+# may exceed the plain path's share by at most this margin (a thousandth of
+# the pixels, the margin the gate once gave against the plain path).
 SERVE_MASK_DISAGREE = 1e-3
+# (2) The mean |p - p_f32| may be at most this multiple of the plain
+# path's: two bf16 roundings of equal size, and 10% covers their spread
+# over 16 images.
+SERVE_MEAN_ERR_RATIO = 1.10
+# (3) The largest |p - p_plain| against the plain bf16 path.
+SERVE_PROB_TOL = 5e-2
 # B5 float32 gradients, kernels vs plain path, per parameter tensor as a
 # share of its largest gradient: float32 sums in another order in K2,
 # carried back through 52 layers. A tensor's scale is taken as at least a
@@ -351,7 +370,12 @@ def nvidia_smi_line() -> str:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of `fn()` in ms, by CUDA events after warm-up."""
+    """Mean device time of `fn()` in ms, by CUDA events after warm-up. The
+    timed calls are queued behind a sleep kernel (~20 ms, longer than the
+    host takes to issue them), so the events see the device run them back
+    to back rather than the host's pace of issuing them: a launch shorter
+    than its host call (~40 us for `sr_attention`) is not timed as the
+    host call."""
     import torch
 
     for _ in range(warmup):
@@ -359,12 +383,28 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     t0.record()
     for _ in range(iters):
         fn()
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def host_us(fn, iters: int = 50) -> float:
+    """Mean host microseconds of one call of `fn()` (the device runs
+    behind: no synchronisation inside the loop)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def _bound(n_bytes, flops, dtype_name):
@@ -449,7 +489,7 @@ def _reset_counts():
 
 
 def _counts():
-    """Launches of K1 (all), K2, and K1's tensor-core kernel."""
+    """Launches of K1 (all), K2, and K1's wgmma kernel."""
     from semisupervisedobjectdetection_torch.ops.sr_attention import (
         sr_attention,
         sr_attention_bwd,
@@ -563,12 +603,18 @@ def phase_build():
         info = _build.BUILD_INFO[source]
         # ptxas reports static shared memory only; the kernels' is dynamic
         # (the backward's row pass)
+        extra = {}
         if source == _SOURCE:
             smem = {f"nk{nk}_d64_{name}":
                     lib.sr_attention_fwd_smem_bytes(nk, 64, elem, mma)
                     for nk in (256, 266) for name, elem, mma in (
-                        ("bf16_mma", 2, 1), ("bf16_scalar", 2, 0),
+                        ("bf16_wgmma", 2, 1), ("bf16_scalar", 2, 0),
                         ("f32", 4, 0))}
+            # the wgmma kernel's CTAs per SM (shared memory and its 384
+            # threads at 168 registers allow one)
+            extra["wgmma_ctas_per_sm"] = {
+                f"nk{nk}_d{d}": lib.sr_attention_fwd_wgmma_ctas_per_sm(nk, d)
+                for nk in (256, 266) for d in (32, 64)}
         else:
             smem = {f"nk{nk}_d64_{name}":
                     bwd.sr_attention_bwd_smem_bytes(nk, 64, elem)
@@ -579,25 +625,34 @@ def phase_build():
               "nvcc_seconds": round(info["seconds"], 3),
               "sources_hashed": [p.name for p in _build.source_files(
                   _build.CSRC / source)],
-              "dynamic_smem_bytes": smem})
+              "dynamic_smem_bytes": smem, **extra,
+              "ptxas_warnings": [ln.strip() for ln in info["log"].splitlines()
+                                 if "warning" in ln.lower()]})
         ptxas = _ptxas_kernels(info["log"])
         sass = _sass_tensor_ops(info["path"])
         names = _demangle(sorted(sass))
         for sym in sorted(sass):
+            design = ("wgmma" if "_wgmma_kernel" in sym else
+                      "mma" if "_mma_kernel" in sym else "scalar")
             row = {"phase": "build", "source": source, "kernel": names[sym],
-                   "design": "mma" if "_mma_kernel" in sym else "scalar",
+                   "design": design,
                    "tensor_core_instructions": sass[sym],
                    **ptxas.get(sym, {})}
             emit(row)
             rows.append(row)
+    # K1's bf16 kernel on wgmma (HGMMA: four instantiations, d 32/64 by
+    # Nk <= 256/288), K2's on mma.sync (HMMA)
+    wgmma = [r for r in rows if r["design"] == "wgmma"]
     mma = [r for r in rows if r["design"] == "mma"]
-    if len(mma) < 2 or any(sum(r["tensor_core_instructions"].values()) == 0
+    if len(wgmma) < 4 or any(r["tensor_core_instructions"]["HGMMA"] == 0
+                             for r in wgmma):
+        raise AssertionError(f"K1's wgmma kernels without HGMMA: {wgmma}")
+    if len(mma) < 2 or any(r["tensor_core_instructions"]["HMMA"] == 0
                            for r in mma):
-        raise AssertionError(f"bfloat16 kernels without tensor-core "
-                             f"instructions: {mma}")
+        raise AssertionError(f"K2's bfloat16 kernels without HMMA: {mma}")
     # their tiles live in registers: a stack frame or spills would put
     # them in local memory
-    local = [r for r in mma if r.get("stack_bytes", 1)
+    local = [r for r in wgmma + mma if r.get("stack_bytes", 1)
              or r.get("spill_store_bytes", 1)]
     if local:
         raise AssertionError(f"tensor-core kernels with local memory: "
@@ -606,23 +661,25 @@ def phase_build():
 
 
 def _k1_cases():
-    """(batch, shape, dtype, design) of the K1 checks: the tensor-core
-    kernel at the stage shapes at the serving, student and teacher batches;
-    the scalar kernel at the serving batch in bf16 and f32; all three at the
-    prefix shapes at the serving batch; the tensor-core kernel at the
-    transfer step's shapes at the student batch; at the few-shot shapes
-    (batch 2) the tensor-core kernel in bf16 and the scalar one in f32, as
-    the few-shot step and its float32 gradients run them."""
-    cases = [(b, s, "bfloat16", "mma") for b in (BATCH, MICRO, TEACHER_BATCH)
-             for s in STAGE_SHAPES]
+    """(batch, shape, dtype, design) of the K1 checks: the wgmma kernel
+    (bf16, every bf16 path's) at the stage shapes at the serving, student
+    and teacher batches; the scalar kernel at the serving batch in bf16
+    (the serve gate's `scalar` path) and f32; all three at the prefix shapes
+    at the serving batch; the wgmma kernel at the transfer step's shapes at
+    the student batch; at the few-shot shapes (batch 2) the wgmma kernel in
+    bf16 and the scalar one in f32, as the few-shot step and its float32
+    gradients run them."""
+    cases = [(b, s, "bfloat16", "wgmma")
+             for b in (BATCH, MICRO, TEACHER_BATCH) for s in STAGE_SHAPES]
     cases += [(BATCH, s, d, "scalar") for d in ("bfloat16", "float32")
               for s in STAGE_SHAPES]
     cases += [(BATCH, s, d, design) for s in PREFIX_SHAPES
-              for d, design in (("bfloat16", "mma"), ("bfloat16", "scalar"),
+              for d, design in (("bfloat16", "wgmma"),
+                                ("bfloat16", "scalar"),
                                 ("float32", "scalar"))]
-    cases += [(MICRO, s, "bfloat16", "mma") for s in TRANSFER_SHAPES]
+    cases += [(MICRO, s, "bfloat16", "wgmma") for s in TRANSFER_SHAPES]
     cases += [(FEW_BATCH, s, d, design) for s in FEWSHOT_SHAPES
-              for d, design in (("bfloat16", "mma"), ("float32", "scalar"))]
+              for d, design in (("bfloat16", "wgmma"), ("float32", "scalar"))]
     return cases
 
 
@@ -631,6 +688,7 @@ def phase_kernel():
     import torch.nn.functional as F
 
     from semisupervisedobjectdetection_torch.ops.sr_attention import (
+        _lib,
         sr_attention,
         sr_attention_reference,
     )
@@ -642,16 +700,18 @@ def phase_kernel():
     for b, shape, dtype_name, design in _k1_cases():
         nq, nk, c, h = shape
         dtype = getattr(torch, dtype_name)
-        mma = design == "mma"
+        mma = design == "wgmma"
         q, k, v = (torch.randn(b, n, c, device="cuda", generator=gen)
                    .to(dtype) for n in (nq, nk, nk))
         out = sr_attention(q, k, v, h, mma)
+        again = sr_attention(q, k, v, h, mma)
         torch.cuda.synchronize()
         ref = sr_attention_reference(q, k, v, h)
         err = (out.float() - ref.float()).abs().max().item()
         ne_plain = (out != ref).float().mean().item()
+        rerun_equal = bool(torch.equal(out, again))
         ok = bool(torch.isfinite(out).all().item()) \
-            and err <= KERNEL_TOL[dtype_name]
+            and err <= KERNEL_TOL[dtype_name] and rerun_equal
         # the exact function in float64 (no bf16 rounding of p): an
         # independent check of both versions
         f64 = _attention_f64(q, k, v, h)
@@ -660,16 +720,22 @@ def phase_kernel():
         qs, ks, vs = (_heads(t, h) for t in (q, k, v))
         bound, by = attention_bound(b, nq, nk, c, dtype_name)
         if mma:
-            # the scalar kernel on the same inputs: the design the
-            # tensor-core one replaced in the training step
-            scalar = {"scalar_ms": cuda_ms(
-                lambda: sr_attention(q, k, v, h, False))}
+            # the scalar kernel on the same inputs (the `mma=False` path,
+            # the serve gate's `scalar` reading); the host cost of a call,
+            # and of the four tensor maps it encodes
+            scalar = {
+                "scalar_ms": cuda_ms(lambda: sr_attention(q, k, v, h, False)),
+                "host_us_per_call": host_us(
+                    lambda: sr_attention(q, k, v, h, True)),
+                "tensor_maps_us": _lib().sr_attention_fwd_map_ns(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    b, nq, nk, c, h, 1000) / 1e3}
         else:
             scalar = {}
         row = {"phase": "kernel", "name": "sr_attention_fwd",
                "B": b, "Nq": nq, "Nk": nk, "C": c, "heads": h,
                "dtype": dtype_name, "design": design, "max_abs_err": err,
-               "share_ne_plain": ne_plain,
+               "share_ne_plain": ne_plain, "rerun_bit_equal": rerun_equal,
                "tol": KERNEL_TOL[dtype_name], "ok": ok,
                "max_abs_err_vs_f64": err64,
                "ms": cuda_ms(lambda: sr_attention(q, k, v, h, mma)),
@@ -681,10 +747,11 @@ def phase_kernel():
                "bound_ms": bound, "bound_by": by}
         emit(row)
         rows.append(row)
-        del q, k, v, out, ref, qs, ks, vs
+        del q, k, v, out, again, ref, qs, ks, vs
     bad = [r for r in rows if not r["ok"]]
     if bad:
-        raise AssertionError(f"K1 disagrees with its plain version: {bad}")
+        raise AssertionError(f"K1 disagrees with its plain version or "
+                             f"with its rerun: {bad}")
     return rows
 
 
@@ -821,7 +888,10 @@ def phase_serve(smi: str):
     from semisupervisedobjectdetection_torch.api import SegFormerModel
     from semisupervisedobjectdetection_torch.cli.serve import InferenceServer
     from semisupervisedobjectdetection_torch.core.config import mit_b5
+    from semisupervisedobjectdetection_torch.utils import serve_gate
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     cfg = mit_b5(dtype="bfloat16")
     per_forward = sum(cfg.depths)
     model = SegFormerModel(config=cfg, seed=SEED)
@@ -869,27 +939,44 @@ def phase_serve(smi: str):
 
     pngs = [np.asarray(Image.open(io.BytesIO(r[2]))) for r in
             results[n_raw:]]
-
-    plain = SegFormerModel(config=cfg.replace(attn_impl="plain"), seed=SEED)
+    del model
+    # the gate's other paths on the same raw images, in batches of 8
     x = imgs[:n_raw].astype(np.float32) / 255.0
-    ref = np.concatenate([plain.predict(x[i:i + BATCH])
-                          for i in range(0, n_raw, BATCH)])
-    err = float(np.abs(probs - ref).max())
-    disagree = float(((probs >= 0.5) != (ref >= 0.5)).mean())
+    dev = torch.device("cuda")
+    _reset_counts()
+    paths = {"served": probs,
+             "scalar": serve_gate.masks(cfg, x, SEED, dev, scalar=True)}
+    scalar_launches = _counts()
+    paths["plain"] = serve_gate.masks(cfg.replace(attn_impl="plain"), x,
+                                      SEED, dev)
+    f32 = serve_gate.masks(cfg.replace(dtype="float32", attn_impl="plain"),
+                           x, SEED, dev)
+    gate = serve_gate.readings(paths, f32)
+    flips, mean_err = (gate["mask_flip_vs_float32"],
+                       gate["mean_abs_err_vs_float32"])
+    checks = {
+        "flips_vs_float32": flips["served"]
+        <= flips["plain"] + SERVE_MASK_DISAGREE,
+        "mean_err_vs_float32": mean_err["served"]
+        <= SERVE_MEAN_ERR_RATIO * mean_err["plain"],
+        "max_err_vs_plain": gate["max_abs_err_vs_plain"]["served"]
+        <= SERVE_PROB_TOL}
     row = {"phase": "serve", "variant": "b5", "img": IMG,
            "dtype": "bfloat16", "max_batch": BATCH, "requests": n_raw + 2,
            "statuses": sorted(set(statuses)), "batches": batches,
            "launches": launches, "launches_expected": per_forward * batches,
            "launches_mma": mma_launches,
+           "launches_k1_k2_k1mma_scalar_path": scalar_launches,
            "wall_s": wall, "img_per_s": (n_raw + 2) / wall,
            "latency_ms": after.get("latency_ms"),
            "mean_batch_fill": after["mean_batch_fill"],
            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-           "healthz": health, "max_abs_err_vs_plain": err,
-           "tol": SERVE_PROB_TOL, "mask_disagree_share": disagree,
-           "mask_disagree_tol": SERVE_MASK_DISAGREE, "card": smi}
+           "healthz": health, "gate": gate, "gate_checks": checks,
+           "gate_bounds": {"mask_flip_margin": SERVE_MASK_DISAGREE,
+                           "mean_err_ratio": SERVE_MEAN_ERR_RATIO,
+                           "max_abs_err_vs_plain": SERVE_PROB_TOL},
+           "card": smi}
     emit(row)
-    del model, plain
     torch.cuda.empty_cache()
     if set(statuses) != {200}:
         raise AssertionError(f"non-200 responses: {statuses}")
@@ -897,14 +984,21 @@ def phase_serve(smi: str):
         raise AssertionError(f"bad served masks: {probs.shape}")
     if any(p.shape != (IMG, IMG) for p in pngs):
         raise AssertionError("bad PNG masks")
-    if batches < 1 or launches != per_forward * batches or mma_launches:
+    if batches < 1 or launches != per_forward * batches or \
+            mma_launches != launches:
         raise AssertionError(f"{launches} kernel launches ({mma_launches} "
-                             f"tensor-core) for {batches} batches; expected "
-                             f"{per_forward} scalar per batch")
+                             f"wgmma) for {batches} batches; expected "
+                             f"{per_forward} wgmma per batch")
+    gate_batches = -(-n_raw // serve_gate.BATCH)
+    if scalar_launches != (per_forward * gate_batches, 0, 0):
+        raise AssertionError(
+            f"the gate's scalar path made {scalar_launches} (K1, K2, "
+            f"wgmma K1) launches for {gate_batches} batches; expected "
+            f"{per_forward} scalar K1 per batch and no wgmma")
     if health.get("platform") != "cuda":
         raise AssertionError(f"/healthz reports {health}")
-    if err > SERVE_PROB_TOL or disagree > SERVE_MASK_DISAGREE:
-        raise AssertionError("served masks disagree with the plain path")
+    if not all(checks.values()):
+        raise AssertionError(f"served masks fail the serve gate: {checks}")
     return row
 
 
@@ -2450,7 +2544,8 @@ def phase_serve_ckpt(smi: str, sup: dict):
     row = {"phase": "serve_ckpt", "checkpoint": os.path.basename(best),
            "requests": n, "run_s": run_s, "serve_wall_s": got["wall_s"],
            "launches_k1_k2_k1mma": got["launches"],
-           "launches_expected": [sum(B5_DEPTHS) * n, 0, 0],
+           "launches_expected": [sum(B5_DEPTHS) * n, 0,
+                                 sum(B5_DEPTHS) * n],
            "weights_equal_checkpoint": got["weights_equal"],
            "max_abs_err_vs_load_predict": err,
            "max_abs_diff_vs_seeded_weights": float(
@@ -2462,7 +2557,7 @@ def phase_serve_ckpt(smi: str, sup: dict):
     if err != 0.0 or any(m.shape != (IMG, IMG) for m in got["masks"]):
         raise AssertionError(f"served masks differ from SegFormerModel.load"
                              f"(...).predict by {err}")
-    if got["launches"] != (sum(B5_DEPTHS) * n, 0, 0):
+    if got["launches"] != (sum(B5_DEPTHS) * n, 0, sum(B5_DEPTHS) * n):
         raise AssertionError(f"serve_ckpt launches {got['launches']}")
     return row
 
@@ -2762,23 +2857,24 @@ def phase_fewshot_cli(smi: str):
     return row
 
 
-def _stage_sum(rows, b, key, only_bytes=False, shapes=STAGE_SHAPES):
-    """Sum of `key` over one pass of the B5 stages in bf16 at batch b
+def _stage_sum(rows, b, key, only_bytes=False, shapes=STAGE_SHAPES,
+               dtype="bfloat16"):
+    """Sum of `key` over one pass of the B5 stages in `dtype` at batch b
     (depth launches per stage shape, the stages' `shapes`); with
     `only_bytes`, over the stages whose bound is the bytes."""
     per = {(r["B"], r["Nq"], r["Nk"], r["C"], r["heads"]): r for r in rows
-           if r["dtype"] == "bfloat16"}
+           if r["dtype"] == dtype}
     return sum(d * per[(b,) + s][key] for d, s in zip(B5_DEPTHS, shapes)
                if not only_bytes or per[(b,) + s]["bound_by"] == "bytes")
 
 
-def _passes_sum(rows, passes, shapes=STAGE_SHAPES):
+def _passes_sum(rows, passes, shapes=STAGE_SHAPES, dtype="bfloat16"):
     """ms, plain_ms, bound_ms, library_ms summed over `passes` ((batch,
     count) of B5 stage passes at the stages' `shapes`), and what bounds
     the sum."""
 
     def total(key, only_bytes=False):
-        return sum(n * _stage_sum(rows, b, key, only_bytes, shapes)
+        return sum(n * _stage_sum(rows, b, key, only_bytes, shapes, dtype)
                    for b, n in passes)
 
     bound = total("bound_ms")
@@ -2789,10 +2885,11 @@ def _passes_sum(rows, passes, shapes=STAGE_SHAPES):
             "library_ms": total("library_ms")}
 
 
-def _kernel_entry(rows, passes, **fields):
-    """A `kernels` entry summed over `passes` of the B5 stage shapes."""
+def _kernel_entry(rows, passes, dtype="bfloat16", shapes=STAGE_SHAPES,
+                  **fields):
+    """A `kernels` entry summed over `passes` of the B5 stages' `shapes`."""
     return {**fields, "max_abs_err": max(r["max_abs_err"] for r in rows),
-            **_passes_sum(rows, passes), "ok": True}
+            **_passes_sum(rows, passes, shapes, dtype), "ok": True}
 
 
 def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
@@ -2800,28 +2897,33 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
             ts_cli, ae_step, ae_cli, serve_ckpt, fewshot_grad, fewshot_step,
             fewshot_cli):
     """The `kernels` line: each kernel's times, bound and plain/library
-    times summed over what its main path runs, with its launches there: K1's
-    tensor-core kernel (`sr_attention_fwd`) and K2 over one flagship EMA
-    step (bf16, the B5 stage shapes at the batches the step runs; launches
-    in the train phase's 4 timed steps), K1's scalar kernel
-    (`sr_attention_fwd_scalar`) over one serve batch-8 forward (launches in
-    the serve phase). `earlier_ms` is the scalar kernel's time over the same
-    step, timed in this run. `launches_by_path` counts every path's
-    launches: the EMA phases, the supervised step, the float32 transfer
-    gradients (the scalar K1 and K2 in float32), the bf16 transfer step,
-    and the supervised and transfer CLIs. `per_transfer_step` sums the
-    tensor-core K1 and K2 over one flagship transfer step (the Nk-266 shapes
-    at batch 16: 2 microbatches, each a forward and a recompute, and a
-    backward), `per_labeled_step` over one flagship `labeled_step` (both
-    models: 2 microbatches of 16 each, a forward and a recompute, and a
-    backward, per model). The gradient teacher-student phases (ts_step,
-    ts_cli) and the autoencoder phases (ae_step, ae_cli, the latter with
-    its transfer epoch) join `launches_by_path`, and so do the few-shot
-    phases (fewshot_grad's float32 scalar kernels, fewshot_step,
-    fewshot_cli) and serve_ckpt; `per_fewshot_ae_step` and
-    `per_fewshot_seg_step` sum each kernel over one few-shot step at batch
-    2 (the CLS shapes: 4 or 2 categories, each a forward and a recompute,
-    and a backward)."""
+    times summed over what its main path runs, with its launches there:
+    K1's wgmma kernel (`sr_attention_fwd`, every bf16 path) and K2 over one
+    flagship EMA step (bf16, the B5 stage shapes at the batches the step
+    runs; launches in the train phase's 4 timed steps), K1's scalar kernel
+    (`sr_attention_fwd_scalar`, the float32 paths) over one B5 float32
+    forward at batch 2 with a CLS token per stage, as fewshot_grad runs it
+    (launches in the float32 gradient phases). For the
+    wgmma kernel `earlier_ms` is the scalar kernel's time over the same step
+    on the same inputs in this run, and `per_serve_forward` its sums over
+    one serve batch-8 forward (`earlier_ms` there: the scalar kernel's, on
+    the same inputs); the scalar entry's `bf16_serve_forward` is its bf16
+    time per serve forward (the serve gate's `scalar` path).
+    `launches_by_path` counts every path's launches: the EMA phases, the
+    supervised step, the float32 transfer gradients (the scalar K1 and K2
+    in float32), the bf16 transfer step, serving, and the supervised and
+    transfer CLIs. `per_transfer_step` sums the wgmma K1 and K2 over one
+    flagship transfer step (the Nk-266 shapes at batch 16: 2 microbatches,
+    each a forward and a recompute, and a backward), `per_labeled_step`
+    over one flagship `labeled_step` (both models: 2 microbatches of 16
+    each, a forward and a recompute, and a backward, per model). The
+    gradient teacher-student phases (ts_step, ts_cli) and the autoencoder
+    phases (ae_step, ae_cli, the latter with its transfer epoch) join
+    `launches_by_path`, and so do the few-shot phases (fewshot_grad's
+    float32 scalar kernels, fewshot_step, fewshot_cli) and serve_ckpt;
+    `per_fewshot_ae_step` and `per_fewshot_seg_step` sum each kernel over
+    one few-shot step at batch 2 (the CLS shapes: 4 or 2 categories, each a
+    forward and a recompute, and a backward)."""
 
     def kernel_calls(i):
         return sum(c["launches_k1_k2_k1mma"][i]
@@ -2869,19 +2971,22 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
     src = "semisupervisedobjectdetection_torch/csrc/"
     tpu = "semisupervisedobjectdetection_tpu/ops/sr_attention.py"
     step = ((TEACHER_BATCH, ACCUM), (MICRO, 2 * ACCUM))
-    mma_rows = [r for r in k1_rows if r["design"] == "mma"]
+    wg_rows = [r for r in k1_rows if r["design"] == "wgmma"]
+    scalar_rows = [r for r in k1_rows if r["design"] == "scalar"]
     k1 = _kernel_entry(
-        mma_rows, step,
-        name="sr_attention_fwd", route="cuda", design="mma",
+        wg_rows, step,
+        name="sr_attention_fwd", route="cuda", design="wgmma",
         source=src + "sr_attention_fwd.cu", replaces=tpu + ":36",
         launches=train["launches_k1_mma"],
         per="one flagship EMA step: 2 x (teacher forward at batch 32 + "
             "student forward and recompute at batch 16), B5 512x512 bf16, "
             f"{K1_PER_STEP} launches",
         launches_per="4 timed EMA steps",
-        earlier_ms=sum(n * _stage_sum(mma_rows, b, "scalar_ms")
+        earlier_ms=sum(n * _stage_sum(wg_rows, b, "scalar_ms")
                        for b, n in step),
         earlier_design="scalar, on the same inputs in this run",
+        host_us_per_call=max(r["host_us_per_call"] for r in wg_rows),
+        tensor_maps_us=max(r["tensor_maps_us"] for r in wg_rows),
         launches_by_path={
             "train (4 timed EMA steps)": train["launches_k1_mma"],
             "train_mode (2 flagship train-mode EMA steps)":
@@ -2892,9 +2997,12 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
                     for m in ("eval_mode", "train_mode")),
             "transfer_step (2 kernel-path bf16 steps, Nk 266)":
                 transfer_step["runs"]["kernel"]["launches_k1_k2_k1mma"][2],
+            f"serve ({serve['batches']} batches)": serve["launches_mma"],
+            "serve_ckpt (4 batches from sup_cli's checkpoint)":
+                serve_ckpt["launches_k1_k2_k1mma"][2],
             sup_cli_path: sup_cli["launches_k1_k2_k1mma"][2],
             f"sup_cli --predict (1 eval batch of {n_ev})":
-                sup_cli["launches_predict"][0],
+                sup_cli["launches_predict"][2],
             transfer_cli_path: transfer_cli["launches_k1_k2_k1mma"][2],
             ts_step_path: kernel_calls(2),
             ts_cli_path: ts_cli["launches_k1_k2_k1mma"][2]
@@ -2904,28 +3012,33 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
             + ae_cli["launches_transfer"][2],
             few_step_path: few_step(2),
             few_cli_path: few_cli(2)},
-        per_transfer_step=_passes_sum(mma_rows, ((MICRO, 2 * ACCUM),),
+        per_serve_forward={
+            **_passes_sum(wg_rows, ((BATCH, 1),)),
+            "earlier_ms": _stage_sum(wg_rows, BATCH, "scalar_ms"),
+            "per": f"one serve forward: B5 512x512 bf16 at batch {BATCH}, "
+                   f"{sum(B5_DEPTHS)} launches"},
+        per_transfer_step=_passes_sum(wg_rows, ((MICRO, 2 * ACCUM),),
                                       TRANSFER_SHAPES),
-        per_labeled_step=_passes_sum(mma_rows, ((MICRO, 4 * ACCUM),)),
-        per_fewshot_ae_step=_passes_sum(mma_rows, ((FEW_BATCH, 8),),
+        per_labeled_step=_passes_sum(wg_rows, ((MICRO, 4 * ACCUM),)),
+        per_fewshot_ae_step=_passes_sum(wg_rows, ((FEW_BATCH, 8),),
                                         FEWSHOT_SHAPES),
-        per_fewshot_seg_step=_passes_sum(mma_rows, ((FEW_BATCH, 4),),
+        per_fewshot_seg_step=_passes_sum(wg_rows, ((FEW_BATCH, 4),),
                                          FEWSHOT_SHAPES))
+    f32_grad_path = "transfer_grad (B5 float32, Nk 266: forward and recompute)"
     k1_scalar = _kernel_entry(
-        [r for r in k1_rows if r["design"] == "scalar"], ((BATCH, 1),),
+        scalar_rows, ((FEW_BATCH, 1),), dtype="float32",
+        shapes=FEWSHOT_SHAPES,
         name="sr_attention_fwd_scalar", route="cuda", design="scalar",
         source=src + "sr_attention_fwd.cu", replaces=tpu + ":36",
-        launches=serve["launches"],
-        per=f"one serve forward: B5 512x512 bf16 at batch {BATCH}, "
+        launches=transfer_grad["launches_k1_k2"][0] + few_grad(0),
+        per=f"one B5 512x512 float32 forward at batch {FEW_BATCH} with a "
+            f"CLS token per stage (Nk 257), as fewshot_grad runs it, "
             f"{sum(B5_DEPTHS)} launches",
-        launches_per=f"the serve phase ({serve['batches']} batches)",
+        launches_per="transfer_grad and fewshot_grad",
         launches_by_path={
-            "serve": serve["launches"],
-            "transfer_grad (B5 float32, Nk 266: forward and recompute)":
-                transfer_grad["launches_k1_k2"][0],
-            few_grad_path + ": forward and recompute": few_grad(0),
-            "serve_ckpt (4 batches from sup_cli's checkpoint)":
-                serve_ckpt["launches_k1_k2_k1mma"][0]})
+            f32_grad_path: transfer_grad["launches_k1_k2"][0],
+            few_grad_path + ": forward and recompute": few_grad(0)},
+        bf16_serve_forward=_passes_sum(scalar_rows, ((BATCH, 1),)))
     k2 = _kernel_entry(
         k2_rows, ((MICRO, ACCUM),),
         name="sr_attention_bwd", route="cuda", design="mma",

@@ -14,9 +14,10 @@ trainable mask); it serves from a copy of the model:
   name and shape match (new tokens come from the seeded init, as in the
   JAX package);
 - serving: `predict` runs a bfloat16 (or float32) copy of the state's model
-  whose dense and conv weights are cast once, with SR-attention's scalar
-  forward kernel pinned (its bf16 outputs equal the plain path's bit for
-  bit, which the serve gate needs; PERF.md). The copy is built at the first
+  whose dense and conv weights are cast once; in bfloat16 SR-attention runs
+  the Hopper (wgmma) forward kernel, as training does, and chip_smoke's
+  serve gate holds its masks to the float32 model (PERF.md); float32
+  serving runs the scalar kernel. The copy is built at the first
   `predict` after the weights changed, so serving casts no weight per
   forward, and a model that only serves holds no Adam moments;
 - checkpoints: `save`, `load` (a warm start, or the full state with
@@ -79,6 +80,7 @@ from semisupervisedobjectdetection_torch.models.segformer import (
     EfficientSelfAttention,
     SegFormer,
     cast_to_compute_dtype,
+    compute_dtype,
     forward_logits,
     forward_masks,
     init_weights,
@@ -233,21 +235,22 @@ class SegFormerModel:
     @property
     def model(self) -> SegFormer:
         """The serving copy of the float32 model: dense and conv weights in
-        the compute dtype, the scalar SR-attention forward pinned. Built
-        when first asked for after the weights changed."""
+        the compute dtype; SR-attention's Hopper forward in bfloat16, the
+        scalar one in float32. Built when first asked for after the
+        weights changed."""
         if self._served is None:
             # ordinary tensors, whether `predict`'s inference mode is on
             with torch.inference_mode(False), torch.no_grad():
                 served = cast_to_compute_dtype(
                     copy.deepcopy(self._net)).eval()
-            # Served masks are held to the plain attention path's: the
-            # scalar bfloat16 SR-attention forward gives its bits, the
-            # tensor-core one (the training default) differs by an ulp in
-            # ~0.07% of outputs, which flipped 0.8% of a random-weight
-            # MiT-B5's pixels (PERF.md).
+            # bfloat16 serving takes the Hopper forward, whose masks are
+            # no further from the float32 model's than the plain bf16
+            # path's (chip_smoke's serve gate, PERF.md); the flag reads
+            # true only where that kernel runs.
+            bf16 = compute_dtype(served.cfg) == torch.bfloat16
             for layer in served.modules():
                 if isinstance(layer, EfficientSelfAttention):
-                    layer.attn_fwd_mma = False
+                    layer.attn_fwd_mma = bf16
             served.requires_grad_(False)
             self._served = served
         return self._served

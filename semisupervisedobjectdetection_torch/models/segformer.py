@@ -242,8 +242,8 @@ class EfficientSelfAttention(nn.Module):
         self.num_heads = num_heads
         self.sr_ratio = sr_ratio
         self.attn_impl = attn_impl
-        # The bfloat16 forward on the tensor cores (`sr_attention(...,
-        # mma=True)`); serving turns it off (`api.SegFormerModel`).
+        # The bfloat16 forward on wgmma (`sr_attention(..., mma=True)`);
+        # `api.SegFormerModel`'s float32 serving copy turns it off.
         self.attn_fwd_mma = True
         self.query = Linear(hidden, hidden)
         self.key = Linear(hidden, hidden)

@@ -27,9 +27,12 @@ _BWD_SOURCE = "sr_attention_bwd.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64)
 # The most keys either kernel takes (`kMaxSlots * 32` in both sources): one
-# (batch, head)'s K and V sit on chip and each lane holds 9 key columns of
-# the score row. Larger Nk needs a loop over K/V blocks (ROADMAP.md Queue 2).
+# (batch, head)'s K and V sit on chip and the score row of a query tile sits
+# in registers (the bf16 forward's 64-row tile: 18 tiles of 16 keys). Larger
+# Nk needs a loop over K/V blocks (ROADMAP.md Queue 2).
 MAX_NK = 288
+# Query rows per block of the scalar kernels (the bf16 forward walks 64-row
+# tiles over a persistent grid and takes no block size).
 BLOCK_Q = 128
 # The backward's key pass in float32 (scalar kernel): blocks of 32 keys per
 # (batch, head), query rows in tiles of 32; its rows are split so that about
@@ -111,6 +114,11 @@ def _lib() -> ctypes.CDLL:
     lib.sr_attention_fwd_smem_bytes.restype = ctypes.c_size_t
     lib.sr_attention_fwd_max_nk.argtypes = []
     lib.sr_attention_fwd_max_nk.restype = ctypes.c_int
+    lib.sr_attention_fwd_wgmma_ctas_per_sm.argtypes = [ctypes.c_int] * 2
+    lib.sr_attention_fwd_wgmma_ctas_per_sm.restype = ctypes.c_int
+    lib.sr_attention_fwd_map_ns.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6)
+    lib.sr_attention_fwd_map_ns.restype = ctypes.c_double
     lib.sr_attention_fwd_error_string.argtypes = [ctypes.c_int]
     lib.sr_attention_fwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -228,9 +236,9 @@ def _device_of(q: torch.Tensor) -> str:
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              num_heads: int, mma: bool) -> torch.Tensor:
     """The forward: the plain version on a CPU tensor, else one launch of
-    `csrc/sr_attention_fwd.cu`, its tensor-core kernel for bfloat16 with
-    `mma` (counted in `sr_attention.launches`, and the tensor-core ones
-    also in `sr_attention.mma_launches`)."""
+    `csrc/sr_attention_fwd.cu`, its wgmma + TMA kernel for bfloat16 with
+    `mma` (counted in `sr_attention.launches`, and the wgmma ones also in
+    `sr_attention.mma_launches`)."""
     if _device_of(q) == "cpu":
         return sr_attention_reference(q, k, v, num_heads)
     b, nq, c = q.shape
@@ -351,22 +359,26 @@ def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bfloat16, head width 32 or 64, Nk up to 288) or raises; on a CPU tensor
     it computes the plain version. Its gradient is `sr_attention_bwd`.
 
-    bfloat16 has two kernels: by default the tensor-core one, whose sums
-    run in the tensor cores' order, so that about 0.07% of its outputs
-    differ from the plain version's by an ulp or two; with `mma=False` the
-    scalar one, whose results equal the plain version's bit for bit (what
-    serving runs). float32 always runs the scalar kernel.
+    bfloat16 has two kernels: by default (`mma=True`) the Hopper one, on
+    wgmma with K, V and the query tiles brought in by TMA, whose sums run in
+    the tensor cores' order, so that a small share of its outputs differ
+    from the plain version's by an ulp or two; with `mma=False` the scalar
+    one, whose results equal the plain version's bit for bit. Every bf16
+    path of the package, serving included, takes the Hopper kernel. float32
+    always runs the scalar kernel.
 
     What bounds it on the H100: the function moves 2*B*(Nq+Nk)*C elements
-    and does 4*B*Nq*Nk*C flops, which at MiT-B5 512x512 puts it under the
-    bytes line on the bf16 tensor cores. The kernel keeps the whole score
-    row on chip (K and V of one (batch, head) in shared memory, the row in
-    registers), so only q, k, v and the output cross device memory. The
-    tensor-core kernel does the products with mma.sync; the scalar one as
-    float32 FMAs, which then bound it (see PERF.md).
+    and does 4*B*Nq*Nk*C flops, ~250 flops a byte at Nk 256 and head width
+    64 against the card's ~295 for bf16, so at MiT-B5 512x512 it sits just
+    under the bytes line. The kernel keeps the whole score row on chip (K
+    and V of one (batch, head) in shared memory for many 64-row query tiles,
+    the row in registers), so only q, k, v and the output cross device
+    memory; its products run on wgmma and the query tiles stream in by TMA
+    while the products run. The scalar kernel does its products as float32
+    FMAs, which then bound it (see PERF.md).
 
     `sr_attention.launches` counts forward kernel launches (not CPU calls),
-    `sr_attention.mma_launches` those of the tensor-core kernel.
+    `sr_attention.mma_launches` those of the wgmma kernel.
     """
     _check(q, k, v, num_heads)
     return SRAttention.apply(q, k, v, num_heads, mma)

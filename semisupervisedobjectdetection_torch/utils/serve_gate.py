@@ -1,6 +1,6 @@
 """How far MiT-B5's bfloat16 serving paths are from the plain attention path
-and from float32: the readings behind serving's choice of the scalar
-SR-attention forward.
+and from float32: the readings behind serving's SR-attention forward and
+chip_smoke's serve gate.
 
     python -m semisupervisedobjectdetection_torch.utils.serve_gate \
         [--variant b5] [--img-size 512] [--images 16] [--seed 0] \
@@ -9,18 +9,19 @@ SR-attention forward.
 The same seeded weights and seeded uint8 images (scaled to [0, 1]) go
 through `SegFormerModel.predict` in batches of 8 on four paths:
 
-- `served`: bfloat16 with the scalar SR-attention forward, what
-  `SegFormerModel` serves;
-- `mma`: bfloat16 with the tensor-core forward (the training default);
-- `plain`: bfloat16 with the plain attention, which chip_smoke's serve gate
-  holds served masks to (at most 0.1% of pixels may flip);
+- `served`: what `SegFormerModel` serves in bfloat16 (the Hopper wgmma
+  SR-attention forward);
+- `scalar`: bfloat16 with the scalar forward (`mma=False`), whose attention
+  outputs equal the plain version's bit for bit;
+- `plain`: bfloat16 with the plain attention;
 - `float32`: the plain attention in float32, TF32 off.
 
 Prints one JSON line: for each bfloat16 path, the share of pixels whose
 0.5-thresholded mask differs from the plain path's and from float32's, the
 largest |probability difference| from the plain path, the mean one from
 float32, and quantiles of |p - 0.5| over the float32 masks, with the card's
-name and power limit.
+name and power limit. chip_smoke's serve phase holds the served path to
+the float32 model by these readings.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from __future__ import annotations
 import argparse
 import json
 import subprocess
+from typing import Dict
 
 import numpy as np
 import torch
@@ -46,13 +48,16 @@ BATCH = 8
 QUANTILES = (0.001, 0.01, 0.1, 0.5)
 
 
-def _masks(cfg: MiTConfig, x: np.ndarray, seed: int, device: torch.device,
-           mma: bool = False) -> np.ndarray:
+def masks(cfg: MiTConfig, x: np.ndarray, seed: int, device: torch.device,
+          scalar: bool = False) -> np.ndarray:
+    """`SegFormerModel(config=cfg, seed=seed).predict` of `x` in batches of
+    8; with `scalar`, its bfloat16 serving copy runs the scalar
+    SR-attention forward."""
     model = SegFormerModel(config=cfg, seed=seed, device=device)
-    if mma:
+    if scalar:
         for layer in model.model.modules():
             if isinstance(layer, EfficientSelfAttention):
-                layer.attn_fwd_mma = True
+                layer.attn_fwd_mma = False
     out = np.concatenate([model.predict(x[i:i + BATCH])
                           for i in range(0, len(x), BATCH)])
     del model
@@ -65,17 +70,10 @@ def _flips(a: np.ndarray, b: np.ndarray) -> float:
     return float(((a >= 0.5) != (b >= 0.5)).mean())
 
 
-def compare(cfg: MiTConfig, x: np.ndarray, seed: int = 0,
-            device: torch.device = torch.device("cuda")) -> dict:
-    """The readings above for `cfg`'s widths and weights from `seed` on the
-    float32 NHWC images `x`."""
-    bf16 = cfg.replace(dtype="bfloat16", attn_impl="kernel")
-    paths = {"served": _masks(bf16, x, seed, device),
-             "mma": _masks(bf16, x, seed, device, mma=True),
-             "plain": _masks(bf16.replace(attn_impl="plain"), x, seed,
-                             device)}
-    f32 = _masks(cfg.replace(dtype="float32", attn_impl="plain"), x, seed,
-                 device)
+def readings(paths: Dict[str, np.ndarray], f32: np.ndarray) -> dict:
+    """The readings of the module docstring for the bfloat16 masks `paths`
+    (one of them "plain") against the plain path's and the float32 masks
+    `f32`."""
     plain = paths["plain"]
     return {
         "mask_flip_vs_plain": {n: _flips(a, plain) for n, a in paths.items()
@@ -89,6 +87,20 @@ def compare(cfg: MiTConfig, x: np.ndarray, seed: int = 0,
             map(str, QUANTILES),
             np.quantile(np.abs(f32 - 0.5), QUANTILES).tolist())),
     }
+
+
+def compare(cfg: MiTConfig, x: np.ndarray, seed: int = 0,
+            device: torch.device = torch.device("cuda")) -> dict:
+    """The readings above for `cfg`'s widths and weights from `seed` on the
+    float32 NHWC images `x`."""
+    bf16 = cfg.replace(dtype="bfloat16", attn_impl="kernel")
+    paths = {"served": masks(bf16, x, seed, device),
+             "scalar": masks(bf16, x, seed, device, scalar=True),
+             "plain": masks(bf16.replace(attn_impl="plain"), x, seed,
+                            device)}
+    f32 = masks(cfg.replace(dtype="float32", attn_impl="plain"), x, seed,
+                device)
+    return readings(paths, f32)
 
 
 def _smi() -> str:

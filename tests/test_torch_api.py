@@ -143,16 +143,20 @@ def test_predict_with_target_equals_eval(loss):
 
 def test_serving_copy_follows_training():
     """The serving copy is rebuilt after a step and after a load, so
-    `predict` serves the trained weights; it pins the scalar forward and
-    records no gradients."""
+    `predict` serves the trained weights; it records no gradients, and
+    takes the Hopper forward in bfloat16 (the scalar one in float32)."""
     m = _model(seed=7)
     x, gt = _batch(4)
     first = m.predict(x)
     served = m.model
     assert m.model is served
     assert not any(p.requires_grad for p in served.parameters())
-    assert not any(getattr(layer, "attn_fwd_mma", False)
-                   for layer in served.modules())
+    bf16 = SegFormerModel(config=MiTConfig(**{**TINY, "dtype": "bfloat16"}),
+                          device="cpu", seed=7).model
+    for model, hopper in ((served, False), (bf16, True)):
+        flags = [layer.attn_fwd_mma for layer in model.modules()
+                 if hasattr(layer, "attn_fwd_mma")]
+        assert flags and all(f == hopper for f in flags)
     m.train_one_epoch(x, gt)
     assert m.model is not served
     assert not np.array_equal(m.predict(x), first)

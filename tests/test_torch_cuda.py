@@ -1,6 +1,7 @@
 """Card-only tests of the port's CUDA kernels: `sr_attention_fwd` (its
-scalar and tensor-core kernels) and `sr_attention_bwd` against their plain
-versions on the card (also at the few-shot step's shapes), gradients
+scalar kernel and its Hopper wgmma + TMA kernel, also at every main-path
+shape) and `sr_attention_bwd` against their plain versions on the card
+(also at the few-shot step's shapes), gradients
 through `sr_attention` on CUDA, the launch counts of a small EMA step, a
 train-mode gradient through the kernels, and the augmentation on the card
 against the CPU.
@@ -82,8 +83,8 @@ def test_kernel_matches_plain(cuda, dtype, b, nq, nk, c, h):
 @pytest.mark.parametrize("mma", [False, True])
 @pytest.mark.parametrize("b,nq,nk,c,h", SHAPES)
 def test_bf16_forward_kernels_match_plain(cuda, mma, b, nq, nk, c, h):
-    """Both bfloat16 forward kernels: the scalar one (serving's) and the
-    tensor-core one (the default)."""
+    """Both bfloat16 forward kernels: the scalar one (`mma=False`) and the
+    Hopper wgmma one (the default, every bf16 path's)."""
     q, k, v = _qkv(cuda, b, nq, nk, c, torch.bfloat16)
     before = sr_attention.launches, sr_attention.mma_launches
     out = sr_attention(q, k, v, h, mma=mma)
@@ -115,6 +116,58 @@ def test_mma_kernels_at_edge_shapes(cuda, b, nq, nk, c, h):
         assert a.dtype == dtype and a.shape == x.shape
         assert torch.equal(a, a2)
         assert _rel_err(a, r) <= BWD_TOL[dtype]
+
+
+# The Hopper forward's main-path shapes (B, Nq, Nk, C, heads): MiT-B5's four
+# stages at 512x512 at the serving, student and teacher batches; a 10-token
+# prompt prefix (stage 1, Nq 16394 / Nk 266) and a CLS token (stage 3, Nq
+# 1025 / Nk 257); Nk at its 288 cap; MiT-B0's head width 32; query counts
+# that are not a multiple of the 64-row tile; the few-shot batch of 2.
+B5_STAGES = [(16384, 256, 64, 1), (4096, 256, 128, 2), (1024, 256, 320, 5),
+             (256, 256, 512, 8)]
+HOPPER_SHAPES = [(b,) + s for b in (8, 16, 32) for s in B5_STAGES] + [
+    (8, 16394, 266, 64, 1),
+    (8, 1025, 257, 320, 5),
+    (4, 1000, 288, 128, 2),
+    (8, 4096, 256, 32, 1),       # B0 stage 1
+    (8, 1024, 256, 64, 2),       # B0 stage 2
+    (3, 4097, 200, 256, 8),      # d 32, ragged Nq, Nk under 256
+    (2, 16385, 257, 64, 1),      # few-shot stage 1
+    (2, 257, 257, 512, 8),       # few-shot stage 4
+]
+
+
+@pytest.mark.parametrize("b,nq,nk,c,h", HOPPER_SHAPES)
+def test_hopper_forward_at_main_path_shapes(cuda, b, nq, nk, c, h):
+    """The wgmma forward against the plain version at KERNEL_TOL bf16,
+    bit-identical on a rerun, one launch of it per call."""
+    q, k, v = _qkv(cuda, b, nq, nk, c, torch.bfloat16)
+    before = sr_attention.launches, sr_attention.mma_launches
+    out = sr_attention(q, k, v, h)
+    again = sr_attention(q, k, v, h)
+    torch.cuda.synchronize()
+    assert (sr_attention.launches, sr_attention.mma_launches) == (
+        before[0] + 2, before[1] + 2)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert torch.equal(out, again)
+    ref = sr_attention_reference(q, k, v, h)
+    assert (out.float() - ref.float()).abs().max().item() <= \
+        TOL[torch.bfloat16]
+
+
+def test_hopper_forward_refuses_what_it_cannot_run(cuda):
+    """Nk 289 (one key past the cap) and a non-contiguous input raise
+    before any launch."""
+    before = sr_attention.launches, sr_attention.mma_launches
+    q, k, v = _qkv(cuda, 1, 64, 289, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="shared memory"):
+        sr_attention(q, k, v, 1)
+    q, k, v = _qkv(cuda, 1, 64, 96, 128, torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        sr_attention(q[..., :64], k[..., :64], v[..., :64], 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        sr_attention(torch.cat([q, q], 1)[:, ::2], k, v, 2)
+    assert (sr_attention.launches, sr_attention.mma_launches) == before
 
 
 def test_kernel_rejects_what_it_cannot_run(cuda):

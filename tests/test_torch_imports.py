@@ -1,6 +1,7 @@
 """The port stands alone: no module of `semisupervisedobjectdetection_torch`
-nor `chip_smoke.py` imports JAX, Flax, transformers or the JAX package, and
-the entry points do not fall back to the CPU when no card is present."""
+nor `chip_smoke.py` nor `scripts/k1_design_ab.py` imports JAX, Flax,
+transformers or the JAX package, and the entry points do not fall back to
+the CPU when no card is present."""
 
 import os
 import pkgutil
@@ -115,3 +116,33 @@ def test_default_entry_point_needs_a_card(monkeypatch):
     # asking for the CPU is the one way to run without a card
     assert SegFormerModel(config=mit_b0(depths=(1, 1, 1, 1)),
                           device="cpu").device.type == "cpu"
+
+
+def test_k1_design_ab_sums_and_imports():
+    """`scripts/k1_design_ab.py` imports no JAX, sums the 312 launches of a
+    flagship EMA step (bound 3.623 ms) and the 52 of a serve forward (bound
+    0.2265 ms), and without a card exits 2 before it builds anything."""
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, 'scripts')\n"
+        "import k1_design_ab as ab\n"
+        "rows = [{'B': b, 'shape': list(s), 'x': {'k': 1.0}}\n"
+        "        for b in (32, 16, 8) for s in ab.STAGE_SHAPES]\n"
+        "print(ab._sum(rows, ab.EMA_STEP, 'x', 'k'),\n"
+        "      ab._sum(rows, ab.SERVE_FORWARD, 'x', 'k'),\n"
+        "      round(ab._bound_sum(ab.EMA_STEP), 3),\n"
+        "      round(ab._bound_sum(ab.SERVE_FORWARD), 4))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.split() == ["312.0", "52.0", "3.623", "0.2265"]
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run(
+        [sys.executable, "scripts/k1_design_ab.py", "--other",
+         "no_such_source.cu"], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 2, proc.stdout + proc.stderr

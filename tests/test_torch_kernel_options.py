@@ -1,7 +1,8 @@
 """The kernels' build and options, on the CPU: the library digest of
 `ops/_build.py` follows the headers a source includes; the forward's kernel
 choice (`sr_attention(..., mma=)`) leaves the CPU path the plain version;
-a model takes the tensor-core forward and the serving model the scalar one;
+a model takes the Hopper (wgmma) forward, and so does the bfloat16 serving
+model, while the float32 one takes the scalar forward;
 `utils/serve_gate.py` reads the serving paths on the CPU.
 No JAX: these run in well under a second each."""
 
@@ -70,22 +71,24 @@ def _attention_layers(model):
 
 def test_model_takes_the_tensor_core_forward():
     """The training step builds `SegFormer` from its config: every
-    attention layer takes the tensor-core bfloat16 forward."""
+    attention layer takes the Hopper (wgmma) bfloat16 forward."""
     layers = _attention_layers(SegFormer(bench.quick_config()))
     assert len(layers) == 4
     assert all(m.attn_impl == "kernel" and m.attn_fwd_mma for m in layers)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_serving_model_pins_the_scalar_forward(dtype):
-    """Served masks are held to the plain path bit for bit, so
-    `SegFormerModel` runs the scalar forward in every attention layer."""
+def test_serving_model_takes_the_hopper_forward_in_bf16(dtype):
+    """bfloat16 serving runs the Hopper forward in every attention layer,
+    held to the float32 model by chip_smoke's serve gate; float32 serving
+    keeps the scalar forward (the flag reads true only where the Hopper
+    kernel runs)."""
     cfg = MiTConfig(depths=(1, 2, 1, 1), hidden_sizes=(8, 16, 32, 64),
                     num_heads=(1, 2, 4, 8), decoder_hidden=16, dtype=dtype)
     layers = _attention_layers(SegFormerModel(config=cfg,
                                               device="cpu").model)
     assert len(layers) == 5
-    assert not any(m.attn_fwd_mma for m in layers)
+    assert [m.attn_fwd_mma for m in layers] == [dtype == "bfloat16"] * 5
 
 
 def test_serve_gate_readings_on_cpu():
@@ -97,10 +100,10 @@ def test_serve_gate_readings_on_cpu():
     x = np.random.default_rng(0).uniform(size=(2, 64, 64, 3)).astype(
         np.float32)
     out = serve_gate.compare(cfg, x, device=torch.device("cpu"))
-    assert out["mask_flip_vs_plain"] == {"served": 0.0, "mma": 0.0}
-    assert out["max_abs_err_vs_plain"] == {"served": 0.0, "mma": 0.0}
+    assert out["mask_flip_vs_plain"] == {"served": 0.0, "scalar": 0.0}
+    assert out["max_abs_err_vs_plain"] == {"served": 0.0, "scalar": 0.0}
     for key in ("mask_flip_vs_float32", "mean_abs_err_vs_float32"):
-        assert set(out[key]) == {"served", "mma", "plain"}
+        assert set(out[key]) == {"served", "scalar", "plain"}
         assert all(0.0 <= v <= 1.0 for v in out[key].values())
     assert list(out["float32_abs_minus_half_quantiles"]) == [
         "0.001", "0.01", "0.1", "0.5"]
