@@ -11,10 +11,10 @@ non-zero before the final line:
                 for every kernel instantiation its registers, stack and
                 spills (from `-Xptxas -v`) and its count of tensor-core
                 instructions (HMMA, HGMMA) in the SASS of the built library
-                (`cuobjdump --dump-sass`), ptxas's warnings, and the wgmma
-                kernel's shared memory and CTAs per SM. K1's wgmma kernels
-                must show HGMMA, K2's bf16 kernels HMMA, and neither a stack
-                frame or spills.
+                (`cuobjdump --dump-sass`), ptxas's warnings, the wgmma
+                kernels' shared memory and K1's CTAs per SM. K1's and K2's
+                wgmma kernels (four instantiations each) must show HGMMA and
+                no HMMA, and neither a stack frame or spills.
 3. kernel     - `sr_attention_fwd` (K1) against its plain PyTorch version:
                 the wgmma kernel (bfloat16, the default, every bf16 path's)
                 at the four MiT-B5 512x512 stage shapes at batch 8
@@ -40,10 +40,13 @@ non-zero before the final line:
                 shapes (Nk 266) in bfloat16, and at the four few-shot
                 shapes (a CLS query row and key per stage) at batch 2 in
                 both types: max error against a stated tolerance,
-                bit-equality of two launches, the key pass's split count,
-                and the times of the kernel, the plain version and the
-                autograd backward of `F.scaled_dot_product_attention`,
-                beside the bound.
+                bit-equality of two launches, the kernels one call launched
+                (bf16: the wgmma kernel, and the split sum where its grid
+                splits a (batch, head); checked against its launch plan),
+                the grid (bf16) or the key pass's split count (f32), the
+                host microseconds of a bf16 call, and the times of the
+                kernel, the plain version and the autograd backward of
+                `F.scaled_dot_product_attention`, beside the bound.
 5. model      - MiT-B5 at 512x512 in float32, TF32 off: the kernel path and
                 the plain path agree on a batch of two images.
 6. serve      - the port's InferenceServer (MiT-B5, 512x512, bfloat16,
@@ -602,7 +605,6 @@ def phase_build():
     for source in (_SOURCE, _BWD_SOURCE):
         info = _build.BUILD_INFO[source]
         # ptxas reports static shared memory only; the kernels' is dynamic
-        # (the backward's row pass)
         extra = {}
         if source == _SOURCE:
             smem = {f"nk{nk}_d64_{name}":
@@ -618,7 +620,7 @@ def phase_build():
         else:
             smem = {f"nk{nk}_d64_{name}":
                     bwd.sr_attention_bwd_smem_bytes(nk, 64, elem)
-                    for nk in (256, 266) for name, elem in (("bf16_mma", 2),
+                    for nk in (256, 266) for name, elem in (("bf16_wgmma", 2),
                                                             ("f32", 4))}
         emit({"phase": "build", "source": source,
               "seconds": round(seconds, 3),
@@ -632,27 +634,26 @@ def phase_build():
         sass = _sass_tensor_ops(info["path"])
         names = _demangle(sorted(sass))
         for sym in sorted(sass):
-            design = ("wgmma" if "_wgmma_kernel" in sym else
-                      "mma" if "_mma_kernel" in sym else "scalar")
+            design = "wgmma" if "_wgmma_kernel" in sym else "scalar"
             row = {"phase": "build", "source": source, "kernel": names[sym],
                    "design": design,
                    "tensor_core_instructions": sass[sym],
                    **ptxas.get(sym, {})}
             emit(row)
             rows.append(row)
-    # K1's bf16 kernel on wgmma (HGMMA: four instantiations, d 32/64 by
-    # Nk <= 256/288), K2's on mma.sync (HMMA)
+    # K1's and K2's bf16 kernels on wgmma (HGMMA and no HMMA: four
+    # instantiations each, d 32/64 by Nk <= 256/288)
     wgmma = [r for r in rows if r["design"] == "wgmma"]
-    mma = [r for r in rows if r["design"] == "mma"]
-    if len(wgmma) < 4 or any(r["tensor_core_instructions"]["HGMMA"] == 0
-                             for r in wgmma):
-        raise AssertionError(f"K1's wgmma kernels without HGMMA: {wgmma}")
-    if len(mma) < 2 or any(r["tensor_core_instructions"]["HMMA"] == 0
-                           for r in mma):
-        raise AssertionError(f"K2's bfloat16 kernels without HMMA: {mma}")
+    for source in (_SOURCE, _BWD_SOURCE):
+        mine = [r for r in wgmma if r["source"] == source]
+        if len(mine) != 4 or any(
+                r["tensor_core_instructions"]["HGMMA"] == 0
+                or r["tensor_core_instructions"]["HMMA"] for r in mine):
+            raise AssertionError(f"{source}: wgmma kernels without HGMMA "
+                                 f"or with HMMA: {mine}")
     # their tiles live in registers: a stack frame or spills would put
     # them in local memory
-    local = [r for r in wgmma + mma if r.get("stack_bytes", 1)
+    local = [r for r in wgmma if r.get("stack_bytes", 1)
              or r.get("spill_store_bytes", 1)]
     if local:
         raise AssertionError(f"tensor-core kernels with local memory: "
@@ -760,9 +761,14 @@ def phase_kernel_bwd():
     import torch.nn.functional as F
 
     from semisupervisedobjectdetection_torch.ops.sr_attention import (
+        _sm_count,
         bwd_key_splits,
+        bwd_launch_plan,
         sr_attention_backward_reference,
         sr_attention_bwd,
+    )
+    from semisupervisedobjectdetection_torch.utils.profile_forward import (
+        kernels_launched,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -800,6 +806,31 @@ def phase_kernel_bwd():
             del f64
         same = all(torch.equal(a, a2) for a, a2 in zip(got, again))
         finite = all(bool(torch.isfinite(a).all().item()) for a in got)
+        # the kernels one call ran on the card, as the profiler saw them,
+        # against those its design launches: the wgmma kernel (and the
+        # split sum where the plan splits a (batch, head)) and nothing of
+        # an earlier design, or the scalar passes (and their split sum);
+        # their number against the count the C launcher reported
+        _, kernels = kernels_launched(
+            lambda: sr_attention_bwd(q, k, v, g, h), "sr_attention_bwd")
+        if dtype_name == "bfloat16":
+            plan = bwd_launch_plan(b, nq, nk, c, h, _sm_count(0))
+            want = list(plan["kernels"])
+            design = {"design": "wgmma", "grid": plan["grid"],
+                      "split": plan["split"],
+                      "host_us_per_call": host_us(
+                          lambda: sr_attention_bwd(q, k, v, g, h))}
+        else:
+            splits = bwd_key_splits(b, nq, nk, h)
+            want = ["sr_attention_bwd_rows_kernel",
+                    "sr_attention_bwd_keys_kernel"] + (
+                ["sr_attention_bwd_sum_kernel"] if splits > 1 else [])
+            design = {"design": "scalar", "key_pass_splits": splits}
+        if kernels != want or sr_attention_bwd.last_launches != len(want):
+            raise AssertionError(
+                f"{dtype_name} K2 ran {kernels} on the card and its launcher "
+                f"counted {sr_attention_bwd.last_launches}; its design "
+                f"launches {want}")
         del got, again, ref
         # the yardstick: the autograd backward of SDPA on the same
         # q, k, v, g (flash/efficient kernels; the port never calls it)
@@ -810,9 +841,8 @@ def phase_kernel_bwd():
         bound, by = attention_bwd_bound(b, nq, nk, c, dtype_name)
         row = {"phase": "kernel_bwd", "name": "sr_attention_bwd",
                "B": b, "Nq": nq, "Nk": nk, "C": c, "heads": h,
-               "dtype": dtype_name,
-               "design": "mma" if dtype_name == "bfloat16" else "scalar",
-               "key_pass_splits": bwd_key_splits(b, nq, nk, h, dtype),
+               "dtype": dtype_name, **design, "kernels": kernels,
+               "launches_per_call": len(kernels),
                "max_abs_err": max(errs),
                "max_abs_err_dq_dk_dv": errs, "ref_max_dq_dk_dv": scales,
                "rel_err": rel, "tol_rel": KERNEL_BWD_TOL[dtype_name],
@@ -2903,9 +2933,16 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
     runs; launches in the train phase's 4 timed steps), K1's scalar kernel
     (`sr_attention_fwd_scalar`, the float32 paths) over one B5 float32
     forward at batch 2 with a CLS token per stage, as fewshot_grad runs it
-    (launches in the float32 gradient phases). For the
-    wgmma kernel `earlier_ms` is the scalar kernel's time over the same step
-    on the same inputs in this run, and `per_serve_forward` its sums over
+    (launches in the float32 gradient phases), and K2's scalar kernel
+    (`sr_attention_bwd_scalar`, the float32 paths) over one few-shot pair
+    loss's float32 backward at the same shapes (2 x 52 launches). K2's
+    wgmma entry gives the host microseconds of one call, its launches per
+    call (1, or 2 with the split sum, as the profiler saw them run); the
+    `mma.sync` design it replaced no longer builds from this checkout, so
+    its time is not in this line (`scripts/k1_design_ab.py --bwd` times it
+    against a build of the earlier source). For K1's wgmma kernel
+    `earlier_ms` is the scalar kernel's time over the same step on the
+    same inputs in this run, and `per_serve_forward` its sums over
     one serve batch-8 forward (`earlier_ms` there: the scalar kernel's, on
     the same inputs); the scalar entry's `bf16_serve_forward` is its bf16
     time per serve forward (the serve gate's `scalar` path).
@@ -3039,12 +3076,16 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
             f32_grad_path: transfer_grad["launches_k1_k2"][0],
             few_grad_path + ": forward and recompute": few_grad(0)},
         bf16_serve_forward=_passes_sum(scalar_rows, ((BATCH, 1),)))
+    k2_bf16 = [r for r in k2_rows if r["dtype"] == "bfloat16"]
+    k2_f32 = [r for r in k2_rows if r["dtype"] == "float32"]
     k2 = _kernel_entry(
-        k2_rows, ((MICRO, ACCUM),),
-        name="sr_attention_bwd", route="cuda", design="mma",
+        k2_bf16, ((MICRO, ACCUM),),
+        name="sr_attention_bwd", route="cuda", design="wgmma",
         source=src + "sr_attention_bwd.cu", replaces=tpu + ":115",
         launches=train["launches_k2"],
-        max_rel_err=max(r["rel_err"] for r in k2_rows),
+        max_rel_err=max(r["rel_err"] for r in k2_bf16),
+        host_us_per_call=max(r["host_us_per_call"] for r in k2_bf16),
+        launches_per_call=sorted({r["launches_per_call"] for r in k2_bf16}),
         per="one flagship EMA step: 2 x the student backward at batch 16, "
             f"B5 512x512 bf16, {K2_PER_STEP} launches",
         launches_per="4 timed EMA steps",
@@ -3056,8 +3097,6 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
             "supervised (2 kernel-path steps in eval and 2 in train mode)":
                 sum(sup["runs"][f"{m}/kernel"]["launches_k1_k2_k1mma"][1]
                     for m in ("eval_mode", "train_mode")),
-            "transfer_grad (B5 float32, Nk 266)":
-                transfer_grad["launches_k1_k2"][1],
             "transfer_step (2 kernel-path bf16 steps, Nk 266)":
                 transfer_step["runs"]["kernel"]["launches_k1_k2_k1mma"][1],
             sup_cli_path: sup_cli["launches_k1_k2_k1mma"][1],
@@ -3068,21 +3107,34 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
             ae_step_path: ae(1),
             ae_cli_path: ae_cli["launches_k1_k2_k1mma"][1]
             + ae_cli["launches_transfer"][1],
-            few_grad_path: few_grad(1),
             few_step_path: few_step(1),
             few_cli_path: few_cli(1)},
-        per_transfer_step=_passes_sum(k2_rows, ((MICRO, ACCUM),),
+        per_transfer_step=_passes_sum(k2_bf16, ((MICRO, ACCUM),),
                                       TRANSFER_SHAPES),
-        per_labeled_step=_passes_sum(k2_rows, ((MICRO, 2 * ACCUM),)),
-        per_fewshot_ae_step=_passes_sum(k2_rows, ((FEW_BATCH, 4),),
+        per_labeled_step=_passes_sum(k2_bf16, ((MICRO, 2 * ACCUM),)),
+        per_fewshot_ae_step=_passes_sum(k2_bf16, ((FEW_BATCH, 4),),
                                         FEWSHOT_SHAPES),
-        per_fewshot_seg_step=_passes_sum(k2_rows, ((FEW_BATCH, 2),),
+        per_fewshot_seg_step=_passes_sum(k2_bf16, ((FEW_BATCH, 2),),
                                          FEWSHOT_SHAPES),
-        key_pass_splits_fewshot=[
-            r["key_pass_splits"] for s in FEWSHOT_SHAPES for r in k2_rows
-            if r["dtype"] == "bfloat16" and r["B"] == FEW_BATCH
+        grid_fewshot=[
+            r["grid"] for s in FEWSHOT_SHAPES for r in k2_bf16
+            if r["B"] == FEW_BATCH
             and (r["Nq"], r["Nk"], r["C"], r["heads"]) == s])
-    return [k1, k1_scalar, k2]
+    k2_scalar = _kernel_entry(
+        k2_f32, ((FEW_BATCH, 2),), dtype="float32", shapes=FEWSHOT_SHAPES,
+        name="sr_attention_bwd_scalar", route="cuda", design="scalar",
+        source=src + "sr_attention_bwd.cu", replaces=tpu + ":115",
+        launches=transfer_grad["launches_k1_k2"][1] + few_grad(1),
+        max_rel_err=max(r["rel_err"] for r in k2_f32),
+        per=f"one few-shot pair loss's backward in B5 512x512 float32 at "
+            f"batch {FEW_BATCH} with a CLS token per stage (Nk 257), as "
+            f"fewshot_grad runs it, {2 * sum(B5_DEPTHS)} launches",
+        launches_per="transfer_grad and fewshot_grad",
+        launches_by_path={
+            "transfer_grad (B5 float32, Nk 266)":
+                transfer_grad["launches_k1_k2"][1],
+            few_grad_path: few_grad(1)})
+    return [k1, k1_scalar, k2, k2_scalar]
 
 
 def main() -> int:

@@ -1,11 +1,15 @@
 """Time two builds of K1, the bf16 SR-attention forward
-(`semisupervisedobjectdetection_torch/csrc/sr_attention_fwd.cu`), on the
-same inputs with the same two clocks, on one CUDA card.
+(`semisupervisedobjectdetection_torch/csrc/sr_attention_fwd.cu`), and of K2,
+its backward (`csrc/sr_attention_bwd.cu`), on the same inputs with the same
+two clocks, on one CUDA card.
 
-    git show <commit>:semisupervisedobjectdetection_torch/csrc/sr_attention_fwd.cu \
-        > build/k1_ab/sr_attention_fwd.cu
+    for f in sr_attention_fwd.cu sr_attention_bwd.cu sr_attention_wgmma.cuh; do
+        git show <commit>:semisupervisedobjectdetection_torch/csrc/$f \
+            > build/k1_ab/$f; done
+    # (3c385da and earlier: sr_attention_mma.cuh, not sr_attention_wgmma.cuh)
     python3 scripts/k1_design_ab.py --other build/k1_ab/sr_attention_fwd.cu \
-        [--other-name mma.sync] [--out chiprun_out/k1_ab.jsonl]
+        [--bwd build/k1_ab/sr_attention_bwd.cu] [--other-name mma.sync] \
+        [--out chiprun_out/k1_ab.jsonl]
 
 `--other` is a forward source with the package's C interface
 (`sr_attention_fwd(q, k, v, out, b, nq, nk, c, heads, dtype, block_q, mma,
@@ -31,6 +35,19 @@ is held to the plain version at chip_smoke's `KERNEL_TOL`. Prints one JSON
 line per shape, then one with the sums per EMA step (312 launches) and per
 serve forward (52 launches) beside chip_smoke's bound, then the card's name
 and power limit. Exits 2 without a card, 1 if an output disagrees.
+
+With `--bwd`, a backward source is built the same way and timed against
+the package's `sr_attention_bwd` at the MiT-B5 stage shapes at the student
+batch (16), other, this, this, other, with the autograd backward of SDPA
+beside them. A source with the package's C interface (it exports
+`sr_attention_bwd_wgmma`, as K2 has since its wgmma design) is called
+through the package's own wrapper, like `--other`; a source of the
+`mma.sync` design before it (commit 3c385da and earlier: bf16 through
+`sr_attention_bwd(q, k, v, g, dq, dk, dv, stats, part, b, nq, nk, c, heads,
+dtype, block_q, splits, stream)`, the key pass over `parent_key_splits`
+splits of the query rows) as its own wrapper called it. Each design's
+(dq, dk, dv) is held to the plain version at chip_smoke's
+`KERNEL_BWD_TOL`; the sums are per flagship EMA step (104 launches).
 """
 
 from __future__ import annotations
@@ -51,21 +68,28 @@ from chip_smoke import (  # noqa: E402
     ACCUM,
     B5_DEPTHS,
     BATCH,
+    KERNEL_BWD_TOL,
     KERNEL_TOL,
     MICRO,
     SEED,
     STAGE_SHAPES,
     TEACHER_BATCH,
     _heads,
+    _rel_err,
     attention_bound,
+    attention_bwd_bound,
     cuda_ms,
     host_us,
 )
 
 # (batch, passes over the B5 stages) of one flagship EMA step and of one
-# serve forward.
+# serve forward; of K2 in one flagship EMA step (the student's backward of
+# each microbatch).
 EMA_STEP = ((TEACHER_BATCH, ACCUM), (MICRO, 2 * ACCUM))
 SERVE_FORWARD = ((BATCH, 1),)
+BWD_EMA_STEP = ((MICRO, ACCUM),)
+# The earlier bf16 K2's key pass: 64-key blocks, 64-row tiles, ~264 blocks.
+PARENT_KEYS, PARENT_TILE, PARENT_BLOCKS = 64, 64, 264
 
 
 def host_paced_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -87,7 +111,7 @@ def host_paced_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def build_other(src: Path) -> ctypes.CDLL:
+def _nvcc(src: Path) -> ctypes.CDLL:
     """`src` built with the package's nvcc flags beside itself, loaded."""
     from semisupervisedobjectdetection_torch.ops import _build
 
@@ -98,7 +122,65 @@ def build_other(src: Path) -> ctypes.CDLL:
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}"
                            f"{proc.stderr}")
-    lib = ctypes.CDLL(str(out))
+    return ctypes.CDLL(str(out))
+
+
+def build_other_bwd(src: Path) -> ctypes.CDLL:
+    """The backward `src`, built and loaded with its C signatures: the
+    package's, or those of the `mma.sync` design."""
+    from semisupervisedobjectdetection_torch.ops.sr_attention import (
+        declare_bwd,
+    )
+
+    lib = _nvcc(src)
+    if hasattr(lib, "sr_attention_bwd_wgmma"):
+        return declare_bwd(lib)
+    lib.sr_attention_bwd.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    lib.sr_attention_bwd.restype = ctypes.c_int
+    return lib
+
+
+def parent_key_splits(b: int, nq: int, nk: int, heads: int) -> int:
+    """The earlier bf16 K2's query-row splits of its key pass."""
+    blocks = -(-nk // PARENT_KEYS) * b * heads
+    want = -(-PARENT_BLOCKS // blocks)
+    rows = -(-(-(-nq // want)) // PARENT_TILE) * PARENT_TILE
+    return -(-nq // rows)
+
+
+def parent_bwd(lib, q, k, v, g, heads: int):
+    """(dq, dk, dv) by the `mma.sync` bf16 K2 `lib`, called as its wrapper
+    called it (row statistics and split partials in float32 workspaces)."""
+    import torch
+
+    from semisupervisedobjectdetection_torch.ops.sr_attention import (
+        BLOCK_Q,
+        _launch,
+    )
+
+    b, nq, c = q.shape
+    nk = k.shape[1]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    stats = torch.empty(b * heads * nq * 4, dtype=torch.float32,
+                        device=q.device)
+    splits = parent_key_splits(b, nq, nk, heads)
+    part = torch.empty(splits * 2 * k.numel() if splits > 1 else 0,
+                       dtype=torch.float32, device=q.device)
+    err = _launch(lib.sr_attention_bwd, q.device, q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr(), stats.data_ptr(),
+                  part.data_ptr() if splits > 1 else None, b, nq, nk, c,
+                  heads, 1, BLOCK_Q, splits)
+    if err:
+        raise RuntimeError(f"earlier sr_attention_bwd failed: {err}")
+    return dq, dk, dv
+
+
+def build_other(src: Path) -> ctypes.CDLL:
+    """The forward `src`, built and loaded with its C signatures."""
+    lib = _nvcc(src)
     lib.sr_attention_fwd.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.sr_attention_fwd.restype = ctypes.c_int
@@ -112,20 +194,22 @@ def build_other(src: Path) -> ctypes.CDLL:
 
 
 @contextlib.contextmanager
-def using(lib):
-    """`sr_attention` launches from `lib` inside the block (None: the
-    package's own build)."""
+def using(lib, bwd: bool = False):
+    """`sr_attention` (with `bwd`, `sr_attention_bwd`) launches from `lib`
+    inside the block (None: the package's own build)."""
     from semisupervisedobjectdetection_torch.ops import sr_attention as sra
 
-    own = sra._lib
+    name, limits = (("_bwd_lib", sra._bwd_limits) if bwd
+                    else ("_lib", sra._fwd_limits))
+    own = getattr(sra, name)
     if lib is not None:
-        sra._lib = lambda: lib
-    sra._fwd_limits.cache_clear()
+        setattr(sra, name, lambda: lib)
+    limits.cache_clear()
     try:
         yield
     finally:
-        sra._lib = own
-        sra._fwd_limits.cache_clear()
+        setattr(sra, name, own)
+        limits.cache_clear()
 
 
 def _sum(rows, passes, design, key):
@@ -134,30 +218,97 @@ def _sum(rows, passes, design, key):
                for d, s in zip(B5_DEPTHS, STAGE_SHAPES))
 
 
-def _bound_sum(passes):
-    return sum(n * d * attention_bound(b, *s[:3], "bfloat16")[0]
+def _bound_sum(passes, bound=attention_bound):
+    return sum(n * d * bound(b, *s[:3], "bfloat16")[0]
                for b, n in passes for d, s in zip(B5_DEPTHS, STAGE_SHAPES))
 
 
-def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--other", required=True, type=Path)
-    p.add_argument("--other-name", default="other")
-    p.add_argument("--out", type=Path, default=None)
-    args = p.parse_args(argv)
+def _bwd_rows(other, name: str):
+    """K2 at the stage shapes at the student batch: the build `other` and
+    the package's, other, this, this, other, and SDPA's autograd backward;
+    one row each."""
     import torch
     import torch.nn.functional as F
 
-    if not torch.cuda.is_available():
-        print("k1_design_ab: no CUDA device", file=sys.stderr)
-        return 2
+    from semisupervisedobjectdetection_torch.ops.sr_attention import (
+        sr_attention_backward_reference,
+        sr_attention_bwd,
+    )
+
+    current = hasattr(other, "sr_attention_bwd_wgmma")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    rows, bad = [], []
+    for nq, nk, c, h in STAGE_SHAPES:
+        b = MICRO
+        q, k, v, g = (torch.randn(b, n, c, device="cuda", generator=gen)
+                      .to(torch.bfloat16) for n in (nq, nk, nk, nq))
+        ref = sr_attention_backward_reference(q, k, v, g, h)
+        row = {"B": b, "shape": [nq, nk, c, h]}
+
+        def timed(fn, n):
+            err = _rel_err(fn(), ref)
+            return {"rel_err": err,
+                    "device_ms": [cuda_ms(fn, iters=10) for _ in range(n)],
+                    "host_paced_ms": [host_paced_ms(fn, iters=10)
+                                      for _ in range(n)],
+                    "host_us": host_us(fn, iters=20)}
+
+        def theirs():
+            if current:
+                return sr_attention_bwd(q, k, v, g, h)
+            return parent_bwd(other, q, k, v, g, h)
+
+        def ours():
+            return sr_attention_bwd(q, k, v, g, h)
+
+        with using(other if current else None, bwd=True):
+            first = timed(theirs, 1)
+        mine = timed(ours, 2)
+        with using(other if current else None, bwd=True):
+            last = timed(theirs, 1)
+        row[name] = {
+            "rel_err": max(first["rel_err"], last["rel_err"]),
+            "device_ms": first["device_ms"] + last["device_ms"],
+            "host_paced_ms": first["host_paced_ms"] + last["host_paced_ms"],
+            "host_us": [first["host_us"], last["host_us"]]}
+        row["this"] = mine
+        qs, ks, vs = (_heads(t, h).detach().requires_grad_()
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qs, ks, vs)
+        gs = _heads(g, h)
+
+        def sdpa():
+            return torch.autograd.grad(out, (qs, ks, vs), gs,
+                                       retain_graph=True)
+
+        row["sdpa"] = {"device_ms": [cuda_ms(sdpa, iters=10)],
+                       "host_paced_ms": [host_paced_ms(sdpa, iters=10)]}
+        for key, r in row.items():
+            if isinstance(r, dict):
+                for clock in ("device_ms", "host_paced_ms"):
+                    r[clock + "_mean"] = sum(r[clock]) / len(r[clock])
+                if r.get("rel_err", 0.0) > KERNEL_BWD_TOL["bfloat16"]:
+                    bad.append((b, nq, key, r["rel_err"]))
+        row["bound_ms"] = attention_bwd_bound(b, nq, nk, c, "bfloat16")[0]
+        chip_smoke.emit(row)
+        rows.append(row)
+        del q, k, v, g, ref, qs, ks, vs, out, gs
+    return rows, bad
+
+
+def _fwd_rows(other, name: str):
+    """K1 at the stage shapes at the EMA step's and the serve forward's
+    batches: the earlier build `other` and the package's, other, this,
+    this, other; at the serve batch the scalar kernel; SDPA beside them."""
+    import torch
+    import torch.nn.functional as F
+
     from semisupervisedobjectdetection_torch.ops.sr_attention import (
         _lib,
         sr_attention,
         sr_attention_reference,
     )
 
-    other = build_other(args.other.resolve())
     _lib()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cases = [(b, s) for b in (TEACHER_BATCH, MICRO, BATCH)
@@ -187,7 +338,7 @@ def main(argv=None) -> int:
         first = timed(other, True, 1)
         mine = timed(None, True, 2)
         last = timed(other, True, 1)
-        row[args.other_name] = {
+        row[name] = {
             "max_abs_err": max(first["max_abs_err"], last["max_abs_err"]),
             "device_ms": first["device_ms"] + last["device_ms"],
             "host_paced_ms": first["host_paced_ms"] + last["host_paced_ms"],
@@ -201,25 +352,54 @@ def main(argv=None) -> int:
 
         row["sdpa"] = {"device_ms": [cuda_ms(sdpa)],
                        "host_paced_ms": [host_paced_ms(sdpa)]}
-        for name, r in row.items():
+        for design, r in row.items():
             if isinstance(r, dict):
                 for key in ("device_ms", "host_paced_ms"):
                     r[key + "_mean"] = sum(r[key]) / len(r[key])
                 if r.get("max_abs_err", 0.0) > KERNEL_TOL["bfloat16"]:
-                    bad.append((b, nq, name, r["max_abs_err"]))
+                    bad.append((b, nq, design, r["max_abs_err"]))
         row["bound_ms"] = attention_bound(b, nq, nk, c, "bfloat16")[0]
         chip_smoke.emit(row)
         rows.append(row)
         del q, k, v, ref, qs, ks, vs
+    return rows, bad
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--other", type=Path, default=None)
+    p.add_argument("--bwd", type=Path, default=None)
+    p.add_argument("--other-name", default="other")
+    p.add_argument("--out", type=Path, default=None)
+    args = p.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("k1_design_ab: no CUDA device", file=sys.stderr)
+        return 2
+    rows, bad, sums = [], [], {}
     designs = (args.other_name, "this", "sdpa")
-    sums = {}
-    for label, passes, names in (
-            ("per_ema_step", EMA_STEP, designs),
-            ("per_serve_forward", SERVE_FORWARD, designs + ("scalar",))):
-        sums[label] = {"bound_ms": _bound_sum(passes), **{
-            name: {key: _sum(rows, passes, name, key + "_mean")
-                   for key in ("device_ms", "host_paced_ms")}
-            for name in names}}
+    if args.other is not None:
+        rows, bad = _fwd_rows(build_other(args.other.resolve()),
+                              args.other_name)
+        for label, passes, names in (
+                ("per_ema_step", EMA_STEP, designs),
+                ("per_serve_forward", SERVE_FORWARD,
+                 designs + ("scalar",))):
+            sums[label] = {"bound_ms": _bound_sum(passes), **{
+                name: {key: _sum(rows, passes, name, key + "_mean")
+                       for key in ("device_ms", "host_paced_ms")}
+                for name in names}}
+    if args.bwd is not None:
+        bwd_rows, bwd_bad = _bwd_rows(build_other_bwd(args.bwd.resolve()),
+                                      args.other_name)
+        rows += bwd_rows
+        bad += bwd_bad
+        sums["bwd_per_ema_step"] = {
+            "bound_ms": _bound_sum(BWD_EMA_STEP, attention_bwd_bound), **{
+                name: {key: _sum(bwd_rows, BWD_EMA_STEP, name, key + "_mean")
+                       for key in ("device_ms", "host_paced_ms")}
+                for name in designs}}
     sums["card"] = chip_smoke.nvidia_smi_line()
     chip_smoke.emit({"k1_ab": sums})
     if args.out:

@@ -83,7 +83,7 @@
 #include <atomic>
 #include <chrono>
 
-#include "sr_attention_mma.cuh"
+#include "sr_attention_wgmma.cuh"
 
 namespace {
 
@@ -288,7 +288,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   const Layout lay(nk, D, sizeof(T));
   auto kernel = sr_attention_fwd_kernel<T, D>;
   static std::atomic<uint32_t> opted{0};
-  cudaError_t err = sr_mma::opt_in_smem(kernel, opted);
+  cudaError_t err = sr_wgmma::opt_in_smem(kernel, opted);
   if (err != cudaSuccess) return int(err);
   const dim3 grid((nq + block_q - 1) / block_q, b * heads);
   kernel<<<grid, kThreads, lay.total, stream>>>(
@@ -300,8 +300,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
 
 // ---- bfloat16: the wgmma + TMA kernel ----
 
-using sr_mma::bf16;
-using sr_mma::smem_u32;
+using namespace sr_wgmma;
 
 constexpr int kTileQ = 64;             // query rows of a tile: wgmma's M
 constexpr int kKeyBox = 32;            // key rows of a TMA box of K or V
@@ -313,15 +312,6 @@ constexpr int kProducerRegs = 24;      // setmaxnreg: 128 * 24 + 256 * 240
 constexpr int kConsumerRegs = 240;     // = the 384 * 168 a CTA starts with
 constexpr int kMaxKeyTiles = 18;       // 16-key tiles of a score row
 static_assert(kMaxKeyTiles * 16 == kMaxSlots * 32, "one Nk limit");
-
-// The swizzle of a row of D bf16, shared by the tensor maps and the wgmma
-// descriptors: 128 bytes at D = 64, 64 at D = 32 (Swizzle<B, 4, 3>: address
-// bits [7, 7 + B) XORed into bits [4, 4 + B), B = 3 or 2).
-template <int D>
-__host__ __device__ constexpr int swizzle_bits() {
-  static_assert(D == 32 || D == 64, "head width 32 or 64");
-  return D == 64 ? 3 : 2;
-}
 
 // Shared memory of the wgmma kernel, in bytes from a 1024-aligned base:
 //   k [16 KT][D]                          K, keys past Nk zero (TMA fill)
@@ -346,76 +336,6 @@ struct WgLayout {
   }
 };
 
-// ---- mbarriers, TMA and wgmma in PTX ----
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-// Arrive once and expect `bytes` of TMA transactions in this phase.
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// A box of `map` at (c0, c1, c2) into shared memory at dst; completion is
-// counted in bytes on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
-// Shared memory at src to the box of `map` at (c0, c1, c2); rows outside
-// the tensor are not written.
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
-                                          int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
-      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// Wait until this thread's TMA stores have read their shared memory
-// (`Read`) or completed.
-template <bool Read>
-__device__ __forceinline__ void tma_store_wait() {
-  if (Read)
-    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-  else
-    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
 // Consumer warpgroup c's own barrier (id 1 + c; 0 is __syncthreads).
 __device__ __forceinline__ void consumer_sync(int c) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(1 + c), "n"(kConsumerThreads)
@@ -435,143 +355,6 @@ __device__ __forceinline__ void softmax_turn_give(int c) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(3 + c),
                "n"(kConsumers * kConsumerThreads)
                : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of these registers across
-// the wgmma fences and waits (the products run asynchronously).
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// The wgmma descriptor of a tile in shared memory at `addr` whose rows are
-// D bf16 wide, swizzled as the tensor maps write them: 8-row groups
-// 8 * D * 2 bytes apart. The same offset goes in both stride fields: a
-// K-major operand uses only the 8-row stride, and an MN-major one (V, whose
-// MN extent D is one swizzle atom) only the stride between 8-row groups
-// along K.
-template <int D>
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  constexpr uint64_t group = (8 * D * sizeof(bf16)) >> 4;
-  constexpr uint64_t layout = swizzle_bits<D>() == 3 ? 1 : 2;  // 128B, 64B
-  return uint64_t((addr & 0x3FFFF) >> 4) | (group << 16) | (group << 32) |
-         (layout << 62);
-}
-
-#define SR_F1(i) "+f"(d[i])
-#define SR_F4(i) SR_F1(i), SR_F1((i) + 1), SR_F1((i) + 2), SR_F1((i) + 3)
-#define SR_F16(i) SR_F4(i), SR_F4((i) + 4), SR_F4((i) + 8), SR_F4((i) + 12)
-#define SR_F32(i) SR_F16(i), SR_F16((i) + 16)
-#define SR_F64(i) SR_F32(i), SR_F32((i) + 32)
-#define SR_F128(i) SR_F64(i), SR_F64((i) + 64)
-
-// d (+)= A B for a 64 x 256 tile over k = 16: A (64 x 16) and B (256 x 16)
-// both K-major in shared memory (descriptors), d float32 in registers.
-__device__ __forceinline__ void wgmma_ss_n256(float* d, uint64_t a, uint64_t b,
-                                           int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
-      : SR_F128(0)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d (+)= A B for a 64 x 32 tile over k = 16: A (64 x 16) and B (32 x 16)
-// both K-major in shared memory (descriptors), d float32 in registers.
-__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t a, uint64_t b,
-                                           int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : SR_F16(0)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d (+)= A B for a 64 x 64 tile over k = 16: A (64 x 16 bf16) in registers
-// as four bf16 pairs per thread, B (16 x 64) MN-major in shared memory
-// (its descriptor, trans-b), d float32 in registers.
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
-                                           uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : SR_F32(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
-}
-
-// d (+)= A B for a 64 x 32 tile over k = 16: A (64 x 16 bf16) in registers
-// as four bf16 pairs per thread, B (16 x 32) MN-major in shared memory
-// (its descriptor, trans-b), d float32 in registers.
-__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
-                                           uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : SR_F16(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
-}
-
-
-#undef SR_F1
-#undef SR_F4
-#undef SR_F16
-#undef SR_F32
-#undef SR_F64
-#undef SR_F128
-
-template <int D>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
-                                         uint64_t b, int accumulate) {
-  if constexpr (D == 64)
-    wgmma_rs_n64(d, a, b, accumulate);
-  else
-    wgmma_rs_n32(d, a, b, accumulate);
 }
 
 // The softmax of a consumer warpgroup's 64 score rows, held as the
@@ -635,7 +418,7 @@ __device__ __forceinline__ void exp_rowsum(float (&s)[KT * 8],
     for (int j = 0; j < 4; ++j) part[r][j] = 0.f;
 #pragma unroll
   for (int i = 0; i < KT * 8; ++i) {
-    s[i] = sr_mma::exp2_approx(fmaf(s[i], scale_log2, -m[(i >> 1) & 1]));
+    s[i] = sr_wgmma::exp2_approx(fmaf(s[i], scale_log2, -m[(i >> 1) & 1]));
     part[(i >> 1) & 1][(i >> 3) & 3] += s[i];
   }
 #pragma unroll
@@ -655,10 +438,10 @@ __device__ __forceinline__ void normalize_pack(const float (&s)[KT * 8],
 #pragma unroll
   for (int kk = 0; kk < KT; ++kk) {
     const float* t = s + 8 * kk;
-    p[4 * kk + 0] = sr_mma::pack(t[0] * inv_l[0], t[1] * inv_l[0]);
-    p[4 * kk + 1] = sr_mma::pack(t[2] * inv_l[1], t[3] * inv_l[1]);
-    p[4 * kk + 2] = sr_mma::pack(t[4] * inv_l[0], t[5] * inv_l[0]);
-    p[4 * kk + 3] = sr_mma::pack(t[6] * inv_l[1], t[7] * inv_l[1]);
+    p[4 * kk + 0] = sr_wgmma::pack(t[0] * inv_l[0], t[1] * inv_l[0]);
+    p[4 * kk + 1] = sr_wgmma::pack(t[2] * inv_l[1], t[3] * inv_l[1]);
+    p[4 * kk + 2] = sr_wgmma::pack(t[4] * inv_l[0], t[5] * inv_l[0]);
+    p[4 * kk + 3] = sr_wgmma::pack(t[6] * inv_l[1], t[7] * inv_l[1]);
   }
 }
 
@@ -822,7 +605,7 @@ sr_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
             uint32_t off = r * kRow + c * sizeof(bf16);
             off ^= ((off >> 7) & ((1u << swizzle_bits<D>()) - 1)) << 4;
             *reinterpret_cast<uint32_t*>(stage_o + off) =
-                sr_mma::pack(o[4 * j + 2 * half], o[4 * j + 2 * half + 1]);
+                sr_wgmma::pack(o[4 * j + 2 * half], o[4 * j + 2 * half + 1]);
           }
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         consumer_sync(wg);
@@ -836,53 +619,6 @@ sr_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
     if (ct == 0) tma_store_wait<false>();
   }
-}
-
-// cuTensorMapEncodeTiled, fetched from the driver through the runtime (no
-// link against libcuda).
-using EncodeTiledFn = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiledFn>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// The 3-D tensor map over a (B, N, C) bf16 tensor that the wgmma kernel
-// reads or writes in boxes of (D columns, `rows` rows, 1 batch), swizzled
-// for wgmma; out-of-bounds rows read as zero.
-template <int D>
-bool encode_map(CUtensorMap* map, const void* ptr, int b, int n, int c,
-                int rows) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {cuuint64_t(c), cuuint64_t(n), cuuint64_t(b)};
-  const cuuint64_t strides[2] = {cuuint64_t(c) * sizeof(bf16),
-                                 cuuint64_t(n) * c * sizeof(bf16)};
-  const cuuint32_t box[3] = {cuuint32_t(D), cuuint32_t(rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            swizzle_bits<D>() == 3 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                   : CU_TENSOR_MAP_SWIZZLE_64B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // The four maps of one launch (q, k, v, out).
@@ -903,7 +639,7 @@ cudaError_t wgmma_ctas_per_sm(int* ctas) {
   auto kernel = sr_attention_fwd_wgmma_kernel<D, KT>;
   static std::atomic<uint32_t> opted{0};
   static std::atomic<int> cached{0};
-  cudaError_t err = sr_mma::opt_in_smem(kernel, opted);
+  cudaError_t err = sr_wgmma::opt_in_smem(kernel, opted);
   if (err != cudaSuccess) return err;
   int n = cached.load(std::memory_order_acquire);
   if (n == 0) {

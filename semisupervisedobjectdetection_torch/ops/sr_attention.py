@@ -40,11 +40,10 @@ BLOCK_Q = 128
 BWD_KEYS_PER_BLOCK = 32
 BWD_ROW_TILE = 32
 BWD_TARGET_BLOCKS = 528
-# In bfloat16 (tensor-core kernel): blocks of 4 warps over 64 keys, query
-# rows in tiles of 64, about two blocks per SM.
-BWD_MMA_KEYS_PER_BLOCK = 64
-BWD_MMA_ROW_TILE = 64
-BWD_MMA_TARGET_BLOCKS = 264
+# The bfloat16 backward (the wgmma kernel) walks 64-row query tiles, one
+# CTA an SM; the H100's SM count is the CPU's stand-in for the card's.
+BWD_WGMMA_ROW_TILE = 64
+H100_SMS = 132
 # Opt-in shared memory a block may use on Hopper (227 KB).
 MAX_SMEM_BYTES = 232448
 
@@ -127,10 +126,21 @@ def _lib() -> ctypes.CDLL:
 @functools.cache
 def _bwd_lib() -> ctypes.CDLL:
     """The built backward kernel library with its C signatures declared."""
-    lib = _build.load_library(_BWD_SOURCE)
+    return declare_bwd(_build.load_library(_BWD_SOURCE))
+
+
+def declare_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """`lib`, a build of `csrc/sr_attention_bwd.cu`, with the C signatures
+    of its exports declared."""
+    launched = ctypes.POINTER(ctypes.c_int)
     lib.sr_attention_bwd.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+        + [launched, ctypes.c_void_p])
     lib.sr_attention_bwd.restype = ctypes.c_int
+    lib.sr_attention_bwd_wgmma.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+        + [launched, ctypes.c_void_p])
+    lib.sr_attention_bwd_wgmma.restype = ctypes.c_int
     lib.sr_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.sr_attention_bwd_smem_bytes.restype = ctypes.c_size_t
     lib.sr_attention_bwd_max_nk.argtypes = []
@@ -150,8 +160,8 @@ def _fwd_limits(nk: int, d: int, elem: int, mma: bool) -> Tuple[int, int]:
 
 @functools.lru_cache(maxsize=None)
 def _bwd_limits(nk: int, d: int, elem: int) -> Tuple[int, int]:
-    """(shared-memory bytes per row-pass block, largest Nk) of the
-    backward kernels."""
+    """(shared-memory bytes per block, largest Nk) of the backward kernel
+    for `elem`-byte inputs (the float32 row pass, the bf16 wgmma kernel)."""
     lib = _bwd_lib()
     return (lib.sr_attention_bwd_smem_bytes(nk, d, elem),
             lib.sr_attention_bwd_max_nk())
@@ -208,23 +218,61 @@ def _check_kernel_inputs(name: str, tensors, num_heads: int, smem: int,
             f"takes Nk <= {max_nk} within {MAX_SMEM_BYTES} bytes")
 
 
-def bwd_key_splits(b: int, nq: int, nk: int, num_heads: int,
-                   dtype: torch.dtype = torch.float32) -> int:
-    """How many splits of the query rows the backward's key pass takes:
-    enough that key blocks * B * heads * splits blocks fill the card, each
-    split at least one row tile. float32 (the scalar kernel): 32-key blocks,
-    32-row tiles, ~528 blocks (stage 1 of MiT-B5 at batch 16: 8 * 16
-    blocks, 5 splits). bfloat16 (the tensor-core kernel): 64-key blocks,
-    64-row tiles, ~264 blocks (stage 1: 4 * 16 blocks, 5 splits; stage 3:
-    4 * 80 blocks, no split)."""
-    keys, tile, target = (
-        (BWD_MMA_KEYS_PER_BLOCK, BWD_MMA_ROW_TILE, BWD_MMA_TARGET_BLOCKS)
-        if dtype == torch.bfloat16 else
-        (BWD_KEYS_PER_BLOCK, BWD_ROW_TILE, BWD_TARGET_BLOCKS))
-    blocks = -(-nk // keys) * b * num_heads
-    want = -(-target // blocks)
-    rows = -(-(-(-nq // want)) // tile) * tile
+def bwd_key_splits(b: int, nq: int, nk: int, num_heads: int) -> int:
+    """How many splits of the query rows the float32 backward's key pass
+    takes: enough that key blocks * B * heads * splits blocks fill the card
+    (32-key blocks, ~528 blocks: stage 1 of MiT-B5 at batch 16 is 8 * 16
+    blocks, 5 splits), each split at least one 32-row tile."""
+    blocks = -(-nk // BWD_KEYS_PER_BLOCK) * b * num_heads
+    want = -(-BWD_TARGET_BLOCKS // blocks)
+    rows = -(-(-(-nq // want)) // BWD_ROW_TILE) * BWD_ROW_TILE
     return -(-nq // rows)
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_launch_plan(b: int, nq: int, nk: int, c: int, num_heads: int,
+                    sms: int = H100_SMS) -> dict:
+    """The bfloat16 backward's launch (`sr_attention_bwd_wgmma` in
+    `csrc/sr_attention_bwd.cu`): its grid, the query-tile range of each CTA,
+    whether a (batch, head) is split over CTAs, the float32 workspace and
+    the kernels one call launches.
+
+    The kernel walks the T = B * heads * ceil(Nq / 64) query tiles in
+    (batch, head, tile) order; CTA x takes tiles [x T / G, (x + 1) T / G).
+    Where cutting the (batch, head)s over CTAs shortens the longest CTA
+    (MiT-B5 at batch 16: 16 pairs of 256 tiles at stage 1, 80 of 16 at
+    stage 3) G = min(T, sms), so every SM gets work and a (batch, head)
+    spans several CTAs; else (stage 4: 128 pairs of 4 tiles, which 132 CTAs
+    would also leave at 4 tiles the longest) G = B * heads, one (batch,
+    head) a CTA, in waves where there are more of them than SMs.
+    Where a CTA range cuts a (batch, head), each CTA writes float32 dk and
+    dv of its part to its own slot (two per CTA: its first and last
+    segment, nk * d values each for dk and dv) and a second kernel sums a
+    (batch, head)'s slots in CTA order; else the one kernel writes dk and
+    dv. The launcher takes the plan's grid and launches that second kernel
+    where the plan gives it a workspace: this function is the one place
+    that decides both. Cached per shape (a training step asks for the same
+    few shapes every step); callers do not modify the dict."""
+    tiles = -(-nq // BWD_WGMMA_ROW_TILE)
+    pairs = b * num_heads
+    total = pairs * tiles
+    grid = min(total, sms)
+    if -(-pairs // sms) * tiles <= -(-total // grid):
+        grid = pairs
+    bounds = [x * total // grid for x in range(grid + 1)]
+    split = any(x % tiles for x in bounds[1:-1])
+    return {"grid": grid, "tiles_per_pair": tiles, "tiles": total,
+            "cta_tiles": [e - s for s, e in zip(bounds, bounds[1:])],
+            "split": split,
+            "workspace_floats": grid * 2 * 2 * nk * (c // num_heads)
+            if split else 0,
+            "kernels": ("sr_attention_bwd_wgmma_kernel",)
+            + (("sr_attention_bwd_split_sum_kernel",) if split else ())}
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _device_of(q: torch.Tensor) -> str:
@@ -277,16 +325,19 @@ def sr_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     What bounds it on the H100: 10*B*Nq*Nk*C flops (five products) against
     q, g, dq (B*Nq*C each) and k, v, dk, dv (B*Nk*C each) moved once puts it
-    under the flops line on the bf16 tensor cores at MiT-B5 stages 1-3. The
-    kernel is a row pass (dq and the row statistics, K and V of one (batch,
-    head) in shared memory) and a key pass (dk and dv summed in registers
-    over the query rows in order, in `bwd_key_splits` splits whose float32
-    partials a third kernel sums in order: no atomics, so the result is the
-    same every run). In bfloat16 both passes do their products on the
-    tensor cores (mma.sync); in float32 they are scalar FMAs, because TF32
-    would not hold float32 results to their tolerance (see PERF.md).
+    under the flops line on the bf16 tensor cores at MiT-B5 stages 1-3.
+    bfloat16 runs the Hopper kernel: every product on wgmma, tiles by TMA,
+    the row statistics on chip, dk and dv in registers across each CTA's
+    run of query tiles, over the grid of `bwd_launch_plan`; where that grid
+    splits a (batch, head) over CTAs, a second kernel sums their float32
+    parts in CTA order. float32 runs the scalar kernels (a row pass, a key
+    pass over `bwd_key_splits` splits and their sum in split order),
+    because TF32 would not hold float32 results to their tolerance (see
+    PERF.md). No atomics: the result is the same every run.
 
-    `sr_attention_bwd.launches` counts kernel launches (not CPU calls).
+    `sr_attention_bwd.launches` counts calls that launched the kernels (not
+    CPU calls); `sr_attention_bwd.last_launches` is the number of kernels
+    the last such call launched, as its C launcher counted them.
     """
     _check(q, k, v, num_heads)
     if g.shape != q.shape:
@@ -302,18 +353,29 @@ def sr_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         num_heads, *_bwd_limits(nk, c // num_heads, q.element_size()))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
-    # per query row: max, l and rowsum(dp * p) (the float32 kernels use 3
-    # of the 4 values, the bfloat16 ones store 1 / l as one float4)
-    stats = torch.empty(b * num_heads * nq * 4, dtype=torch.float32,
-                        device=q.device)
-    splits = bwd_key_splits(b, nq, nk, num_heads, q.dtype)
-    part = torch.empty(splits * 2 * k.numel() if splits > 1 else 0,
-                       dtype=torch.float32, device=q.device)
-    err = _launch(lib.sr_attention_bwd, q.device, q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                  dv.data_ptr(), stats.data_ptr(),
-                  part.data_ptr() if splits > 1 else None, b, nq, nk, c,
-                  num_heads, _DTYPES[q.dtype], BLOCK_Q, splits)
+    launched = ctypes.c_int(0)
+    if q.dtype == torch.bfloat16:
+        plan = bwd_launch_plan(b, nq, nk, c, num_heads,
+                               _sm_count(q.device.index))
+        part = torch.empty(plan["workspace_floats"], dtype=torch.float32,
+                           device=q.device)
+        err = _launch(lib.sr_attention_bwd_wgmma, q.device, q.data_ptr(),
+                      k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(),
+                      dk.data_ptr(), dv.data_ptr(),
+                      part.data_ptr() if plan["split"] else None, b, nq, nk,
+                      c, num_heads, plan["grid"], ctypes.byref(launched))
+    else:
+        # per query row: max, l and rowsum(dp * p)
+        stats = torch.empty(b * num_heads * nq * 3, dtype=torch.float32,
+                            device=q.device)
+        splits = bwd_key_splits(b, nq, nk, num_heads)
+        part = torch.empty(splits * 2 * k.numel() if splits > 1 else 0,
+                           dtype=torch.float32, device=q.device)
+        err = _launch(lib.sr_attention_bwd, q.device, q.data_ptr(),
+                      k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(),
+                      dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+                      part.data_ptr() if splits > 1 else None, b, nq, nk, c,
+                      num_heads, BLOCK_Q, splits, ctypes.byref(launched))
     if err:
         raise RuntimeError(
             f"sr_attention_bwd launch failed: "
@@ -321,10 +383,12 @@ def sr_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"(B={b}, Nq={nq}, Nk={nk}, C={c}, heads={num_heads}, "
             f"{q.dtype})")
     sr_attention_bwd.launches += 1
+    sr_attention_bwd.last_launches = launched.value
     return dq, dk, dv
 
 
 sr_attention_bwd.launches = 0
+sr_attention_bwd.last_launches = 0
 
 
 class SRAttention(torch.autograd.Function):

@@ -41,6 +41,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import time
 
@@ -83,6 +84,29 @@ def _kernel_summary(prof, iters: int) -> dict:
         "top": [{"name": e.key[:90],
                  "ms_per_iter": _device_us(e) / 1e3 / iters,
                  "calls_per_iter": e.count / iters} for e in kernels[:25]]}
+
+
+def kernels_launched(fn, match: str):
+    """(`fn()`'s result, the device kernels whose names hold `match` that
+    the call ran, in start order), as `torch.profiler` saw them on the
+    card: each name is the kernel's own (`match` through `_kernel`), its
+    namespace, template arguments and parameters dropped.
+
+    The call runs 20 ms after the profiler starts and the profiler stops
+    20 ms after the call's kernels end: on an H100 without that margin
+    some profiles lacked the first kernels of the call."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        time.sleep(0.02)
+        out = fn()
+        torch.cuda.synchronize()
+        time.sleep(0.02)
+    found = sorted((e.time_range.start, m.group(0)) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and (m := re.search(match + r"[a-z_]*?_kernel", e.name)))
+    return out, [name for _, name in found]
 
 
 def _write(prof, out: str) -> None:

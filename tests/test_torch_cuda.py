@@ -1,7 +1,9 @@
 """Card-only tests of the port's CUDA kernels: `sr_attention_fwd` (its
 scalar kernel and its Hopper wgmma + TMA kernel, also at every main-path
-shape) and `sr_attention_bwd` against their plain versions on the card
-(also at the few-shot step's shapes), gradients
+shape) and `sr_attention_bwd` (its scalar float32 kernels and its Hopper
+wgmma + TMA bfloat16 kernel, also at its edge shapes, launching only that
+design's kernels) against their plain versions on the card (also at the
+few-shot step's shapes), gradients
 through `sr_attention` on CUDA, the launch counts of a small EMA step, a
 train-mode gradient through the kernels, and the augmentation on the card
 against the CPU.
@@ -15,10 +17,15 @@ import pytest
 import torch
 
 from semisupervisedobjectdetection_torch.ops.sr_attention import (
+    bwd_key_splits,
+    bwd_launch_plan,
     sr_attention,
     sr_attention_backward_reference,
     sr_attention_bwd,
     sr_attention_reference,
+)
+from semisupervisedobjectdetection_torch.utils.profile_forward import (
+    kernels_launched,
 )
 
 pytestmark = pytest.mark.cuda
@@ -260,6 +267,76 @@ def test_gradients_through_sr_attention_on_cuda(cuda, dtype):
     for x, r in zip((q, k, v), ref):
         assert x.grad is not None
         assert _rel_err(x.grad, r) <= BWD_TOL[dtype]
+
+
+# Edges of the bfloat16 wgmma backward (64-row query tiles, 64-key M-tiles,
+# 32-key statistics chunks, the fifth M-tile past 256 keys, a grid that
+# splits (batch, head)s over CTAs or holds one a CTA): Nk 1, 63, 64, 65 and
+# 288; Nq off the 64-row tile; head width 32; B * heads of 1 and of 200.
+WGMMA_BWD_EDGES = [
+    (2, 100, 1, 64, 1),
+    (2, 100, 63, 64, 1),
+    (2, 100, 64, 64, 1),
+    (2, 100, 65, 64, 1),
+    (2, 333, 288, 64, 1),
+    (1, 1000, 200, 64, 1),       # B * heads 1, Nq 1000
+    (4, 77, 130, 128, 4),        # head width 32, Nq 77
+    (2, 4097, 257, 64, 2),       # head width 32, Nk 257
+    (200, 130, 96, 64, 1),       # B * heads 200: one a CTA, in waves
+    (25, 70, 266, 512, 8),       # B * heads 200, five M-tiles
+]
+
+
+@pytest.mark.parametrize("b,nq,nk,c,h", WGMMA_BWD_EDGES)
+def test_wgmma_bwd_at_edge_shapes(cuda, b, nq, nk, c, h):
+    """The bfloat16 backward (the wgmma kernel) against the plain version
+    at BWD_TOL, the same bits on a rerun, each call counted once and
+    launching the wgmma kernel (as the profiler saw the rerun)."""
+    q, k, v = _qkv(cuda, b, nq, nk, c, torch.bfloat16)
+    g = _qkv(cuda, b, nq, nk, c, torch.bfloat16, seed=1)[0]
+    before = sr_attention_bwd.launches
+    got = sr_attention_bwd(q, k, v, g, h)
+    again, ran = kernels_launched(lambda: sr_attention_bwd(q, k, v, g, h),
+                                  "sr_attention_bwd")
+    assert sr_attention_bwd.launches == before + 2
+    assert ran[0] == "sr_attention_bwd_wgmma_kernel"
+    assert len(ran) == sr_attention_bwd.last_launches
+    ref = sr_attention_backward_reference(q, k, v, g, h)
+    for a, a2, r, x in zip(got, again, ref, (q, k, v)):
+        assert a.dtype == torch.bfloat16 and a.shape == x.shape
+        assert bool(torch.isfinite(a).all())
+        assert torch.equal(a, a2)
+        assert _rel_err(a, r) <= BWD_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("b,nq,nk,c,h", [
+    (16, 1024, 256, 320, 5),     # B5 stage 3: split over CTAs, two launches
+    (16, 256, 256, 512, 8),      # B5 stage 4: one (batch, head) a CTA
+    (1, 64, 64, 64, 1),          # one tile
+])
+def test_bf16_bwd_launches_only_the_wgmma_design(cuda, b, nq, nk, c, h):
+    """A bfloat16 call launches the kernels of its launch plan (the wgmma
+    kernel, and the split sum where the grid splits a (batch, head)) and
+    none of an earlier design; a float32 call the scalar kernels. The
+    kernels are those the profiler saw run on the card, and their number
+    is the launch count the wrapper recorded from the C launcher."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = bwd_launch_plan(b, nq, nk, c, h, sms)
+    q, k, v = _qkv(cuda, b, nq, nk, c, torch.bfloat16)
+    _, ran = kernels_launched(lambda: sr_attention_bwd(q, k, v, q, h),
+                              "sr_attention_bwd")
+    assert tuple(ran) == plan["kernels"]
+    assert sr_attention_bwd.last_launches == len(ran) == 1 + plan["split"]
+    assert set(ran) <= {"sr_attention_bwd_wgmma_kernel",
+                        "sr_attention_bwd_split_sum_kernel"}
+    q, k, v = (t.float() for t in (q, k, v))
+    _, ran = kernels_launched(lambda: sr_attention_bwd(q, k, v, q, h),
+                              "sr_attention_bwd")
+    assert ran == ["sr_attention_bwd_rows_kernel",
+                   "sr_attention_bwd_keys_kernel"] + (
+        ["sr_attention_bwd_sum_kernel"]
+        if bwd_key_splits(b, nq, nk, h) > 1 else [])
+    assert sr_attention_bwd.last_launches == len(ran)
 
 
 def test_bwd_kernel_rejects_what_it_cannot_run(cuda):

@@ -1,5 +1,6 @@
 """The port stands alone: no module of `semisupervisedobjectdetection_torch`
-nor `chip_smoke.py` nor `scripts/k1_design_ab.py` imports JAX, Flax,
+nor `chip_smoke.py` nor `scripts/k1_design_ab.py` nor
+`scripts/k2_phase_profile.py` imports JAX, Flax,
 transformers or the JAX package, and the entry points do not fall back to
 the CPU when no card is present."""
 
@@ -119,9 +120,10 @@ def test_default_entry_point_needs_a_card(monkeypatch):
 
 
 def test_k1_design_ab_sums_and_imports():
-    """`scripts/k1_design_ab.py` imports no JAX, sums the 312 launches of a
-    flagship EMA step (bound 3.623 ms) and the 52 of a serve forward (bound
-    0.2265 ms), and without a card exits 2 before it builds anything."""
+    """`scripts/k1_design_ab.py` imports no JAX, sums K1's 312 launches of a
+    flagship EMA step (bound 3.623 ms) and 52 of a serve forward (bound
+    0.2265 ms) and K2's 104 of a flagship EMA step (bound 1.659 ms), and
+    without a card exits 2 before it builds anything."""
     code = (
         "import sys\n"
         "sys.path.insert(0, 'scripts')\n"
@@ -131,7 +133,10 @@ def test_k1_design_ab_sums_and_imports():
         "print(ab._sum(rows, ab.EMA_STEP, 'x', 'k'),\n"
         "      ab._sum(rows, ab.SERVE_FORWARD, 'x', 'k'),\n"
         "      round(ab._bound_sum(ab.EMA_STEP), 3),\n"
-        "      round(ab._bound_sum(ab.SERVE_FORWARD), 4))\n"
+        "      round(ab._bound_sum(ab.SERVE_FORWARD), 4),\n"
+        "      ab._sum(rows, ab.BWD_EMA_STEP, 'x', 'k'),\n"
+        "      round(ab._bound_sum(ab.BWD_EMA_STEP,\n"
+        "                          ab.attention_bwd_bound), 3))\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "sys.exit(1 if bad else 0)\n")
@@ -139,10 +144,37 @@ def test_k1_design_ab_sums_and_imports():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert proc.stdout.split() == ["312.0", "52.0", "3.623", "0.2265"]
+    assert proc.stdout.split() == ["312.0", "52.0", "3.623", "0.2265",
+                                   "104.0", "1.659"]
     env["CUDA_VISIBLE_DEVICES"] = ""
     proc = subprocess.run(
         [sys.executable, "scripts/k1_design_ab.py", "--other",
-         "no_such_source.cu"], cwd=ROOT, env=env, capture_output=True,
+         "no_such_source.cu", "--bwd", "no_such_source.cu"], cwd=ROOT,
+        env=env, capture_output=True,
         text=True, timeout=300)
+    assert proc.returncode == 2, proc.stdout + proc.stderr
+
+
+def test_k2_phase_profile_imports_and_needs_a_card():
+    """`scripts/k2_phase_profile.py` imports no JAX and, without a card,
+    exits 2 before it builds anything. Whether its counters still find
+    their anchors in `csrc/sr_attention_bwd.cu` is checked where it runs,
+    on the card: a kernel edit moves them, and the script then stops."""
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, 'scripts')\n"
+        "import k2_phase_profile as prof\n"
+        "print(len(prof.PHASES))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.split() == ["9"]
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run([sys.executable, "scripts/k2_phase_profile.py"],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
     assert proc.returncode == 2, proc.stdout + proc.stderr

@@ -49,7 +49,7 @@ def test_digest_follows_included_headers(tmp_path):
                                     "sr_attention_bwd.cu"])
 def test_kernel_sources_hash_the_shared_header(source):
     names = [p.name for p in _build.source_files(_build.CSRC / source)]
-    assert names == [source, "sr_attention_mma.cuh"]
+    assert names == [source, "sr_attention_wgmma.cuh"]
 
 
 @pytest.mark.parametrize("mma", [False, True])

@@ -19,13 +19,13 @@ from semisupervisedobjectdetection_tpu.ops.sr_attention import (
     _xla_vjp_bwd,
 )
 from semisupervisedobjectdetection_torch.ops.sr_attention import (
-    BWD_MMA_KEYS_PER_BLOCK,
-    BWD_MMA_ROW_TILE,
-    BWD_MMA_TARGET_BLOCKS,
     BWD_ROW_TILE,
     BWD_TARGET_BLOCKS,
+    BWD_WGMMA_ROW_TILE,
+    H100_SMS,
     SRAttention,
     bwd_key_splits,
+    bwd_launch_plan,
     sr_attention,
     sr_attention_backward_reference,
     sr_attention_bwd,
@@ -144,21 +144,43 @@ def test_key_pass_splits_fill_the_card(b, nq, nk, h, want):
     assert splits == 1 or (splits - 1) * blocks < BWD_TARGET_BLOCKS
 
 
-@pytest.mark.parametrize("b,nq,nk,h,want", [
-    (16, 16384, 256, 1, 5),    # B5 stage 1 at batch 16: 4 * 16 blocks alone
-    (16, 4096, 256, 2, 3),     # stage 2: 128 blocks
-    (16, 1024, 256, 5, 1),     # stage 3: 320 blocks fill the card
-    (16, 256, 256, 8, 1),      # stage 4
-    (16, 16394, 266, 1, 4),    # stage 1 with a 10-token prompt: 5 key blocks
-    (2, 300, 5, 1, 5),         # few keys: splits down to one 64-row tile
+@pytest.mark.parametrize("b,nq,nk,c,h,grid,split", [
+    (16, 16384, 256, 64, 1, 132, True),    # B5 stage 1 at batch 16: 16 pairs
+    (16, 4096, 256, 128, 2, 132, True),    # stage 2: 32 pairs
+    (16, 1024, 256, 320, 5, 132, True),    # stage 3: 80 pairs of 16 tiles
+    (16, 256, 256, 512, 8, 128, False),    # stage 4: 128 pairs of 4 tiles
+    (16, 16394, 266, 64, 1, 132, True),    # stage 1, 10-token prompt
+    (2, 16385, 257, 64, 1, 132, True),     # few-shot stage 1: 2 pairs
+    (2, 4097, 257, 128, 2, 132, True),     # few-shot stage 2
+    (2, 1025, 257, 320, 5, 132, True),     # few-shot stage 3
+    (2, 257, 257, 512, 8, 80, True),       # few-shot stage 4: 80 tiles
+    (1, 1, 1, 32, 1, 1, False),            # tiny: one tile
+    (200, 100, 64, 64, 1, 200, False),     # more pairs than SMs: one a CTA
 ])
-def test_mma_key_pass_splits_fill_the_card(b, nq, nk, h, want):
-    """bfloat16 (the tensor-core key pass): blocks of 64 keys, 64-row tiles,
-    about `BWD_MMA_TARGET_BLOCKS` blocks, no empty split."""
-    splits = bwd_key_splits(b, nq, nk, h, torch.bfloat16)
-    assert splits == want
-    tile = BWD_MMA_ROW_TILE
-    rows = -(-(-(-nq // splits)) // tile) * tile
-    assert (splits - 1) * rows < nq <= splits * rows
-    blocks = -(-nk // BWD_MMA_KEYS_PER_BLOCK) * b * h
-    assert splits == 1 or (splits - 1) * blocks < BWD_MMA_TARGET_BLOCKS
+def test_wgmma_launch_plan_fills_the_card(b, nq, nk, c, h, grid, split):
+    """bfloat16 (the wgmma kernel): the grid gives every SM work where there
+    are as many 64-row query tiles as SMs, unless cutting (batch, head)s
+    over CTAs would not shorten the longest CTA (then one whole (batch,
+    head) a CTA); every CTA a non-empty contiguous range of tiles, the
+    workspace two float32 dk/dv slots per CTA exactly where a (batch, head)
+    is split, and the split sum as a second launch only then."""
+    plan = bwd_launch_plan(b, nq, nk, c, h)
+    tiles = -(-nq // BWD_WGMMA_ROW_TILE)
+    total = b * h * tiles
+    assert (plan["grid"], plan["split"]) == (grid, split)
+    assert plan["tiles"] == total and plan["tiles_per_pair"] == tiles
+    longest_cut = -(-total // min(total, H100_SMS))
+    if plan["grid"] == b * h:
+        assert -(-b * h // H100_SMS) * tiles <= longest_cut
+    else:
+        assert min(plan["grid"], H100_SMS) == min(total, H100_SMS)
+    cta = plan["cta_tiles"]
+    assert len(cta) == plan["grid"] and sum(cta) == total
+    assert min(cta) >= 1 and max(cta) - min(cta) <= 1
+    assert plan["workspace_floats"] == (
+        plan["grid"] * 2 * 2 * nk * (c // h) if split else 0)
+    assert plan["kernels"] == ("sr_attention_bwd_wgmma_kernel",) + (
+        ("sr_attention_bwd_split_sum_kernel",) if split else ())
+    # a pair is cut exactly where some CTA boundary falls inside it
+    bounds = np.cumsum([0] + cta)
+    assert split == bool(np.any(bounds[1:-1] % tiles))
