@@ -11,41 +11,49 @@ non-zero before the final line:
                 for every kernel instantiation its registers, stack and
                 spills (from `-Xptxas -v`) and its count of tensor-core
                 instructions (HMMA, HGMMA) in the SASS of the built library
-                (`cuobjdump --dump-sass`), ptxas's warnings, the wgmma
-                kernels' shared memory and K1's CTAs per SM. K1's and K2's
-                wgmma kernels (four instantiations each) must show HGMMA and
-                no HMMA, and neither a stack frame or spills.
+                (`cuobjdump --dump-sass`), ptxas's warnings, each design's
+                shared memory, K1's bf16 CTAs per SM and each dtype's Nk
+                limit (bf16 288, float32 none). Every tensor-core kernel
+                must show HGMMA and no HMMA, and neither a stack frame nor
+                spills: K1's and K2's bf16 wgmma kernels (four
+                instantiations each), K1's float32 3xTF32 kernel and K2's
+                float32 row and key passes (two each, d 32/64).
 3. kernel     - `sr_attention_fwd` (K1) against its plain PyTorch version:
-                the wgmma kernel (bfloat16, the default, every bf16 path's)
-                at the four MiT-B5 512x512 stage shapes at batch 8
-                (serving), 16 (student) and 32 (teacher), the scalar kernel
-                at batch 8 in bfloat16 (the serve gate's `scalar` path) and
-                float32, each also at two shapes with a prompt/CLS prefix,
-                and the wgmma kernel at the transfer step's four shapes (10
-                prompt tokens per stage, Nk 266) at batch 16, and at the
-                few-shot step's four shapes (Nq = H*W + 1, Nk 257) at batch
-                2 the wgmma kernel in bf16 and the scalar one in f32: max
-                abs error against a stated tolerance, bit-equal reruns, and
-                CUDA-event device times (queued behind a sleep kernel, so
-                not paced by the host) of the kernel (for the wgmma rows
-                also of the scalar kernel on the same inputs, and the host
-                microseconds of a call and of its four tensor maps), the
-                plain version and `F.scaled_dot_product_attention` (a
-                yardstick only; the port never calls it), beside the bound
-                from shapes (each byte in and out once at 3.35 TB/s; flops
-                at 989 TFLOP/s bf16, 67 TFLOP/s f32).
+                the bf16 kernel at the four MiT-B5 512x512 stage shapes at
+                batch 8 (serving), 16 (student) and 32 (teacher), at two
+                shapes with a prompt/CLS prefix at batch 8, at the transfer
+                step's four shapes (10 prompt tokens per stage, Nk 266) at
+                batch 16 and at the few-shot step's four shapes (Nq = H*W +
+                1, Nk 257) at batch 2; the float32 kernel at the stage and
+                prefix shapes at batch 8, at the few-shot and transfer
+                shapes at batch 2, and past the bf16 limit at batch 2 at the
+                four Nk-356 shapes (100 prompt tokens per stage) and at Nk
+                300, and at Nk 1024 (stage 1 at 1024x1024) at batch 1: max
+                abs error against a stated tolerance, bit-equal reruns, the
+                error against float64, and CUDA-event device times (queued
+                behind a sleep kernel, so not paced by the host) of the
+                kernel, the plain version and
+                `F.scaled_dot_product_attention` (a yardstick only; the port
+                never calls it), the host microseconds of a call, beside the
+                bound from shapes (each byte in and out once at 3.35 TB/s;
+                flops at 989 TFLOP/s bf16 and at 495 / 3 = 165 TFLOP/s
+                float32, the 3xTF32 rate; each row names its rate).
 4. kernel_bwd - `sr_attention_bwd` (K2) against its plain version at the
                 four stage shapes and the two prefix shapes at batch 16, in
-                bfloat16 and float32, and at the rest of the transfer step's
-                shapes (Nk 266) in bfloat16, and at the four few-shot
-                shapes (a CLS query row and key per stage) at batch 2 in
-                both types: max error against a stated tolerance,
+                bfloat16 and float32, at the rest of the transfer step's
+                shapes (Nk 266) in bfloat16, at the four few-shot shapes (a
+                CLS query row and key per stage) at batch 2 in both types,
+                and in float32 at batch 2 at the transfer shapes, the Nk-356
+                shapes and Nk 300, and at Nk 1024 at batch 1: max error
+                against a stated tolerance (float32 also against float64),
                 bit-equality of two launches, the kernels one call launched
-                (bf16: the wgmma kernel, and the split sum where its grid
-                splits a (batch, head); checked against its launch plan),
-                the grid (bf16) or the key pass's split count (f32), the
-                host microseconds of a bf16 call, and the times of the
-                kernel, the plain version and the autograd backward of
+                as the profiler saw them against its launch plan's (bf16:
+                the wgmma kernel, and the split sum where its grid splits a
+                (batch, head); float32: the row pass, the key pass and the
+                split sum where the key pass splits) and against the count
+                its C launcher reported, the plan's grid or splits, the
+                host microseconds of a call, and the times of the kernels,
+                the plain version and the autograd backward of
                 `F.scaled_dot_product_attention`, beside the bound.
 5. model      - MiT-B5 at 512x512 in float32, TF32 off: the kernel path and
                 the plain path agree on a batch of two images.
@@ -53,14 +61,13 @@ non-zero before the final line:
                 max_batch 8, seeded random weights) answers 16 concurrent raw
                 requests and 2 PNG requests over HTTP; every request succeeds
                 with a finite mask of the right shape, K1 ran exactly 52
-                times per batch served (3+6+40+3 layers), all on its wgmma
+                times per batch served (3+6+40+3 layers), all on its bf16
                 kernel; and the serve gate: the same 16 raw images through
-                the bf16 model with the scalar forward (52 scalar
-                launches per batch, no wgmma one), the plain bf16 path
-                and the float32 model (plain attention, TF32 off) in
-                batches of 8 (`utils/serve_gate.py`), the served masks no
-                further from float32 than the plain bf16 path's (pixel
-                flips, mean error) and within a bound of the plain path.
+                the plain bf16 path and the float32 model (plain attention,
+                TF32 off) in batches of 8 (`utils/serve_gate.py`), the
+                served masks no further from float32 than the plain bf16
+                path's (pixel flips, mean error) and within a bound of the
+                plain path.
 7. grad       - MiT-B5 512x512 float32, TF32 off, batch 2: the EMA step's
                 student loss backward through the kernels and through the
                 plain path give the same gradient for every parameter
@@ -121,6 +128,10 @@ non-zero before the final line:
                 and stage-1 patch embeddings get non-zero gradients (through
                 the frozen layers above them, so K2 runs in all 52 layers);
                 every K1 and K2 launch has Nk = 266.
+13b. transfer_grad_nk356 - transfer_grad's configuration with 100 prompt
+                tokens per stage (the transfer grid's largest), so every K1
+                and K2 launch has Nk = 356, which the float32 kernels take
+                and bf16 refuses: the same checks at GRAD_F32_TOL.
 14. transfer_step - the transfer CLI's step in bfloat16 through
                 `SegFormerModel.train_one_epoch` at the flagship point (the
                 configuration of transfer_grad, 32 images per step in 2
@@ -189,7 +200,7 @@ non-zero before the final line:
                 stage, batch 2: the gradients of the autoencoder's pair loss
                 (3 labels; recon + 100 x the cosine losses on the CLS token)
                 and of the seg pair loss with cls_loss_weight 1.0 through
-                the scalar kernels and through the plain path agree per
+                the float32 kernels and through the plain path agree per
                 tensor (GRAD_F32_TOL); every CLS token's gradient is
                 non-zero; 208 K1 and 104 K2 launches per loss.
 23. fewshot_step - at the flagship point (bf16, tanh GELU) with CLS tokens:
@@ -229,7 +240,14 @@ import urllib.request
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# The operations rate of each dtype's kernels: bf16 on the tensor cores;
+# float32 as 3xTF32 on the tensor cores (three TF32 products per float32
+# product at 495 TFLOP/s), the least time the card could take since the
+# float32 products run there.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12 / 3}
+PEAK_RATE_NAME = {"bfloat16": "bf16 tensor cores, 989 TFLOP/s",
+                  "float32": "3xTF32 on the TF32 tensor cores, 495 / 3 = "
+                             "165 TFLOP/s"}
 SEED = 0
 # cuda_ms's sleep kernel: ~20 ms at the H100's 1.5-2 GHz clock.
 SLEEP_CYCLES = 35_000_000
@@ -321,7 +339,17 @@ TRANSFER_NK = 266
 # join each stage's queries and keys.
 TRANSFER_SHAPES = tuple((nq + t, nk + t, c, h) for (nq, nk, c, h), t
                         in zip(STAGE_SHAPES, TRANSFER_TOKENS))
-TRANSFER_REFUSED_TOKENS = (40, 40, 40, 40)     # Nk = 296 > 288
+TRANSFER_REFUSED_TOKENS = (40, 40, 40, 40)     # Nk = 296 > 288 in bf16
+# The transfer grid's largest prompt (100 tokens per stage at 512x512: every
+# layer's Nk is 356), which the float32 kernels take and bf16 refuses.
+NK356_TOKENS = (100, 100, 100, 100)
+NK356 = 356
+NK356_SHAPES = tuple((nq + t, nk + t, c, h) for (nq, nk, c, h), t
+                     in zip(STAGE_SHAPES, NK356_TOKENS))
+# More float32 shapes past the bf16 limit: a 44-token prefix at stage 1
+# (Nk 300), and stage 1 of a 1024x1024 input (Nq 65536, Nk 1024).
+NK300_SHAPE = (16384 + 44, 300, 64, 1)
+NK1024_SHAPE = (65536, 1024, 64, 1)
 FROZEN_PREFIXES = tuple(f"segformer.encoder.block.{i}."
                         for i in TRANSFER_FROZEN)
 # The gradient teacher-student steps at the flagship point (ts_step): a
@@ -420,8 +448,7 @@ def _bound(n_bytes, flops, dtype_name):
 def attention_bound(b, nq, nk, c, dtype_name):
     """(bound ms, "bytes" or "operations") of SR-attention at a shape:
     q, k, v read once and the output written once; 4*B*Nq*Nk*C flops at
-    the dtype's peak (tensor-core bf16, or float32 outside the tensor
-    cores)."""
+    the rate of the dtype's kernel (`PEAK_FLOPS`, `PEAK_RATE_NAME`)."""
     elem = 2 if dtype_name == "bfloat16" else 4
     return _bound((2 * b * nq * c + 2 * b * nk * c) * elem,
                   4 * b * nq * nk * c, dtype_name)
@@ -430,7 +457,8 @@ def attention_bound(b, nq, nk, c, dtype_name):
 def attention_bwd_bound(b, nq, nk, c, dtype_name):
     """(bound ms, "bytes" or "operations") of the SR-attention backward: q,
     g and dq (B*Nq*C each) and k, v, dk and dv (B*Nk*C each) moved once;
-    10*B*Nq*Nk*C flops (five products) at the dtype's peak."""
+    10*B*Nq*Nk*C flops (five products) at the rate of the dtype's kernels
+    (`PEAK_FLOPS`)."""
     elem = 2 if dtype_name == "bfloat16" else 4
     return _bound((3 * b * nq * c + 4 * b * nk * c) * elem,
                   10 * b * nq * nk * c, dtype_name)
@@ -581,6 +609,16 @@ def _demangle(symbols):
             for sym, name in zip(symbols, out)}
 
 
+def _design(sym: str) -> str:
+    """A kernel's design from its symbol: the bf16 wgmma kernels, the
+    float32 3xTF32 ones (products on wgmma too), or a split sum."""
+    if "_wgmma_kernel" in sym:
+        return "wgmma"
+    if "_f32_" in sym and "_sum_" not in sym:
+        return "3xtf32"
+    return "sum"
+
+
 def phase_build():
     from semisupervisedobjectdetection_torch.ops import _build
     from semisupervisedobjectdetection_torch.ops.sr_attention import (
@@ -596,11 +634,15 @@ def phase_build():
         lib, bwd = [f.result() for f in [pool.submit(_lib),
                                          pool.submit(_bwd_lib)]]
     seconds = time.perf_counter() - t0
-    # the CLIs refuse, before building a model, what the kernels refuse
-    limits = (lib.sr_attention_fwd_max_nk(), bwd.sr_attention_bwd_max_nk())
-    if limits != (MAX_NK, MAX_NK):
-        raise AssertionError(f"kernels take Nk <= {limits}; the wrapper's "
-                             f"MAX_NK is {MAX_NK}")
+    # the CLIs refuse, before building a model, what the kernels of the
+    # config's dtype refuse: bf16 Nk > MAX_NK, float32 nothing (0)
+    limits = {"bfloat16": (lib.sr_attention_fwd_max_nk(2),
+                           bwd.sr_attention_bwd_max_nk(2)),
+              "float32": (lib.sr_attention_fwd_max_nk(4),
+                          bwd.sr_attention_bwd_max_nk(4))}
+    if limits != {"bfloat16": (MAX_NK, MAX_NK), "float32": (0, 0)}:
+        raise AssertionError(f"kernels take Nk <= {limits} (0: any); the "
+                             f"wrapper's bf16 MAX_NK is {MAX_NK}")
     rows = []
     for source in (_SOURCE, _BWD_SOURCE):
         info = _build.BUILD_INFO[source]
@@ -608,10 +650,9 @@ def phase_build():
         extra = {}
         if source == _SOURCE:
             smem = {f"nk{nk}_d64_{name}":
-                    lib.sr_attention_fwd_smem_bytes(nk, 64, elem, mma)
-                    for nk in (256, 266) for name, elem, mma in (
-                        ("bf16_wgmma", 2, 1), ("bf16_scalar", 2, 0),
-                        ("f32", 4, 0))}
+                    lib.sr_attention_fwd_smem_bytes(nk, 64, elem)
+                    for nk in (256, 266) for name, elem in (
+                        ("bf16_wgmma", 2), ("f32_3xtf32", 4))}
             # the wgmma kernel's CTAs per SM (shared memory and its 384
             # threads at 168 registers allow one)
             extra["wgmma_ctas_per_sm"] = {
@@ -620,8 +661,9 @@ def phase_build():
         else:
             smem = {f"nk{nk}_d64_{name}":
                     bwd.sr_attention_bwd_smem_bytes(nk, 64, elem)
-                    for nk in (256, 266) for name, elem in (("bf16_wgmma", 2),
-                                                            ("f32", 4))}
+                    for nk in (256, 266) for name, elem in (
+                        ("bf16_wgmma", 2), ("f32_3xtf32", 4))}
+        extra["nk_limit"] = limits
         emit({"phase": "build", "source": source,
               "seconds": round(seconds, 3),
               "nvcc_seconds": round(info["seconds"], 3),
@@ -634,26 +676,30 @@ def phase_build():
         sass = _sass_tensor_ops(info["path"])
         names = _demangle(sorted(sass))
         for sym in sorted(sass):
-            design = "wgmma" if "_wgmma_kernel" in sym else "scalar"
             row = {"phase": "build", "source": source, "kernel": names[sym],
-                   "design": design,
+                   "design": _design(sym),
                    "tensor_core_instructions": sass[sym],
                    **ptxas.get(sym, {})}
             emit(row)
             rows.append(row)
-    # K1's and K2's bf16 kernels on wgmma (HGMMA and no HMMA: four
-    # instantiations each, d 32/64 by Nk <= 256/288)
-    wgmma = [r for r in rows if r["design"] == "wgmma"]
-    for source in (_SOURCE, _BWD_SOURCE):
-        mine = [r for r in wgmma if r["source"] == source]
-        if len(mine) != 4 or any(
+    # every tensor-core kernel on wgmma (HGMMA and no HMMA): K1's and K2's
+    # bf16 kernels, four instantiations each (d 32/64 by Nk <= 256/288);
+    # K1's float32 kernel and K2's float32 row and key passes, two each
+    # (d 32/64)
+    want = {(_SOURCE, "wgmma"): 4, (_BWD_SOURCE, "wgmma"): 4,
+            (_SOURCE, "3xtf32"): 2, (_BWD_SOURCE, "3xtf32"): 4}
+    tensor = [r for r in rows if r["design"] in ("wgmma", "3xtf32")]
+    for (source, design), n in want.items():
+        mine = [r for r in tensor
+                if (r["source"], r["design"]) == (source, design)]
+        if len(mine) != n or any(
                 r["tensor_core_instructions"]["HGMMA"] == 0
                 or r["tensor_core_instructions"]["HMMA"] for r in mine):
-            raise AssertionError(f"{source}: wgmma kernels without HGMMA "
-                                 f"or with HMMA: {mine}")
+            raise AssertionError(f"{source}: {design} kernels without HGMMA "
+                                 f"or with HMMA, or not {n}: {mine}")
     # their tiles live in registers: a stack frame or spills would put
     # them in local memory
-    local = [r for r in wgmma if r.get("stack_bytes", 1)
+    local = [r for r in tensor if r.get("stack_bytes", 1)
              or r.get("spill_store_bytes", 1)]
     if local:
         raise AssertionError(f"tensor-core kernels with local memory: "
@@ -662,25 +708,28 @@ def phase_build():
 
 
 def _k1_cases():
-    """(batch, shape, dtype, design) of the K1 checks: the wgmma kernel
-    (bf16, every bf16 path's) at the stage shapes at the serving, student
-    and teacher batches; the scalar kernel at the serving batch in bf16
-    (the serve gate's `scalar` path) and f32; all three at the prefix shapes
-    at the serving batch; the wgmma kernel at the transfer step's shapes at
-    the student batch; at the few-shot shapes (batch 2) the wgmma kernel in
-    bf16 and the scalar one in f32, as the few-shot step and its float32
-    gradients run them."""
+    """(batch, shape, dtype, design) of the K1 checks: the bf16 kernel
+    (wgmma) at the stage shapes at the serving, student and teacher
+    batches, at the prefix shapes at the serving batch, at the transfer
+    step's shapes at the student batch and at the few-shot shapes (batch
+    2); the float32 kernel (3xTF32) at the stage and prefix shapes at the
+    serving batch, at the few-shot and transfer shapes at batch 2 (as
+    fewshot_grad and transfer_grad run them), and past the bf16 limit: the
+    Nk-356 shapes (100 prompt tokens per stage, transfer_grad_nk356) at
+    batch 2, Nk 300 at batch 2 and Nk 1024 (stage 1 at 1024x1024) at
+    batch 1."""
     cases = [(b, s, "bfloat16", "wgmma")
              for b in (BATCH, MICRO, TEACHER_BATCH) for s in STAGE_SHAPES]
-    cases += [(BATCH, s, d, "scalar") for d in ("bfloat16", "float32")
-              for s in STAGE_SHAPES]
-    cases += [(BATCH, s, d, design) for s in PREFIX_SHAPES
-              for d, design in (("bfloat16", "wgmma"),
-                                ("bfloat16", "scalar"),
-                                ("float32", "scalar"))]
+    cases += [(BATCH, s, "float32", "3xtf32")
+              for s in STAGE_SHAPES + PREFIX_SHAPES]
+    cases += [(BATCH, s, "bfloat16", "wgmma") for s in PREFIX_SHAPES]
     cases += [(MICRO, s, "bfloat16", "wgmma") for s in TRANSFER_SHAPES]
     cases += [(FEW_BATCH, s, d, design) for s in FEWSHOT_SHAPES
-              for d, design in (("bfloat16", "wgmma"), ("float32", "scalar"))]
+              for d, design in (("bfloat16", "wgmma"),
+                                ("float32", "3xtf32"))]
+    cases += [(FEW_BATCH, s, "float32", "3xtf32")
+              for s in TRANSFER_SHAPES + NK356_SHAPES + (NK300_SHAPE,)]
+    cases += [(1, NK1024_SHAPE, "float32", "3xtf32")]
     return cases
 
 
@@ -689,7 +738,6 @@ def phase_kernel():
     import torch.nn.functional as F
 
     from semisupervisedobjectdetection_torch.ops.sr_attention import (
-        _lib,
         sr_attention,
         sr_attention_reference,
     )
@@ -701,11 +749,10 @@ def phase_kernel():
     for b, shape, dtype_name, design in _k1_cases():
         nq, nk, c, h = shape
         dtype = getattr(torch, dtype_name)
-        mma = design == "wgmma"
         q, k, v = (torch.randn(b, n, c, device="cuda", generator=gen)
                    .to(dtype) for n in (nq, nk, nk))
-        out = sr_attention(q, k, v, h, mma)
-        again = sr_attention(q, k, v, h, mma)
+        out = sr_attention(q, k, v, h)
+        again = sr_attention(q, k, v, h)
         torch.cuda.synchronize()
         ref = sr_attention_reference(q, k, v, h)
         err = (out.float() - ref.float()).abs().max().item()
@@ -720,32 +767,20 @@ def phase_kernel():
         del f64
         qs, ks, vs = (_heads(t, h) for t in (q, k, v))
         bound, by = attention_bound(b, nq, nk, c, dtype_name)
-        if mma:
-            # the scalar kernel on the same inputs (the `mma=False` path,
-            # the serve gate's `scalar` reading); the host cost of a call,
-            # and of the four tensor maps it encodes
-            scalar = {
-                "scalar_ms": cuda_ms(lambda: sr_attention(q, k, v, h, False)),
-                "host_us_per_call": host_us(
-                    lambda: sr_attention(q, k, v, h, True)),
-                "tensor_maps_us": _lib().sr_attention_fwd_map_ns(
-                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    b, nq, nk, c, h, 1000) / 1e3}
-        else:
-            scalar = {}
         row = {"phase": "kernel", "name": "sr_attention_fwd",
                "B": b, "Nq": nq, "Nk": nk, "C": c, "heads": h,
                "dtype": dtype_name, "design": design, "max_abs_err": err,
                "share_ne_plain": ne_plain, "rerun_bit_equal": rerun_equal,
                "tol": KERNEL_TOL[dtype_name], "ok": ok,
                "max_abs_err_vs_f64": err64,
-               "ms": cuda_ms(lambda: sr_attention(q, k, v, h, mma)),
-               **scalar,
+               "ms": cuda_ms(lambda: sr_attention(q, k, v, h)),
+               "host_us_per_call": host_us(lambda: sr_attention(q, k, v, h)),
                "plain_ms": cuda_ms(
                    lambda: sr_attention_reference(q, k, v, h), iters=5),
                "library_ms": cuda_ms(
                    lambda: F.scaled_dot_product_attention(qs, ks, vs)),
-               "bound_ms": bound, "bound_by": by}
+               "bound_ms": bound, "bound_by": by,
+               "bound_rate": PEAK_RATE_NAME[dtype_name]}
         emit(row)
         rows.append(row)
         del q, k, v, out, again, ref, qs, ks, vs
@@ -762,7 +797,7 @@ def phase_kernel_bwd():
 
     from semisupervisedobjectdetection_torch.ops.sr_attention import (
         _sm_count,
-        bwd_key_splits,
+        bwd_f32_plan,
         bwd_launch_plan,
         sr_attention_backward_reference,
         sr_attention_bwd,
@@ -776,14 +811,19 @@ def phase_kernel_bwd():
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     rows = []
     # every stage and prefix shape in both types; the transfer step's shapes
-    # (bf16 only: its float32 gradients are transfer_grad's) not among them;
-    # the few-shot shapes at batch 2 in both types
+    # not among them in bf16; the few-shot shapes at batch 2 in both types;
+    # in float32 at batch 2 the transfer shapes (transfer_grad's), the
+    # Nk-356 shapes (transfer_grad_nk356's) and Nk 300, and Nk 1024 at
+    # batch 1
     cases = [(MICRO, s, d) for s in STAGE_SHAPES + PREFIX_SHAPES
              for d in ("bfloat16", "float32")]
     cases += [(MICRO, s, "bfloat16") for s in TRANSFER_SHAPES
               if s not in PREFIX_SHAPES]
     cases += [(FEW_BATCH, s, d) for s in FEWSHOT_SHAPES
               for d in ("bfloat16", "float32")]
+    cases += [(FEW_BATCH, s, "float32")
+              for s in TRANSFER_SHAPES + NK356_SHAPES + (NK300_SHAPE,)]
+    cases += [(1, NK1024_SHAPE, "float32")]
     for b, shape, dtype_name in cases:
         nq, nk, c, h = shape
         dtype = getattr(torch, dtype_name)
@@ -807,10 +847,11 @@ def phase_kernel_bwd():
         same = all(torch.equal(a, a2) for a, a2 in zip(got, again))
         finite = all(bool(torch.isfinite(a).all().item()) for a in got)
         # the kernels one call ran on the card, as the profiler saw them,
-        # against those its design launches: the wgmma kernel (and the
-        # split sum where the plan splits a (batch, head)) and nothing of
-        # an earlier design, or the scalar passes (and their split sum);
-        # their number against the count the C launcher reported
+        # against those its design launches: the bf16 wgmma kernel (and the
+        # split sum where the plan splits a (batch, head)), or the float32
+        # row and key passes (and their split sum), and nothing of an
+        # earlier design; their number against the count the C launcher
+        # reported
         _, kernels = kernels_launched(
             lambda: sr_attention_bwd(q, k, v, g, h), "sr_attention_bwd")
         if dtype_name == "bfloat16":
@@ -821,11 +862,14 @@ def phase_kernel_bwd():
                       "host_us_per_call": host_us(
                           lambda: sr_attention_bwd(q, k, v, g, h))}
         else:
-            splits = bwd_key_splits(b, nq, nk, h)
-            want = ["sr_attention_bwd_rows_kernel",
-                    "sr_attention_bwd_keys_kernel"] + (
-                ["sr_attention_bwd_sum_kernel"] if splits > 1 else [])
-            design = {"design": "scalar", "key_pass_splits": splits}
+            plan = bwd_f32_plan(b, nq, nk, c, h, _sm_count(0))
+            want = list(plan["kernels"])
+            design = {"design": "3xtf32",
+                      "row_ctas_per_pair": plan["row_ctas_per_pair"],
+                      "key_groups": plan["key_groups"],
+                      "key_pass_splits": plan["splits"],
+                      "host_us_per_call": host_us(
+                          lambda: sr_attention_bwd(q, k, v, g, h))}
         if kernels != want or sr_attention_bwd.last_launches != len(want):
             raise AssertionError(
                 f"{dtype_name} K2 ran {kernels} on the card and its launcher "
@@ -858,7 +902,8 @@ def phase_kernel_bwd():
                    lambda: torch.autograd.grad(out, (qs, ks, vs), gs,
                                                retain_graph=True),
                    iters=10),
-               "bound_ms": bound, "bound_by": by}
+               "bound_ms": bound, "bound_by": by,
+               "bound_rate": PEAK_RATE_NAME[dtype_name]}
         emit(row)
         rows.append(row)
         del q, k, v, g, qs, ks, vs, out, gs
@@ -973,12 +1018,9 @@ def phase_serve(smi: str):
     # the gate's other paths on the same raw images, in batches of 8
     x = imgs[:n_raw].astype(np.float32) / 255.0
     dev = torch.device("cuda")
-    _reset_counts()
     paths = {"served": probs,
-             "scalar": serve_gate.masks(cfg, x, SEED, dev, scalar=True)}
-    scalar_launches = _counts()
-    paths["plain"] = serve_gate.masks(cfg.replace(attn_impl="plain"), x,
-                                      SEED, dev)
+             "plain": serve_gate.masks(cfg.replace(attn_impl="plain"), x,
+                                       SEED, dev)}
     f32 = serve_gate.masks(cfg.replace(dtype="float32", attn_impl="plain"),
                            x, SEED, dev)
     gate = serve_gate.readings(paths, f32)
@@ -996,7 +1038,6 @@ def phase_serve(smi: str):
            "statuses": sorted(set(statuses)), "batches": batches,
            "launches": launches, "launches_expected": per_forward * batches,
            "launches_mma": mma_launches,
-           "launches_k1_k2_k1mma_scalar_path": scalar_launches,
            "wall_s": wall, "img_per_s": (n_raw + 2) / wall,
            "latency_ms": after.get("latency_ms"),
            "mean_batch_fill": after["mean_batch_fill"],
@@ -1019,12 +1060,6 @@ def phase_serve(smi: str):
         raise AssertionError(f"{launches} kernel launches ({mma_launches} "
                              f"wgmma) for {batches} batches; expected "
                              f"{per_forward} wgmma per batch")
-    gate_batches = -(-n_raw // serve_gate.BATCH)
-    if scalar_launches != (per_forward * gate_batches, 0, 0):
-        raise AssertionError(
-            f"the gate's scalar path made {scalar_launches} (K1, K2, "
-            f"wgmma K1) launches for {gate_batches} batches; expected "
-            f"{per_forward} scalar K1 per batch and no wgmma")
     if health.get("platform") != "cuda":
         raise AssertionError(f"/healthz reports {health}")
     if not all(checks.values()):
@@ -1593,10 +1628,10 @@ def _record_nk():
     fwd, bwd = SRAttention.forward, SRAttention.backward
     log = {"k1": [], "k2": []}
 
-    def rec_fwd(ctx, q, k, v, num_heads, mma=True):
+    def rec_fwd(ctx, q, k, v, num_heads):
         log["k1"].append(k.shape[1])
         ctx.recorded_nk = k.shape[1]
-        return fwd(ctx, q, k, v, num_heads, mma)
+        return fwd(ctx, q, k, v, num_heads)
 
     def rec_bwd(ctx, g):
         log["k2"].append(ctx.recorded_nk)
@@ -1611,7 +1646,12 @@ def _record_nk():
         SRAttention.backward = staticmethod(bwd)
 
 
-def phase_transfer_grad():
+def phase_transfer_grad(tokens=TRANSFER_TOKENS, want_nk=TRANSFER_NK,
+                        name="transfer_grad"):
+    """The float32 transfer gradients through the kernels against the plain
+    path with `tokens` prompt tokens per stage, every K1 and K2 launch at
+    `want_nk` keys (transfer_grad: 10 tokens, Nk 266; transfer_grad_nk356:
+    100 tokens, Nk 356, which the bf16 kernels refuse)."""
     import numpy as np
     import torch
 
@@ -1641,7 +1681,7 @@ def phase_transfer_grad():
         m = SegFormerModel(config=cfg.replace(attn_impl=impl),
                            train_config=tc, seed=SEED)
         m.frozen_encoder(layers=list(TRANSFER_FROZEN))
-        m.add_prompt_token(TRANSFER_TOKENS)
+        m.add_prompt_token(tokens)
         state = m.state
         _reset_counts()
         with _record_nk() as log:
@@ -1676,9 +1716,9 @@ def phase_transfer_grad():
               else 0.0 for n in must_move}
     km = masks["kernel"]
     per = sum(B5_DEPTHS)
-    row = {"phase": "transfer_grad", "variant": "b5", "img": IMG,
+    row = {"phase": name, "variant": "b5", "img": IMG,
            "dtype": "float32", "batch": 2, "frozen": list(TRANSFER_FROZEN),
-           "prompt_tokens": list(TRANSFER_TOKENS), "quirks": False,
+           "prompt_tokens": list(tokens), "quirks": False,
            "tensors": len(rel), "max_rel_diff": worst[0][1],
            "worst_name_rel_scale": worst, "tol_rel": GRAD_F32_TOL,
            "scale_floor": floor,
@@ -1698,18 +1738,19 @@ def phase_transfer_grad():
         raise AssertionError("the frozen layers have gradients or moments, "
                              "or other tensors are frozen")
     if launches["kernel"] != (2 * per, per) or launches["plain"] != (0, 0):
-        raise AssertionError(f"transfer launches {launches}: expected K1 "
+        raise AssertionError(f"{name} launches {launches}: expected K1 "
                              f"{2 * per} and K2 {per}")
-    if row["nk_k1"] != [TRANSFER_NK] or row["nk_k2"] != [TRANSFER_NK] or \
+    if row["nk_k1"] != [want_nk] or row["nk_k2"] != [want_nk] or \
             row["nk_calls_k1_k2"] != [2 * per, per] or \
             nks["plain"] != {"k1": [], "k2": []}:
         raise AssertionError(f"Nk of the launches {row['nk_k1']}, "
-                             f"{row['nk_k2']}: expected {TRANSFER_NK}")
+                             f"{row['nk_k2']}: expected {want_nk}")
     if not all(v > 0 for v in moving.values()):
         raise AssertionError(f"no gradient reaches {moving}")
     if not finite or worst[0][1] > GRAD_F32_TOL:
-        raise AssertionError("B5 float32 transfer gradients through the "
-                             "kernels disagree with the plain path")
+        raise AssertionError(f"{name}: B5 float32 transfer gradients "
+                             "through the kernels disagree with the plain "
+                             "path")
     return row
 
 
@@ -2610,7 +2651,7 @@ def _fewshot_inputs(dev, seed):
 def phase_fewshot_grad():
     """B5 float32 with a CLS token per stage, batch 2: the gradients of the
     autoencoder's pair loss and of the seg pair loss (cls_loss_weight 1.0),
-    through the scalar kernels and through the plain path."""
+    through the float32 kernels and through the plain path."""
     import numpy as np
     import torch
 
@@ -2670,7 +2711,7 @@ def phase_fewshot_grad():
         rows.append(row)
         del grads
         torch.cuda.empty_cache()
-        want = FEWSHOT_SEG_K + (0,)     # float32: the scalar kernels
+        want = FEWSHOT_SEG_K + (0,)     # float32: no bf16 K1 launch
         if launches["kernel"] != want or launches["plain"] != (0, 0, 0):
             raise AssertionError(f"fewshot_grad {name} launches {launches}:"
                                  f" expected {want}, none plain")
@@ -2923,32 +2964,31 @@ def _kernel_entry(rows, passes, dtype="bfloat16", shapes=STAGE_SHAPES,
 
 
 def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
-            transfer_grad, transfer_step, sup_cli, transfer_cli, ts_step,
-            ts_cli, ae_step, ae_cli, serve_ckpt, fewshot_grad, fewshot_step,
-            fewshot_cli):
+            transfer_grad, transfer_grad_nk356, transfer_step, sup_cli,
+            transfer_cli, ts_step, ts_cli, ae_step, ae_cli, serve_ckpt,
+            fewshot_grad, fewshot_step, fewshot_cli, grad):
     """The `kernels` line: each kernel's times, bound and plain/library
-    times summed over what its main path runs, with its launches there:
-    K1's wgmma kernel (`sr_attention_fwd`, every bf16 path) and K2 over one
-    flagship EMA step (bf16, the B5 stage shapes at the batches the step
-    runs; launches in the train phase's 4 timed steps), K1's scalar kernel
-    (`sr_attention_fwd_scalar`, the float32 paths) over one B5 float32
-    forward at batch 2 with a CLS token per stage, as fewshot_grad runs it
-    (launches in the float32 gradient phases), and K2's scalar kernel
-    (`sr_attention_bwd_scalar`, the float32 paths) over one few-shot pair
-    loss's float32 backward at the same shapes (2 x 52 launches). K2's
-    wgmma entry gives the host microseconds of one call, its launches per
-    call (1, or 2 with the split sum, as the profiler saw them run); the
-    `mma.sync` design it replaced no longer builds from this checkout, so
-    its time is not in this line (`scripts/k1_design_ab.py --bwd` times it
-    against a build of the earlier source). For K1's wgmma kernel
-    `earlier_ms` is the scalar kernel's time over the same step on the
-    same inputs in this run, and `per_serve_forward` its sums over
-    one serve batch-8 forward (`earlier_ms` there: the scalar kernel's, on
-    the same inputs); the scalar entry's `bf16_serve_forward` is its bf16
-    time per serve forward (the serve gate's `scalar` path).
+    times summed over what its main path runs, with its launches there.
+    K1's bf16 kernel (`sr_attention_fwd`, wgmma, every bf16 path) and K2's
+    (`sr_attention_bwd`) over one flagship EMA step (bf16, the B5 stage
+    shapes at the batches the step runs; launches in the train phase's 4
+    timed steps). K1's float32 kernel (`sr_attention_fwd_f32`, 3xTF32)
+    over one B5 float32 forward at batch 2 with a CLS token per stage, as
+    fewshot_grad runs it, and K2's float32 kernels (`sr_attention_bwd_f32`:
+    row pass, key pass and split sum) over one few-shot pair loss's float32
+    backward at the same shapes (2 x 52 launches); both also per
+    transfer_grad pass (52 launches at Nk 266) and per transfer_grad_nk356
+    pass (Nk 356), with launches in the float32 gradient phases (grad,
+    train_mode's float32 half, transfer_grad, transfer_grad_nk356,
+    fewshot_grad). K2's bf16 entry
+    gives the host microseconds of one call and its launches per call (1,
+    or 2 with the split sum, as the profiler saw them run); the designs the
+    kernels replaced no longer build from this checkout, so their times are
+    not in this line (`scripts/k1_design_ab.py` times them against a build
+    of the earlier source). `per_serve_forward` sums K1's bf16 kernel over
+    one serve batch-8 forward.
     `launches_by_path` counts every path's launches: the EMA phases, the
-    supervised step, the float32 transfer gradients (the scalar K1 and K2
-    in float32), the bf16 transfer step, serving, and the supervised and
+    supervised step, the bf16 transfer step, serving, and the supervised and
     transfer CLIs. `per_transfer_step` sums the wgmma K1 and K2 over one
     flagship transfer step (the Nk-266 shapes at batch 16: 2 microbatches,
     each a forward and a recompute, and a backward), `per_labeled_step`
@@ -2956,11 +2996,11 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
     each, a forward and a recompute, and a backward, per model). The
     gradient teacher-student phases (ts_step, ts_cli) and the autoencoder
     phases (ae_step, ae_cli, the latter with its transfer epoch) join
-    `launches_by_path`, and so do the few-shot phases (fewshot_grad's
-    float32 scalar kernels, fewshot_step, fewshot_cli) and serve_ckpt;
-    `per_fewshot_ae_step` and `per_fewshot_seg_step` sum each kernel over
-    one few-shot step at batch 2 (the CLS shapes: 4 or 2 categories, each a
-    forward and a recompute, and a backward)."""
+    `launches_by_path`, and so do the few-shot phases (fewshot_step,
+    fewshot_cli) and serve_ckpt; `per_fewshot_ae_step` and
+    `per_fewshot_seg_step` sum each kernel over one few-shot step at batch
+    2 (the CLS shapes: 4 or 2 categories, each a forward and a recompute,
+    and a backward)."""
 
     def kernel_calls(i):
         return sum(c["launches_k1_k2_k1mma"][i]
@@ -3008,8 +3048,8 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
     src = "semisupervisedobjectdetection_torch/csrc/"
     tpu = "semisupervisedobjectdetection_tpu/ops/sr_attention.py"
     step = ((TEACHER_BATCH, ACCUM), (MICRO, 2 * ACCUM))
-    wg_rows = [r for r in k1_rows if r["design"] == "wgmma"]
-    scalar_rows = [r for r in k1_rows if r["design"] == "scalar"]
+    wg_rows = [r for r in k1_rows if r["dtype"] == "bfloat16"]
+    f32_rows = [r for r in k1_rows if r["dtype"] == "float32"]
     k1 = _kernel_entry(
         wg_rows, step,
         name="sr_attention_fwd", route="cuda", design="wgmma",
@@ -3019,11 +3059,7 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
             "student forward and recompute at batch 16), B5 512x512 bf16, "
             f"{K1_PER_STEP} launches",
         launches_per="4 timed EMA steps",
-        earlier_ms=sum(n * _stage_sum(wg_rows, b, "scalar_ms")
-                       for b, n in step),
-        earlier_design="scalar, on the same inputs in this run",
         host_us_per_call=max(r["host_us_per_call"] for r in wg_rows),
-        tensor_maps_us=max(r["tensor_maps_us"] for r in wg_rows),
         launches_by_path={
             "train (4 timed EMA steps)": train["launches_k1_mma"],
             "train_mode (2 flagship train-mode EMA steps)":
@@ -3051,7 +3087,6 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
             few_cli_path: few_cli(2)},
         per_serve_forward={
             **_passes_sum(wg_rows, ((BATCH, 1),)),
-            "earlier_ms": _stage_sum(wg_rows, BATCH, "scalar_ms"),
             "per": f"one serve forward: B5 512x512 bf16 at batch {BATCH}, "
                    f"{sum(B5_DEPTHS)} launches"},
         per_transfer_step=_passes_sum(wg_rows, ((MICRO, 2 * ACCUM),),
@@ -3061,21 +3096,40 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
                                         FEWSHOT_SHAPES),
         per_fewshot_seg_step=_passes_sum(wg_rows, ((FEW_BATCH, 4),),
                                          FEWSHOT_SHAPES))
-    f32_grad_path = "transfer_grad (B5 float32, Nk 266: forward and recompute)"
-    k1_scalar = _kernel_entry(
-        scalar_rows, ((FEW_BATCH, 1),), dtype="float32",
-        shapes=FEWSHOT_SHAPES,
-        name="sr_attention_fwd_scalar", route="cuda", design="scalar",
-        source=src + "sr_attention_fwd.cu", replaces=tpu + ":36",
-        launches=transfer_grad["launches_k1_k2"][0] + few_grad(0),
+    f32_paths = {
+        "grad (B5 float32, batch 2)": grad["launches_k1_k2"],
+        "train_mode (B5 float32 train-mode gradient, batch 2)":
+            train_mode["f32_launches_k1_k2"],
+        "transfer_grad (B5 float32, Nk 266)":
+            transfer_grad["launches_k1_k2"],
+        "transfer_grad_nk356 (B5 float32, Nk 356)":
+            transfer_grad_nk356["launches_k1_k2"],
+        few_grad_path: (few_grad(0), few_grad(1))}
+
+    def f32_entry(rows, passes, kernel, **fields):
+        """A float32 entry: summed over the few-shot `passes`, and per
+        transfer_grad and transfer_grad_nk356 pass (one pass at batch 2)."""
+        i = 0 if kernel == "fwd" else 1
+        return _kernel_entry(
+            rows, passes, dtype="float32", shapes=FEWSHOT_SHAPES,
+            route="cuda", design="3xtf32",
+            source=src + f"sr_attention_{kernel}.cu",
+            launches=sum(v[i] for v in f32_paths.values()),
+            launches_per="grad, train_mode's float32 gradient, "
+                         "transfer_grad, transfer_grad_nk356 and fewshot_grad",
+            launches_by_path={k: v[i] for k, v in f32_paths.items()},
+            per_transfer_grad_pass=_passes_sum(
+                rows, ((FEW_BATCH, 1),), TRANSFER_SHAPES, "float32"),
+            per_transfer_grad_nk356_pass=_passes_sum(
+                rows, ((FEW_BATCH, 1),), NK356_SHAPES, "float32"),
+            bound_rate=PEAK_RATE_NAME["float32"], **fields)
+
+    k1_f32 = f32_entry(
+        f32_rows, ((FEW_BATCH, 1),), "fwd", name="sr_attention_fwd_f32",
+        replaces=tpu + ":36",
         per=f"one B5 512x512 float32 forward at batch {FEW_BATCH} with a "
             f"CLS token per stage (Nk 257), as fewshot_grad runs it, "
-            f"{sum(B5_DEPTHS)} launches",
-        launches_per="transfer_grad and fewshot_grad",
-        launches_by_path={
-            f32_grad_path: transfer_grad["launches_k1_k2"][0],
-            few_grad_path + ": forward and recompute": few_grad(0)},
-        bf16_serve_forward=_passes_sum(scalar_rows, ((BATCH, 1),)))
+            f"{sum(B5_DEPTHS)} launches")
     k2_bf16 = [r for r in k2_rows if r["dtype"] == "bfloat16"]
     k2_f32 = [r for r in k2_rows if r["dtype"] == "float32"]
     k2 = _kernel_entry(
@@ -3120,21 +3174,16 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
             r["grid"] for s in FEWSHOT_SHAPES for r in k2_bf16
             if r["B"] == FEW_BATCH
             and (r["Nq"], r["Nk"], r["C"], r["heads"]) == s])
-    k2_scalar = _kernel_entry(
-        k2_f32, ((FEW_BATCH, 2),), dtype="float32", shapes=FEWSHOT_SHAPES,
-        name="sr_attention_bwd_scalar", route="cuda", design="scalar",
-        source=src + "sr_attention_bwd.cu", replaces=tpu + ":115",
-        launches=transfer_grad["launches_k1_k2"][1] + few_grad(1),
+    k2_f32_entry = f32_entry(
+        k2_f32, ((FEW_BATCH, 2),), "bwd", name="sr_attention_bwd_f32",
+        replaces=tpu + ":115",
         max_rel_err=max(r["rel_err"] for r in k2_f32),
+        host_us_per_call=max(r["host_us_per_call"] for r in k2_f32),
+        launches_per_call=sorted({r["launches_per_call"] for r in k2_f32}),
         per=f"one few-shot pair loss's backward in B5 512x512 float32 at "
             f"batch {FEW_BATCH} with a CLS token per stage (Nk 257), as "
-            f"fewshot_grad runs it, {2 * sum(B5_DEPTHS)} launches",
-        launches_per="transfer_grad and fewshot_grad",
-        launches_by_path={
-            "transfer_grad (B5 float32, Nk 266)":
-                transfer_grad["launches_k1_k2"][1],
-            few_grad_path: few_grad(1)})
-    return [k1, k1_scalar, k2, k2_scalar]
+            f"fewshot_grad runs it, {2 * sum(B5_DEPTHS)} launches")
+    return [k1, k1_f32, k2, k2_f32_entry]
 
 
 def main() -> int:
@@ -3168,6 +3217,8 @@ def main() -> int:
                               ["kernel"][-1])),
                           ("supervised", lambda: phase_supervised(smi)),
                           ("transfer_grad", phase_transfer_grad),
+                          ("transfer_grad_nk356", lambda: phase_transfer_grad(
+                              NK356_TOKENS, NK356, "transfer_grad_nk356")),
                           ("transfer_step", lambda: phase_transfer_step(smi)),
                           ("sup_cli", lambda: phase_sup_cli(smi)),
                           ("serve_ckpt", lambda: phase_serve_ckpt(
@@ -3191,6 +3242,7 @@ def main() -> int:
                                       results["train_mode"],
                                       results["cli"], results["supervised"],
                                       results["transfer_grad"],
+                                      results["transfer_grad_nk356"],
                                       results["transfer_step"],
                                       results["sup_cli"],
                                       results["transfer_cli"],
@@ -3201,7 +3253,8 @@ def main() -> int:
                                       results["serve_ckpt"],
                                       results["fewshot_grad"],
                                       results["fewshot_step"],
-                                      results["fewshot_cli"])}
+                                      results["fewshot_cli"],
+                                      results["grad"])}
         emit({"phase": "total", "seconds": round(time.perf_counter() - t0,
                                                  2), "per_phase": seconds})
     except Exception as e:

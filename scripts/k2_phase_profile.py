@@ -74,8 +74,10 @@ def instrumented(src: str) -> str:
          + "      // every warp merges"),
         ("      __syncwarp();\n\n      // 2. the main sweep",
          "      __syncwarp();\n" + _stamp(4) + "\n      // 2. the main sweep"),
-        ("      if (lane == 0) mbar_arrive(empty(st));\n",
-         _stamp(5) + "      if (lane == 0) mbar_arrive(empty(st));\n"),
+        ("      if (lane == 0) mbar_arrive(empty(st));\n"
+         "      fence_proxy_async();\n",
+         _stamp(5) + "      if (lane == 0) mbar_arrive(empty(st));\n"
+         "      fence_proxy_async();\n"),
         ("      consumers_sync();\n\n      // 3. dq",
          "      consumers_sync();\n" + _stamp(6) + "\n      // 3. dq"),
         ("                    (u - bh * tiles_per_bh) * kRowTile, b);\n"

@@ -14,12 +14,12 @@ trainable mask); it serves from a copy of the model:
   name and shape match (new tokens come from the seeded init, as in the
   JAX package);
 - serving: `predict` runs a bfloat16 (or float32) copy of the state's model
-  whose dense and conv weights are cast once; in bfloat16 SR-attention runs
-  the Hopper (wgmma) forward kernel, as training does, and chip_smoke's
-  serve gate holds its masks to the float32 model (PERF.md); float32
-  serving runs the scalar kernel. The copy is built at the first
-  `predict` after the weights changed, so serving casts no weight per
-  forward, and a model that only serves holds no Adam moments;
+  whose dense and conv weights are cast once; SR-attention runs the
+  forward kernel of the copy's dtype, as training does, and chip_smoke's
+  serve gate holds the bfloat16 masks to the float32 model (PERF.md). The
+  copy is built at the first `predict` after the weights changed, so
+  serving casts no weight per forward, and a model that only serves holds
+  no Adam moments;
 - checkpoints: `save`, `load` (a warm start, or the full state with
   `full_state=True`), `resume` (the `_last` checkpoint of a training run),
   `load_hf` and `load_state_dict`; `show_mask` writes a PNG overlay in
@@ -77,10 +77,8 @@ from semisupervisedobjectdetection_torch.core.config import (
     mit_b5,
 )
 from semisupervisedobjectdetection_torch.models.segformer import (
-    EfficientSelfAttention,
     SegFormer,
     cast_to_compute_dtype,
-    compute_dtype,
     forward_logits,
     forward_masks,
     init_weights,
@@ -235,22 +233,13 @@ class SegFormerModel:
     @property
     def model(self) -> SegFormer:
         """The serving copy of the float32 model: dense and conv weights in
-        the compute dtype; SR-attention's Hopper forward in bfloat16, the
-        scalar one in float32. Built when first asked for after the
-        weights changed."""
+        the compute dtype, SR-attention on the forward kernel of that dtype.
+        Built when first asked for after the weights changed."""
         if self._served is None:
             # ordinary tensors, whether `predict`'s inference mode is on
             with torch.inference_mode(False), torch.no_grad():
                 served = cast_to_compute_dtype(
                     copy.deepcopy(self._net)).eval()
-            # bfloat16 serving takes the Hopper forward, whose masks are
-            # no further from the float32 model's than the plain bf16
-            # path's (chip_smoke's serve gate, PERF.md); the flag reads
-            # true only where that kernel runs.
-            bf16 = compute_dtype(served.cfg) == torch.bfloat16
-            for layer in served.modules():
-                if isinstance(layer, EfficientSelfAttention):
-                    layer.attn_fwd_mma = bf16
             served.requires_grad_(False)
             self._served = served
         return self._served

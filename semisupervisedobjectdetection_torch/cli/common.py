@@ -134,9 +134,10 @@ def refuse_unported(args, extra: Tuple[Tuple[str, bool], ...] = ()) -> None:
 
 def check_kernel_shapes(cfg, args, device: torch.device) -> None:
     """SystemExit, before any model is built, when the SR-attention kernels
-    would refuse `cfg`'s shapes at --img-size on `device` (more than 288
-    keys: 32 prompt/CLS tokens per stage at 512x512). The CLIs never fall
-    back to the plain attention on the card."""
+    for `cfg`'s dtype would refuse its shapes at --img-size on `device`
+    (bfloat16: more than 288 keys, 32 prompt/CLS tokens per stage at
+    512x512; float32 takes any Nk). The CLIs never fall back to the plain
+    attention on the card."""
     from semisupervisedobjectdetection_torch.models.segformer import (
         check_attention_kernels,
     )

@@ -17,7 +17,9 @@
 // and moves q, g, dq (B*Nq*C each) and k, v, dk, dv (B*Nk*C each) once. At
 // MiT-B5 512x512 at batch 16 in bf16 on the H100 the operations bound it at
 // stages 1-3 (stage 1 43 us, stage 3 13.6 us against 12.5 us of bytes) and
-// the bytes at stage 4 (8.8 us). Two designs, by dtype:
+// the bytes at stage 4 (8.8 us). Two designs, by dtype, both every product
+// on wgmma with tiles brought in by TMA, both without atomics (two launches
+// give the same bits):
 //
 // bfloat16: the Hopper kernel (sr_attention_bwd_wgmma_kernel), every product
 // on wgmma, one launch (two where a (batch, head) is split over CTAs).
@@ -99,18 +101,43 @@
 //   as a second pass over the segment's query tiles (the row statistics
 //   kept per query row in shared memory or recomputed), each pass with its
 //   own dk/dv registers, dq summed over the passes in a fixed order.
-// float32: the scalar kernels, kept because TF32 tensor cores would not
-// hold the float32 results to their tolerance. Two passes, launched in
-// order on one stream, neither of which adds into another block's sums:
-// a row pass (one block per (batch*head, block of query rows), K^T and V^T
-// staged, lane l of a warp owning key columns l, l+32, ...) writes each
-// row's max, sum l and delta = rowsum(dp * p) to a float32 workspace and
-// writes dq; a key pass (32 keys a block, query rows in tiles of 32, split
-// over `splits` blocks when the key blocks alone would not fill the card)
-// recomputes s and dp with the same in-order FMA chains and rebuilds p and
-// ds bit for bit, and a third kernel sums the splits' float32 partials in
-// split order. Their products are scalar float32 FMAs, so the FMA pipes
-// and shared-memory reads bound them.
+// float32: three kernels on the TF32 tensor cores, every product split
+// three ways (3xTF32, sr_attention_wgmma.cuh: x = hi + lo, a b summed as
+// a_lo b_hi + a_hi b_lo + a_hi b_hi in float32; the dropped a_lo b_lo is
+// ~2^-22 of a b, so the products sit within ~1e-6 of float64, far inside
+// the float32 tolerance). What bounds them: 3 TF32 products per float32
+// product, at 495 / 3 = 165 TFLOP/s at best. Any Nk: K and V stream through
+// shared memory in blocks, so shared memory does not grow with Nk. The
+// launch plan (ops/sr_attention.py, `bwd_f32_plan`) sets both grids and
+// the key pass's split count; the launcher takes them as given.
+//   1. Row pass (sr_attention_bwd_f32_rows_kernel), 64-row query tiles, the
+//      CTA layout of the float32 forward: `row_ctas_per_pair` CTAs per
+//      (batch, head), each a run of its tiles, two at a time over two
+//      consumer warpgroups, with 32-key K/V blocks streamed by TMA through
+//      a ring of 2 stages that the producer warpgroup splits (K and V in
+//      place into hi and lo, and K^T hi and lo in kperm order). Sweep 1:
+//      s = q k^T and dp = g v^T (m64n32k8, q and g split into registers
+//      from their tiles) per block, an online max m, sum l and
+//      u = sum 2^(s c - m) dp per query row; then delta = u / l, and
+//      (m, 1 / l, delta) of each row to a float32 workspace. Sweep 2: the
+//      same two products by the same code, p = 2^(s c - m) / l and
+//      ds = p (dp - delta) scale in registers, split as the A operand of
+//      dq += ds k (m64n{d}k8 over K^T); dq stored from registers.
+//   2. Key pass (sr_attention_bwd_f32_keys_kernel), keys as wgmma's M: a CTA
+//      holds two 64-key blocks (one per consumer) of a (batch, head) and
+//      walks a range of its 32-row query tiles (the plan's `splits` ranges
+//      per (batch, head)); per tile the producer splits q and g (in place,
+//      and transposed in kperm order). A consumer forms s^T = k q^T and
+//      dp^T = v g^T (m64n32k8, k and v split into registers) with the cross
+//      terms in swapped order, so each score and dp is the row pass's to
+//      the bit, rebuilds p and ds from the row statistics by the same code,
+//      and adds dv += p^T g and dk += ds^T q (m64n{d}k8 over g^T and q^T)
+//      into registers held across the range.
+//   3. Split sum (sr_attention_bwd_f32_sum_kernel), where splits > 1: each
+//      key-pass CTA wrote its float32 dk and dv to its split's slot; the
+//      slots are summed in split order.
+//   Products: five the function needs, plus s and dp once more in the row
+//   pass's sweep 1 and again in the key pass: nine in all.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -123,439 +150,14 @@
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 4;      // query rows a warp holds at once (row pass)
-constexpr int kMaxSlots = 9;  // key columns per lane: Nk <= 288
-constexpr int kKeys = 32;     // keys per block (key pass)
-constexpr int kTile = 32;     // query rows per tile (key pass)
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-
-__host__ __device__ __forceinline__ size_t align16(size_t n) {
-  return (n + 15) & ~size_t(15);
-}
-
-// p of one score: both passes call this, with the explicitly rounded
-// operations (no FMA contraction), so they get the same bits.
-__device__ __forceinline__ float prob(float s, float scale, float m, float l) {
-  return __fdiv_rn(expf(__fsub_rn(__fmul_rn(s, scale), m)), l);
-}
-
-__device__ __forceinline__ float dscore(float p, float dp, float delta,
-                                        float scale) {
-  return __fmul_rn(__fmul_rn(p, __fsub_rn(dp, delta)), scale);
-}
-
-// Row-pass shared memory, in bytes from the start of the dynamic buffer:
-//   kt [d][ldk] T   K transposed
-//   vt [d][ldk] T   V transposed
-//   qs [kWarps][kRows][d]   float   each warp's query rows
-//   gs [kWarps][kRows][d]   float   each warp's output-gradient rows
-//   ds [kWarps][kRows][nkp] float   each warp's rounded ds rows
-// A row of kt holds an odd number of 32-bit words, so the lanes of the dq
-// loop, each reading its own column of K^T, fall in different banks.
-struct RowLayout {
-  int nkp, ldk;
-  size_t kt, vt, qs, gs, ds, total;
-  __host__ __device__ RowLayout(int nk, int d, int elem) {
-    nkp = (nk + 31) / 32 * 32;
-    ldk = elem == 4 ? nkp + 1 : nkp + 2;
-    kt = 0;
-    vt = align16(kt + size_t(d) * ldk * elem);
-    qs = align16(vt + size_t(d) * ldk * elem);
-    gs = qs + size_t(kWarps) * kRows * d * sizeof(float);
-    ds = gs + size_t(kWarps) * kRows * d * sizeof(float);
-    total = ds + size_t(kWarps) * kRows * nkp * sizeof(float);
-  }
-};
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-sr_attention_bwd_rows_kernel(const T* __restrict__ q,
-                             const T* __restrict__ k,
-                             const T* __restrict__ v,
-                             const T* __restrict__ g, T* __restrict__ dq,
-                             float* __restrict__ stats, int nq, int nk,
-                             int heads, int block_q, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const RowLayout lay(nk, D, sizeof(T));
-  const int nkp = lay.nkp, ldk = lay.ldk, nc = nkp / 32;
-  T* kt = reinterpret_cast<T*>(smem + lay.kt);
-  T* vt = reinterpret_cast<T*>(smem + lay.vt);
-  const int c = heads * D;
-
-  const int bh = int(blockIdx.y), b = bh / heads, h = bh % heads;
-  const int tid = int(threadIdx.x), warp = tid >> 5, lane = tid & 31;
-  float* qw = reinterpret_cast<float*>(smem + lay.qs) + warp * kRows * D;
-  float* gw = reinterpret_cast<float*>(smem + lay.gs) + warp * kRows * D;
-  float* dw = reinterpret_cast<float*>(smem + lay.ds) + warp * kRows * nkp;
-
-  // Stage this (b, h)'s K^T and V^T in 16-byte loads; keys past nk are zero.
-  constexpr int kVec = 16 / sizeof(T);
-  const T* kb = k + size_t(b) * nk * c + h * D;
-  const T* vb = v + size_t(b) * nk * c + h * D;
-#pragma unroll 2
-  for (int i = tid; i < nkp * (D / kVec); i += kThreads) {
-    const int j = i / (D / kVec), e = (i % (D / kVec)) * kVec;
-    uint4 kraw = make_uint4(0u, 0u, 0u, 0u), vraw = kraw;
-    if (j < nk) {
-      kraw = *reinterpret_cast<const uint4*>(kb + size_t(j) * c + e);
-      vraw = *reinterpret_cast<const uint4*>(vb + size_t(j) * c + e);
-    }
-    const T* kv = reinterpret_cast<const T*>(&kraw);
-    const T* vv = reinterpret_cast<const T*>(&vraw);
-#pragma unroll
-    for (int x = 0; x < kVec; ++x) {
-      kt[(e + x) * ldk + j] = kv[x];
-      vt[(e + x) * ldk + j] = vv[x];
-    }
-  }
-  __syncthreads();
-
-  const T* qb = q + size_t(b) * nq * c + h * D;
-  const T* gb = g + size_t(b) * nq * c + h * D;
-  T* dqb = dq + size_t(b) * nq * c + h * D;
-  float* sb = stats + size_t(bh) * nq * 3;
-  const int q0 = int(blockIdx.x) * block_q;
-  const int q_end = min(q0 + block_q, nq);
-  constexpr int kCols = D / 32;  // dq columns per lane
-
-  for (int r0 = q0 + warp * kRows; r0 < q_end; r0 += kWarps * kRows) {
-    // This warp's q and g rows as float32; rows past the end are zero.
-    for (int i = lane; i < kRows * D; i += 32) {
-      const int row = r0 + i / D;
-      const bool ok = row < q_end;
-      qw[i] = ok ? to_f(qb[size_t(row) * c + i % D]) : 0.f;
-      gw[i] = ok ? to_f(gb[size_t(row) * c + i % D]) : 0.f;
-    }
-    __syncwarp();
-
-    // s[r][t] = q_r . k_(32t + lane), dp[r][t] = g_r . v_(32t + lane), each
-    // one FMA chain over the head dimension in order (the key pass repeats
-    // exactly these chains).
-    float s[kRows][kMaxSlots], dp[kRows][kMaxSlots];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int t = 0; t < kMaxSlots; ++t) s[r][t] = dp[r][t] = 0.f;
-#pragma unroll 2
-    for (int e = 0; e < D; e += 4) {
-      float4 qa[kRows], ga[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        qa[r] = *reinterpret_cast<const float4*>(qw + r * D + e);
-        ga[r] = *reinterpret_cast<const float4*>(gw + r * D + e);
-      }
-#pragma unroll
-      for (int t = 0; t < kMaxSlots; ++t) {
-        if (t < nc) {
-          const T* kp = kt + e * ldk + t * 32 + lane;
-          const T* vp = vt + e * ldk + t * 32 + lane;
-          const float k0 = to_f(kp[0]), k1 = to_f(kp[ldk]);
-          const float k2 = to_f(kp[2 * ldk]), k3 = to_f(kp[3 * ldk]);
-          const float v0 = to_f(vp[0]), v1 = to_f(vp[ldk]);
-          const float v2 = to_f(vp[2 * ldk]), v3 = to_f(vp[3 * ldk]);
-#pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-            float a = s[r][t];
-            a = fmaf(qa[r].x, k0, a);
-            a = fmaf(qa[r].y, k1, a);
-            a = fmaf(qa[r].z, k2, a);
-            a = fmaf(qa[r].w, k3, a);
-            s[r][t] = a;
-            float o = dp[r][t];
-            o = fmaf(ga[r].x, v0, o);
-            o = fmaf(ga[r].y, v1, o);
-            o = fmaf(ga[r].z, v2, o);
-            o = fmaf(ga[r].w, v3, o);
-            dp[r][t] = o;
-          }
-        }
-      }
-    }
-
-    // Per row: max, l = sum exp, p, delta = rowsum(dp * p), then ds rounded
-    // to the input type into shared memory (zero in the padded tail). l and
-    // delta are taken from lane 0 so every lane, and the key pass, use one
-    // value.
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      float m = -INFINITY;
-#pragma unroll
-      for (int t = 0; t < kMaxSlots; ++t) {
-        const bool ok = t < nc && t * 32 + lane < nk;
-        s[r][t] = ok ? __fmul_rn(s[r][t], scale) : -INFINITY;
-        m = fmaxf(m, s[r][t]);
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      float l = 0.f;
-#pragma unroll
-      for (int t = 0; t < kMaxSlots; ++t) {
-        const bool ok = t < nc && t * 32 + lane < nk;
-        s[r][t] = ok ? expf(__fsub_rn(s[r][t], m)) : 0.f;
-        l = __fadd_rn(l, s[r][t]);
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        l = __fadd_rn(l, __shfl_xor_sync(0xffffffffu, l, o));
-      l = __shfl_sync(0xffffffffu, l, 0);
-      float delta = 0.f;
-#pragma unroll
-      for (int t = 0; t < kMaxSlots; ++t) {
-        const bool ok = t < nc && t * 32 + lane < nk;
-        s[r][t] = __fdiv_rn(s[r][t], l);  // p (zero where masked)
-        if (ok) delta = __fadd_rn(delta, __fmul_rn(dp[r][t], s[r][t]));
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        delta = __fadd_rn(delta, __shfl_xor_sync(0xffffffffu, delta, o));
-      delta = __shfl_sync(0xffffffffu, delta, 0);
-#pragma unroll
-      for (int t = 0; t < kMaxSlots; ++t) {
-        if (t < nc) {
-          const bool ok = t * 32 + lane < nk;
-          const float ds = ok ? dscore(s[r][t], dp[r][t], delta, scale) : 0.f;
-          dw[r * nkp + t * 32 + lane] = to_f(from_f<T>(ds));
-        }
-      }
-      const int row = r0 + r;
-      if (lane == 0 && row < q_end) {
-        sb[size_t(row) * 3 + 0] = m;
-        sb[size_t(row) * 3 + 1] = l;
-        sb[size_t(row) * 3 + 2] = delta;
-      }
-    }
-    __syncwarp();
-
-    // dq[r][u] = sum_j ds[r][j] * k[j][32u + lane]
-    float acc[kRows][kCols];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int u = 0; u < kCols; ++u) acc[r][u] = 0.f;
-#pragma unroll 2
-    for (int j = 0; j < nkp; j += 4) {
-      float4 da[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        da[r] = *reinterpret_cast<const float4*>(dw + r * nkp + j);
-#pragma unroll
-      for (int u = 0; u < kCols; ++u) {
-        const T* kp = kt + (u * 32 + lane) * ldk + j;
-        const float k0 = to_f(kp[0]), k1 = to_f(kp[1]);
-        const float k2 = to_f(kp[2]), k3 = to_f(kp[3]);
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          float a = acc[r][u];
-          a = fmaf(da[r].x, k0, a);
-          a = fmaf(da[r].y, k1, a);
-          a = fmaf(da[r].z, k2, a);
-          a = fmaf(da[r].w, k3, a);
-          acc[r][u] = a;
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = r0 + r;
-      if (row < q_end) {
-#pragma unroll
-        for (int u = 0; u < kCols; ++u)
-          dqb[size_t(row) * c + u * 32 + lane] = from_f<T>(acc[r][u]);
-      }
-    }
-    __syncwarp();  // qw/gw/dw are rewritten by the next row group
-  }
-}
-
-// part: nullptr with one split, else [splits][2][B*nk*c] float32 partials
-// of dk and dv.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-sr_attention_bwd_keys_kernel(const T* __restrict__ q,
-                             const T* __restrict__ k,
-                             const T* __restrict__ v,
-                             const T* __restrict__ g,
-                             const float* __restrict__ stats,
-                             T* __restrict__ dk, T* __restrict__ dv,
-                             float* __restrict__ part, int nq, int nk,
-                             int heads, int rows_per_split, float scale) {
-  // +1 columns: the lanes of a warp read one row each (ks, vs) or write one
-  // column each (pt, dst) without bank conflicts.
-  __shared__ float ks[kKeys][D + 1];
-  __shared__ float vs[kKeys][D + 1];
-  __shared__ float qt[kTile][D + 1];
-  __shared__ float gt[kTile][D + 1];
-  __shared__ float pt[kTile][kKeys + 1];
-  __shared__ float dst[kTile][kKeys + 1];
-  __shared__ float st[kTile][3];
-
-  const int c = heads * D;
-  const int bh = int(blockIdx.y), b = bh / heads, h = bh % heads;
-  const int j0 = int(blockIdx.x) * kKeys;
-  const int tid = int(threadIdx.x), warp = tid >> 5, lane = tid & 31;
-
-  for (int i = tid; i < kKeys * D; i += kThreads) {
-    const int j = i / D, e = i % D;
-    const bool ok = j0 + j < nk;
-    const size_t at = (size_t(b) * nk + j0 + j) * c + h * D + e;
-    ks[j][e] = ok ? to_f(k[at]) : 0.f;
-    vs[j][e] = ok ? to_f(v[at]) : 0.f;
-  }
-
-  // Thread tid owns column tid % D of keys grp, grp + kGroups, ... of dk, dv.
-  constexpr int kGroups = kThreads / D;
-  constexpr int kPer = kKeys / kGroups;
-  const int col = tid % D, grp = tid / D;
-  float acc_k[kPer], acc_v[kPer];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) acc_k[i] = acc_v[i] = 0.f;
-
-  const T* qb = q + size_t(b) * nq * c + h * D;
-  const T* gb = g + size_t(b) * nq * c + h * D;
-  const float* sb = stats + size_t(bh) * nq * 3;
-  const bool key_ok = j0 + lane < nk;
-  const int r_begin = int(blockIdx.z) * rows_per_split;
-  const int r_end = min(nq, r_begin + rows_per_split);
-
-  for (int r0 = r_begin; r0 < r_end; r0 += kTile) {
-    __syncthreads();  // the previous tile is consumed; ks/vs are staged
-    for (int i = tid; i < kTile * D; i += kThreads) {
-      const int r = i / D, e = i % D, row = r0 + r;
-      const bool ok = row < r_end;
-      qt[r][e] = ok ? to_f(qb[size_t(row) * c + e]) : 0.f;
-      gt[r][e] = ok ? to_f(gb[size_t(row) * c + e]) : 0.f;
-    }
-    for (int i = tid; i < kTile * 3; i += kThreads) {
-      const int row = r0 + i / 3;
-      st[i / 3][i % 3] = row < r_end ? sb[size_t(row) * 3 + i % 3] : 0.f;
-    }
-    __syncthreads();
-
-    // p and rounded ds of (row r, key lane), for rows warp, warp + 8, ...
-    for (int r = warp; r < kTile; r += kWarps) {
-      float s = 0.f, o = 0.f;
-#pragma unroll 16
-      for (int e = 0; e < D; ++e) {
-        s = fmaf(qt[r][e], ks[lane][e], s);
-        o = fmaf(gt[r][e], vs[lane][e], o);
-      }
-      float p = 0.f, ds = 0.f;
-      if (key_ok && r0 + r < r_end) {
-        p = prob(s, scale, st[r][0], st[r][1]);
-        ds = to_f(from_f<T>(dscore(p, o, st[r][2], scale)));
-      }
-      pt[r][lane] = p;
-      dst[r][lane] = ds;
-    }
-    __syncthreads();
-
-    // dv[j][col] += sum_r p[r][j] g[r][col]; dk[j][col] += sum_r ds[r][j]
-    // q[r][col], over the tile's rows in order.
-    for (int r = 0; r < kTile; ++r) {
-      const float gv = gt[r][col], qv = qt[r][col];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const int j = grp + i * kGroups;
-        acc_v[i] = fmaf(pt[r][j], gv, acc_v[i]);
-        acc_k[i] = fmaf(dst[r][j], qv, acc_k[i]);
-      }
-    }
-  }
-
-  const size_t n_out = size_t(gridDim.y / heads) * nk * c;
-  float* pk = part == nullptr ? nullptr : part + 2 * n_out * blockIdx.z;
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int j = grp + i * kGroups;
-    if (j0 + j < nk) {
-      const size_t at = (size_t(b) * nk + j0 + j) * c + h * D + col;
-      if (pk == nullptr) {
-        dk[at] = from_f<T>(acc_k[i]);
-        dv[at] = from_f<T>(acc_v[i]);
-      } else {
-        pk[at] = acc_k[i];
-        pk[n_out + at] = acc_v[i];
-      }
-    }
-  }
-}
-
-// dk, dv = the float32 partials of the splits summed in split order, cast.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-sr_attention_bwd_sum_kernel(const float* __restrict__ part,
-                            T* __restrict__ dk, T* __restrict__ dv,
-                            size_t n, int splits) {
-  for (size_t i = size_t(blockIdx.x) * kThreads + threadIdx.x; i < n;
-       i += size_t(gridDim.x) * kThreads) {
-    float sk = 0.f, sv = 0.f;
-    for (int sp = 0; sp < splits; ++sp) {
-      sk += part[2 * n * sp + i];
-      sv += part[2 * n * sp + n + i];
-    }
-    dk[i] = from_f<T>(sk);
-    dv[i] = from_f<T>(sv);
-  }
-}
+constexpr int kThreads = 256;      // threads of a split-sum block
+constexpr int kMaxNkBf16 = 288;    // the bf16 kernel's K/V and registers
 
 // The error of the launch just made; one more in *launched if none.
 int launched_ok(int* launched) {
   const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) ++*launched;
   return int(err);
-}
-
-// dk, dv from the float32 partials of `splits` splits (n values each).
-template <typename T>
-int launch_sum(const void* part, void* dk, void* dv, size_t n, int splits,
-               cudaStream_t stream, int* launched) {
-  const size_t need = (n + kThreads - 1) / kThreads;
-  const int blocks = int(need < 1056 ? need : 1056);  // 8 per SM
-  sr_attention_bwd_sum_kernel<T><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const float*>(part), static_cast<T*>(dk),
-      static_cast<T*>(dv), n, splits);
-  return launched_ok(launched);
-}
-
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* g,
-           void* dq, void* dk, void* dv, void* stats, void* part, int b,
-           int nq, int nk, int heads, int block_q, int splits,
-           cudaStream_t stream, int* launched) {
-  const float scale = 1.0f / sqrtf(float(D));
-  const RowLayout lay(nk, D, sizeof(T));
-  auto rows = sr_attention_bwd_rows_kernel<T, D>;
-  static std::atomic<uint32_t> opted{0};
-  cudaError_t err = sr_wgmma::opt_in_smem(rows, opted);
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid_rows((nq + block_q - 1) / block_q, b * heads);
-  rows<<<grid_rows, kThreads, lay.total, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(g), static_cast<T*>(dq),
-      static_cast<float*>(stats), nq, nk, heads, block_q, scale);
-  if (const int e = launched_ok(launched)) return e;
-  // splits of whole row tiles, the last one possibly shorter
-  const int rows_per_split =
-      ((nq + splits - 1) / splits + kTile - 1) / kTile * kTile;
-  const dim3 grid_keys((nk + kKeys - 1) / kKeys, b * heads, splits);
-  sr_attention_bwd_keys_kernel<T, D><<<grid_keys, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(g),
-      static_cast<const float*>(stats), static_cast<T*>(dk),
-      static_cast<T*>(dv), splits > 1 ? static_cast<float*>(part) : nullptr,
-      nq, nk, heads, rows_per_split, scale);
-  if (const int e = launched_ok(launched); e || splits == 1) return e;
-  return launch_sum<T>(part, dk, dv, size_t(b) * nk * heads * D, splits,
-                       stream, launched);
 }
 
 // ---- bfloat16: the wgmma + TMA kernel ----
@@ -573,7 +175,7 @@ constexpr int kBwdThreads = (kCons + 1) * kWgThreads;  // + the producer's
 constexpr int kProducerRegs = 24;      // setmaxnreg: 128 * 24 + 256 * 240
 constexpr int kConsumerRegs = 240;     // = the 384 * 168 a CTA starts with
 constexpr int kMaxMTiles = 5;          // Nk <= 288 < 5 * 64
-static_assert(kMaxMTiles * kKeyTile >= kMaxSlots * 32, "one Nk limit");
+static_assert(kMaxMTiles * kKeyTile >= kMaxNkBf16, "one Nk limit");
 
 // Shared memory of the wgmma kernel, in bytes from a 1024-aligned base
 // (MT M-tiles of keys, rows of D bf16):
@@ -1171,44 +773,696 @@ int dispatch_bwd_wgmma(const void* q, const void* k, const void* v,
                                          nk, heads, grid, stream, launched);
 }
 
+
+// ---- float32: the 3xTF32 row pass, key pass and split sum ----
+
+constexpr int kF32Rows = 64;          // query rows of a row-pass tile
+constexpr int kF32RowKeys = 32;       // keys of a row-pass K/V block
+constexpr int kF32Keys = 64;          // keys of a key-pass block (M)
+constexpr int kF32KeyRows = 32;       // query rows of a key-pass tile
+constexpr int kF32Stages = 2;         // blocks or tiles in flight
+constexpr int kF32ProducerRegs = 56;  // setmaxnreg: 128 * 56 + 256 * 224
+constexpr int kF32ConsumerRegs = 224;
+
+// Row-pass shared memory, in bytes from a 1024-aligned base (float32 panel
+// tiles):
+//   q, g [kCons][64][D]            each consumer's q and g tiles, as loaded
+//   per stage st, six tiles of 32 * D floats:
+//     0 kh [32][D]   K (TMA), then tf32 hi in place;  1 kl [32][D]  K lo
+//     2 vh [32][D]   V (TMA), then hi in place;        3 vl [32][D]  V lo
+//     4 kth [D][32]  K^T hi, keys in kperm order;      5 ktl        K^T lo
+//   barriers: qg_full, qg_empty [kCons]; raw_full, full, empty [kF32Stages]
+struct F32RowLayout {
+  size_t tile, blk, qg, stage, bar, total;
+  __host__ __device__ explicit F32RowLayout(int d) {
+    tile = size_t(kF32Rows) * d * sizeof(float);
+    blk = size_t(kF32RowKeys) * d * sizeof(float);
+    qg = 0;
+    stage = qg + 2 * kCons * tile;
+    bar = stage + kF32Stages * 6 * blk;
+    total = bar + (2 * kCons + 3 * kF32Stages) * 8 + 1024;
+  }
+};
+
+// Key-pass shared memory, in bytes from a 1024-aligned base:
+//   k, v [kCons][64][D]            each consumer's K and V block, as loaded
+//   per stage st, eight tiles of 32 * D floats and the tile's statistics:
+//     0 qh [32][D] q (TMA), hi in place; 1 ql; 2 gh g (TMA), hi; 3 gl
+//     4 qth [D][32] q^T hi, rows in kperm order; 5 qtl; 6 gth; 7 gtl
+//     8 stats [32] float4 (m, 1 / l, delta, 0), padded to 1024 bytes
+//   barriers: kv_full [kCons]; raw_full, full, empty [kF32Stages]
+struct F32KeyLayout {
+  size_t tile, blk, kv, stage, stage_bytes, bar, total;
+  __host__ __device__ explicit F32KeyLayout(int d) {
+    tile = size_t(kF32Keys) * d * sizeof(float);
+    blk = size_t(kF32KeyRows) * d * sizeof(float);
+    kv = 0;
+    stage = kv + 2 * kCons * tile;
+    stage_bytes = 8 * blk + 1024;
+    bar = stage + kF32Stages * stage_bytes;
+    total = bar + (kCons + 3 * kF32Stages) * 8 + 1024;
+  }
+};
+
+// The producer warpgroup's split of a 32-row block x (rows of D floats, as
+// TMA wrote it) into hi in place and lo in xl, and its transpose [D][32]
+// into xth, xtl with the rows in kperm order: lane l of warp w takes row
+// position l (row kperm(l)) and columns w D / 4 .. + D / 4, so each thread
+// rewrites the 16-byte chunks it read, the transposed writes of a warp fall
+// on 32 banks, and a quarter-warp's reads on 8 rows of distinct row % 8.
+template <int D>
+__device__ __forceinline__ void split_block_t(unsigned char* x,
+                                              unsigned char* xl,
+                                              unsigned char* xth,
+                                              unsigned char* xtl, int pt) {
+  const int w = pt >> 5, pos = pt & 31, row = kperm(pos);
+#pragma unroll
+  for (int n4 = 0; n4 < D / 16; ++n4) {
+    const int n = w * (D / 4) + 4 * n4;
+    const uint32_t off = f32_off(row, n, 32);
+    const float4 v = *reinterpret_cast<const float4*>(x + off);
+    const float vs[4] = {v.x, v.y, v.z, v.w};
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      split_tf32(vs[e], hi[e], lo[e]);
+      *reinterpret_cast<uint32_t*>(xth + f32_off(n + e, pos, D)) = hi[e];
+      *reinterpret_cast<uint32_t*>(xtl + f32_off(n + e, pos, D)) = lo[e];
+    }
+    *reinterpret_cast<uint4*>(x + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(xl + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
+}
+
+// A 32-row block x split into hi in place and lo in xl (any layout).
+template <int D>
+__device__ __forceinline__ void split_block(unsigned char* x,
+                                            unsigned char* xl, int pt) {
+#pragma unroll
+  for (int i = pt; i < kF32RowKeys * D / 4; i += kWgThreads) {
+    const float4 v = *reinterpret_cast<const float4*>(x + 16 * i);
+    uint4 hi, lo;
+    split_tf32(v.x, hi.x, lo.x);
+    split_tf32(v.y, hi.y, lo.y);
+    split_tf32(v.z, hi.z, lo.z);
+    split_tf32(v.w, hi.w, lo.w);
+    *reinterpret_cast<uint4*>(x + 16 * i) = hi;
+    *reinterpret_cast<uint4*>(xl + 16 * i) = lo;
+  }
+}
+
+// p and ds of one score, in both passes by this code: p = 2^(s c - m) / l
+// (0 for a key past Nk), ds = p (dp - delta) scale. s c is rounded before
+// m is taken off (m is the largest s c, rounded the same way), so the
+// largest score's exponential is exactly 1: with one key, p = 1 and
+// ds = 0 exactly, as in the plain version.
+__device__ __forceinline__ void prob_ds(float s, float dp, float4 st,
+                                        bool valid, float scale_log2,
+                                        float scale, float& p, float& ds) {
+  p = exp2_approx(__fsub_rn(__fmul_rn(s, scale_log2), st.x)) * st.y;
+  p = valid ? p : 0.f;
+  ds = p * (dp - st.z) * scale;
+}
+
+// The 64 x 32 products of a consumer, A split from the float32 tiles a1, a2
+// (64 rows of D, as loaded), B the hi / lo tiles (32 rows) at b1h, b1l and
+// b2h, b2l: d1 = a1 b1^T, then d2 = a2 b2^T. The row pass forms s and dp
+// (q, g against k, v), the key pass s^T and dp^T (k, v against q, g, with
+// Swap) by this code, so the two give the same bits.
+template <int D, bool Swap>
+__device__ __forceinline__ void pair_products(
+    const unsigned char* a1, const unsigned char* a2, uint32_t b1h,
+    uint32_t b1l, uint32_t b2h, uint32_t b2l, int warp, int g8, int t4,
+    float (&d1)[16], float (&d2)[16]) {
+  constexpr int KS = D / 8;
+  uint32_t ah[4 * KS], al[4 * KS];
+  load_a_tf32<KS>(a1, 64, warp, g8, t4, ah, al);
+  fence_regs<4 * KS>(ah);
+  fence_regs<4 * KS>(al);
+  wgmma_fence();
+  wgmma_3xtf32<32, KS, Swap>(d1, ah, al, b1h, b1l, 32, 0);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs<16>(d1);
+  load_a_tf32<KS>(a2, 64, warp, g8, t4, ah, al);
+  fence_regs<4 * KS>(ah);
+  fence_regs<4 * KS>(al);
+  wgmma_fence();
+  wgmma_3xtf32<32, KS, Swap>(d2, ah, al, b2h, b2l, 32, 0);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs<16>(d2);
+}
+
+// Threads 0-255 are the two consumer warpgroups, 256-383 the producer
+// (thread 256 issues every TMA load; all 128 split the blocks). CTA x
+// serves (batch, head) x / ctas_per_pair and its 64-row query tiles
+// [j T / n, (j + 1) T / n) (j = x % n, n = ctas_per_pair); round r gives
+// the run's tiles 2r and 2r + 1 to consumers 0 and 1 and streams the
+// pair's K/V blocks twice (sweeps 1 and 2) for both. stats: [B * heads][Nq]
+// float4 (m, 1 / l, delta, 0).
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+sr_attention_bwd_f32_rows_kernel(const __grid_constant__ CUtensorMap tq,
+                                 const __grid_constant__ CUtensorMap tk,
+                                 const __grid_constant__ CUtensorMap tv,
+                                 const __grid_constant__ CUtensorMap tg,
+                                 float* __restrict__ dq,
+                                 float4* __restrict__ stats, int nq, int nk,
+                                 int heads, int tiles_per_bh,
+                                 int ctas_per_pair, float scale,
+                                 float scale_log2) {
+  static_assert(D == 32 || D == 64, "head width 32 or 64");
+  constexpr uint32_t kTile = kF32Rows * D * sizeof(float);
+  constexpr uint32_t kBlk = kF32RowKeys * D * sizeof(float);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const F32RowLayout lay(D);
+  const uint32_t base = smem_u32(smem);
+  // q of consumer c at qg_tile(c, 0), g at qg_tile(c, 1); stage tiles
+  auto qg_tile = [&](int c, int i) {
+    return uint32_t(lay.qg) + (2 * c + i) * kTile;
+  };
+  auto st_tile = [&](int st, int i) {
+    return uint32_t(lay.stage) + (st * 6 + i) * kBlk;
+  };
+  const uint32_t bars = base + uint32_t(lay.bar);
+  auto qg_full = [&](int c) { return bars + 8 * c; };
+  auto qg_empty = [&](int c) { return bars + 8 * (kCons + c); };
+  auto raw_full = [&](int st) { return bars + 8 * (2 * kCons + st); };
+  auto full = [&](int st) {
+    return bars + 8 * (2 * kCons + kF32Stages + st);
+  };
+  auto empty = [&](int st) {
+    return bars + 8 * (2 * kCons + 2 * kF32Stages + st);
+  };
+
+  const int tid = int(threadIdx.x);
+  if (tid == 0) {
+    for (int c = 0; c < kCons; ++c) {
+      mbar_init(qg_full(c), 1);
+      mbar_init(qg_empty(c), kWgThreads / 32);
+    }
+    for (int st = 0; st < kF32Stages; ++st) {
+      mbar_init(raw_full(st), 1);
+      mbar_init(full(st), kWgThreads / 32);
+      mbar_init(empty(st), kCons * kWgThreads / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int pair = int(blockIdx.x) / ctas_per_pair;
+  const int chunk = int(blockIdx.x) - pair * ctas_per_pair;
+  const int b = pair / heads, h = pair - b * heads;
+  const int t0 = int(int64_t(chunk) * tiles_per_bh / ctas_per_pair);
+  const int ntiles =
+      int(int64_t(chunk + 1) * tiles_per_bh / ctas_per_pair) - t0;
+  const int rounds = (ntiles + 1) / 2;
+  const int nb = (nk + kF32RowKeys - 1) / kF32RowKeys;
+
+  const int wg = __shfl_sync(0xffffffffu, tid / kWgThreads, 0);
+  if (wg == kCons) {
+    // ---- producer: q and g tiles, K/V blocks twice a round, their split
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kF32ProducerRegs));
+    const int pt = tid - kCons * kWgThreads;
+    uint32_t kv = 0;
+    for (int r = 0; r < rounds; ++r) {
+      if (pt == 0)
+        for (int c = 0; c < kCons && 2 * r + c < ntiles; ++c) {
+          mbar_wait(qg_empty(c), (r & 1) ^ 1);
+          mbar_expect_tx(qg_full(c), 2 * kTile);
+          for (int p = 0; p < D / 32; ++p) {
+            const int row0 = (t0 + 2 * r + c) * kF32Rows;
+            tma_load(base + qg_tile(c, 0) + p * kF32Rows * 128, &tq,
+                     qg_full(c), h * D + 32 * p, row0, b);
+            tma_load(base + qg_tile(c, 1) + p * kF32Rows * 128, &tg,
+                     qg_full(c), h * D + 32 * p, row0, b);
+          }
+        }
+      for (int j = 0; j < 2 * nb; ++j, ++kv) {
+        const int st = int(kv % kF32Stages);
+        const uint32_t par = (kv / kF32Stages) & 1;
+        if (pt == 0) {
+          mbar_wait(empty(st), par ^ 1);
+          mbar_expect_tx(raw_full(st), 2 * kBlk);
+          for (int p = 0; p < D / 32; ++p) {
+            const int key0 = (j % nb) * kF32RowKeys;
+            tma_load(base + st_tile(st, 0) + p * kF32RowKeys * 128, &tk,
+                     raw_full(st), h * D + 32 * p, key0, b);
+            tma_load(base + st_tile(st, 2) + p * kF32RowKeys * 128, &tv,
+                     raw_full(st), h * D + 32 * p, key0, b);
+          }
+        }
+        mbar_wait(raw_full(st), par);
+        split_block_t<D>(smem + st_tile(st, 0), smem + st_tile(st, 1),
+                         smem + st_tile(st, 4), smem + st_tile(st, 5), pt);
+        split_block<D>(smem + st_tile(st, 2), smem + st_tile(st, 3), pt);
+        fence_proxy_async();
+        __syncwarp();
+        if ((pt & 31) == 0) mbar_arrive(full(st));
+      }
+    }
+    return;
+  }
+
+  // ---- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      kF32ConsumerRegs));
+  const int ct = tid - wg * kWgThreads;
+  const int warp = ct >> 5, lane = ct & 31, g8 = lane >> 2, t4 = lane & 3;
+  const int c = heads * D;
+  uint32_t kv = 0;
+  for (int r = 0; r < rounds; ++r) {
+    const int tile = 2 * r + wg;
+    const bool mine = tile < ntiles;
+    const unsigned char* qt = smem + qg_tile(wg, 0);
+    const unsigned char* gt = smem + qg_tile(wg, 1);
+    if (mine) mbar_wait(qg_full(wg), r & 1);
+    float4 rs[2];  // this thread's rows: (m, 1 / l, delta, 0)
+    {
+      // sweep 1: the online row statistics
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f},
+            u[2] = {0.f, 0.f};
+      for (int j = 0; j < nb; ++j, ++kv) {
+        const int st = int(kv % kF32Stages);
+        mbar_wait(full(st), (kv / kF32Stages) & 1);
+        if (mine) {
+          float s[16], dp[16];
+          pair_products<D, false>(qt, gt, base + st_tile(st, 0),
+                                  base + st_tile(st, 1),
+                                  base + st_tile(st, 2),
+                                  base + st_tile(st, 3), warp, g8, t4, s, dp);
+          if ((j + 1) * kF32RowKeys > nk) {
+#pragma unroll
+            for (int i = 0; i < 16; ++i) {
+              const int key = j * kF32RowKeys + 8 * (i >> 2) + 2 * t4 + (i & 1);
+              s[i] = key < nk ? s[i] : -INFINITY;
+            }
+          }
+          float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+          for (int i = 0; i < 16; ++i)
+            mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+            mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+            // the block holds a valid key, so the new max is finite
+            const float mn = fmaxf(m[rr], __fmul_rn(mx[rr], scale_log2));
+            const float f = exp2_approx(m[rr] - mn);
+            l[rr] *= f;
+            u[rr] *= f;
+            m[rr] = mn;
+          }
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            const int rr = (i >> 1) & 1;
+            const float e =
+                exp2_approx(__fsub_rn(__fmul_rn(s[i], scale_log2), m[rr]));
+            l[rr] += e;
+            u[rr] += e * dp[i];
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(st));
+      }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+        l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
+        u[rr] += __shfl_xor_sync(0xffffffffu, u[rr], 1);
+        u[rr] += __shfl_xor_sync(0xffffffffu, u[rr], 2);
+        const float inv_l = 1.f / l[rr];
+        rs[rr] = make_float4(m[rr], inv_l, u[rr] * inv_l, 0.f);
+      }
+    }
+    const int row0 = (t0 + tile) * kF32Rows + 16 * warp + g8;
+    if (mine && t4 == 0)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+        if (row0 + 8 * rr < nq)
+          stats[size_t(pair) * nq + row0 + 8 * rr] = rs[rr];
+    // sweep 2: p, ds and dq += ds k
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int j = 0; j < nb; ++j, ++kv) {
+      const int st = int(kv % kF32Stages);
+      mbar_wait(full(st), (kv / kF32Stages) & 1);
+      if (mine) {
+        float s[16], dp[16];
+        pair_products<D, false>(qt, gt, base + st_tile(st, 0),
+                                base + st_tile(st, 1), base + st_tile(st, 2),
+                                base + st_tile(st, 3), warp, g8, t4, s, dp);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int key = j * kF32RowKeys + 8 * (i >> 2) + 2 * t4 + (i & 1);
+          float p;
+          prob_ds(s[i], dp[i], rs[(i >> 1) & 1], key < nk, scale_log2, scale,
+                  p, dp[i]);
+        }
+        uint32_t dh[16], dl[16];
+        acc_to_a_tf32<32>(dp, dh, dl);
+        fence_regs<16>(dh);
+        fence_regs<16>(dl);
+        fence_regs<D / 2>(acc);
+        wgmma_fence();
+        wgmma_3xtf32<D, kF32RowKeys / 8>(acc, dh, dl, base + st_tile(st, 4),
+                                         base + st_tile(st, 5), D, 1);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs<D / 2>(acc);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(st));
+    }
+    if (mine) {
+      float* out = dq + size_t(b) * nq * c + h * D;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int row = row0 + 8 * rr;
+        if (row < nq)
+#pragma unroll
+          for (int jj = 0; jj < D / 8; ++jj)
+            *reinterpret_cast<float2*>(out + size_t(row) * c + 8 * jj +
+                                       2 * t4) =
+                make_float2(acc[4 * jj + 2 * rr], acc[4 * jj + 2 * rr + 1]);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(qg_empty(wg));
+    }
+  }
+}
+
+// CTA x serves (batch, head) x / (key_groups * splits), key group
+// (x / splits) % key_groups (key blocks 2 grp and 2 grp + 1 of 64 keys, one
+// per consumer) and split x % splits: the 32-row query tiles
+// [s T / S, (s + 1) T / S) of the pair (T = ceil(Nq / 32), S = splits).
+// With splits > 1 it writes its float32 dk and dv to part[s] (dk, then dv,
+// each B * Nk * C), else to dk and dv.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+sr_attention_bwd_f32_keys_kernel(const __grid_constant__ CUtensorMap tq,
+                                 const __grid_constant__ CUtensorMap tk,
+                                 const __grid_constant__ CUtensorMap tv,
+                                 const __grid_constant__ CUtensorMap tg,
+                                 const float4* __restrict__ stats,
+                                 float* __restrict__ dk,
+                                 float* __restrict__ dv,
+                                 float* __restrict__ part, int b_total,
+                                 int nq, int nk, int heads, int key_groups,
+                                 int splits, float scale, float scale_log2) {
+  static_assert(D == 32 || D == 64, "head width 32 or 64");
+  constexpr uint32_t kTile = kF32Keys * D * sizeof(float);
+  constexpr uint32_t kBlk = kF32KeyRows * D * sizeof(float);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const F32KeyLayout lay(D);
+  const uint32_t base = smem_u32(smem);
+  // K of consumer c at kv_tile(c, 0), V at kv_tile(c, 1); stage tiles
+  auto kv_tile = [&](int c, int i) {
+    return uint32_t(lay.kv) + (2 * c + i) * kTile;
+  };
+  auto st_tile = [&](int st, int i) {
+    return uint32_t(lay.stage + st * lay.stage_bytes) + i * kBlk;
+  };
+  const uint32_t bars = base + uint32_t(lay.bar);
+  auto kv_full = [&](int c) { return bars + 8 * c; };
+  auto raw_full = [&](int st) { return bars + 8 * (kCons + st); };
+  auto full = [&](int st) { return bars + 8 * (kCons + kF32Stages + st); };
+  auto empty = [&](int st) {
+    return bars + 8 * (kCons + 2 * kF32Stages + st);
+  };
+
+  const int tid = int(threadIdx.x);
+  if (tid == 0) {
+    for (int c = 0; c < kCons; ++c) mbar_init(kv_full(c), 1);
+    for (int st = 0; st < kF32Stages; ++st) {
+      mbar_init(raw_full(st), 1);
+      mbar_init(full(st), kWgThreads / 32);
+      mbar_init(empty(st), kCons * kWgThreads / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int x = int(blockIdx.x);
+  const int split = x % splits, grp = (x / splits) % key_groups;
+  const int pair = x / (splits * key_groups);
+  const int b = pair / heads, h = pair - b * heads;
+  const int q_tiles = (nq + kF32KeyRows - 1) / kF32KeyRows;
+  const int s0 = int(int64_t(split) * q_tiles / splits);
+  const int nt = int(int64_t(split + 1) * q_tiles / splits) - s0;
+  const int nkb = (nk + kF32Keys - 1) / kF32Keys;
+
+  const int wg = __shfl_sync(0xffffffffu, tid / kWgThreads, 0);
+  if (wg == kCons) {
+    // ---- producer: both consumers' K and V, then q, g and statistics
+    // tiles, split
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kF32ProducerRegs));
+    const int pt = tid - kCons * kWgThreads;
+    if (pt == 0)
+      for (int c = 0; c < kCons && 2 * grp + c < nkb; ++c) {
+        mbar_expect_tx(kv_full(c), 2 * kTile);
+        for (int p = 0; p < D / 32; ++p) {
+          const int key0 = (2 * grp + c) * kF32Keys;
+          tma_load(base + kv_tile(c, 0) + p * kF32Keys * 128, &tk,
+                   kv_full(c), h * D + 32 * p, key0, b);
+          tma_load(base + kv_tile(c, 1) + p * kF32Keys * 128, &tv,
+                   kv_full(c), h * D + 32 * p, key0, b);
+        }
+      }
+    for (int i = 0; i < nt; ++i) {
+      const int st = i % kF32Stages;
+      const uint32_t par = (i / kF32Stages) & 1;
+      const int row0 = (s0 + i) * kF32KeyRows;
+      if (pt == 0) {
+        mbar_wait(empty(st), par ^ 1);
+        mbar_expect_tx(raw_full(st), 2 * kBlk);
+        for (int p = 0; p < D / 32; ++p) {
+          tma_load(base + st_tile(st, 0) + p * kF32KeyRows * 128, &tq,
+                   raw_full(st), h * D + 32 * p, row0, b);
+          tma_load(base + st_tile(st, 2) + p * kF32KeyRows * 128, &tg,
+                   raw_full(st), h * D + 32 * p, row0, b);
+        }
+      }
+      mbar_wait(raw_full(st), par);
+      if (pt < kF32KeyRows) {
+        const int row = row0 + pt;
+        reinterpret_cast<float4*>(smem + st_tile(st, 8))[pt] =
+            row < nq ? stats[size_t(pair) * nq + row]
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      split_block_t<D>(smem + st_tile(st, 0), smem + st_tile(st, 1),
+                       smem + st_tile(st, 4), smem + st_tile(st, 5), pt);
+      split_block_t<D>(smem + st_tile(st, 2), smem + st_tile(st, 3),
+                       smem + st_tile(st, 6), smem + st_tile(st, 7), pt);
+      fence_proxy_async();
+      __syncwarp();
+      if ((pt & 31) == 0) mbar_arrive(full(st));
+    }
+    return;
+  }
+
+  // ---- consumers: dk, dv of key block 2 grp + wg over the range
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      kF32ConsumerRegs));
+  const int ct = tid - wg * kWgThreads;
+  const int warp = ct >> 5, lane = ct & 31, g8 = lane >> 2, t4 = lane & 3;
+  const int kb = 2 * grp + wg;
+  const bool active = kb < nkb;
+  const unsigned char* kt = smem + kv_tile(wg, 0);
+  const unsigned char* vt = smem + kv_tile(wg, 1);
+  if (active) mbar_wait(kv_full(wg), 0);
+  bool key_ok[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr)
+    key_ok[rr] = kb * kF32Keys + 16 * warp + g8 + 8 * rr < nk;
+  float ak[D / 2], av[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) ak[i] = av[i] = 0.f;
+  for (int i = 0; i < nt; ++i) {
+    const int st = i % kF32Stages;
+    mbar_wait(full(st), (i / kF32Stages) & 1);
+    if (active) {
+      float s[16], dp[16];
+      pair_products<D, true>(kt, vt, base + st_tile(st, 0),
+                             base + st_tile(st, 1), base + st_tile(st, 2),
+                             base + st_tile(st, 3), warp, g8, t4, s, dp);
+      const float4* sts =
+          reinterpret_cast<const float4*>(smem + st_tile(st, 8));
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const float4 rsq = sts[8 * (e >> 2) + 2 * t4 + (e & 1)];
+        prob_ds(s[e], dp[e], rsq, key_ok[(e >> 1) & 1], scale_log2, scale,
+                s[e], dp[e]);
+      }
+      uint32_t ph[16], pl[16], dh[16], dl[16];
+      acc_to_a_tf32<32>(s, ph, pl);
+      acc_to_a_tf32<32>(dp, dh, dl);
+      fence_regs<16>(ph);
+      fence_regs<16>(pl);
+      fence_regs<16>(dh);
+      fence_regs<16>(dl);
+      fence_regs<D / 2>(av);
+      fence_regs<D / 2>(ak);
+      wgmma_fence();
+      wgmma_3xtf32<D, kF32KeyRows / 8>(av, ph, pl, base + st_tile(st, 6),
+                                       base + st_tile(st, 7), D, 1);
+      wgmma_3xtf32<D, kF32KeyRows / 8>(ak, dh, dl, base + st_tile(st, 4),
+                                       base + st_tile(st, 5), D, 1);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<D / 2>(av);
+      fence_regs<D / 2>(ak);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));
+  }
+  if (!active) return;
+  const size_t n_out = size_t(b_total) * nk * heads * D;
+  float* ok = part == nullptr ? dk : part + 2 * n_out * split;
+  float* ov = part == nullptr ? dv : part + 2 * n_out * split + n_out;
+  const size_t at0 = size_t(b) * nk * heads * D + h * D;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int key = kb * kF32Keys + 16 * warp + g8 + 8 * rr;
+    if (key >= nk) continue;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj) {
+      const size_t at = at0 + size_t(key) * heads * D + 8 * jj + 2 * t4;
+      const int e = 4 * jj + 2 * rr;
+      *reinterpret_cast<float2*>(ok + at) = make_float2(ak[e], ak[e + 1]);
+      *reinterpret_cast<float2*>(ov + at) = make_float2(av[e], av[e + 1]);
+    }
+  }
+}
+
+// dk, dv = the splits' float32 slots summed in split order (n4 float4s
+// each).
+__global__ void __launch_bounds__(kThreads)
+sr_attention_bwd_f32_sum_kernel(const float4* __restrict__ part,
+                                float4* __restrict__ dk,
+                                float4* __restrict__ dv, size_t n4,
+                                int splits) {
+  for (size_t i = size_t(blockIdx.x) * kThreads + threadIdx.x; i < n4;
+       i += size_t(gridDim.x) * kThreads) {
+    float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+    for (int sp = 0; sp < splits; ++sp) {
+      const float4 a = __ldcg(part + 2 * n4 * sp + i);
+      const float4 o = __ldcg(part + 2 * n4 * sp + n4 + i);
+      sk.x += a.x; sk.y += a.y; sk.z += a.z; sk.w += a.w;
+      sv.x += o.x; sv.y += o.y; sv.z += o.z; sv.w += o.w;
+    }
+    dk[i] = sk;
+    dv[i] = sv;
+  }
+}
+
+template <int D>
+int launch_bwd_f32(const void* q, const void* k, const void* v,
+                   const void* g, void* dq, void* dk, void* dv, void* stats,
+                   void* part, int b, int nq, int nk, int heads,
+                   int row_ctas_per_pair, int key_groups, int splits,
+                   cudaStream_t stream, int* launched) {
+  auto rows = sr_attention_bwd_f32_rows_kernel<D>;
+  auto keys = sr_attention_bwd_f32_keys_kernel<D>;
+  static std::atomic<uint32_t> opted_rows{0}, opted_keys{0};
+  cudaError_t err = opt_in_smem(rows, opted_rows);
+  if (err == cudaSuccess) err = opt_in_smem(keys, opted_keys);
+  if (err != cudaSuccess) return int(err);
+  const int c = heads * D;
+  const int64_t pairs = int64_t(b) * heads;
+  const int tiles = (nq + kF32Rows - 1) / kF32Rows;
+  const int q_tiles = (nq + kF32KeyRows - 1) / kF32KeyRows;
+  const int nkb = (nk + kF32Keys - 1) / kF32Keys;
+  const int64_t row_grid = pairs * row_ctas_per_pair;
+  const int64_t key_grid = pairs * key_groups * splits;
+  if (row_ctas_per_pair < 1 || row_ctas_per_pair > tiles ||
+      key_groups != (nkb + 1) / 2 || splits < 1 || splits > q_tiles ||
+      row_grid > INT_MAX || key_grid > INT_MAX ||
+      (splits > 1) != (part != nullptr))
+    return int(cudaErrorInvalidValue);
+  CUtensorMap m[8];
+  if (!encode_map_f32(&m[0], q, b, nq, c, kF32Rows) ||
+      !encode_map_f32(&m[1], k, b, nk, c, kF32RowKeys) ||
+      !encode_map_f32(&m[2], v, b, nk, c, kF32RowKeys) ||
+      !encode_map_f32(&m[3], g, b, nq, c, kF32Rows) ||
+      !encode_map_f32(&m[4], q, b, nq, c, kF32KeyRows) ||
+      !encode_map_f32(&m[5], k, b, nk, c, kF32Keys) ||
+      !encode_map_f32(&m[6], v, b, nk, c, kF32Keys) ||
+      !encode_map_f32(&m[7], g, b, nq, c, kF32KeyRows))
+    return int(cudaErrorInvalidValue);
+  const float scale = 1.0f / sqrtf(float(D));
+  rows<<<int(row_grid), kBwdThreads, F32RowLayout(D).total, stream>>>(
+      m[0], m[1], m[2], m[3], static_cast<float*>(dq),
+      static_cast<float4*>(stats), nq, nk, heads, tiles, row_ctas_per_pair,
+      scale, 1.4426950408889634f * scale);
+  if (const int e = launched_ok(launched)) return e;
+  keys<<<int(key_grid), kBwdThreads, F32KeyLayout(D).total, stream>>>(
+      m[4], m[5], m[6], m[7], static_cast<const float4*>(stats),
+      static_cast<float*>(dk), static_cast<float*>(dv),
+      static_cast<float*>(part), b, nq, nk, heads, key_groups, splits, scale,
+      1.4426950408889634f * scale);
+  if (const int e = launched_ok(launched); e || splits == 1) return e;
+  const size_t n4 = size_t(b) * nk * c / 4;
+  const size_t need = (n4 + kThreads - 1) / kThreads;
+  sr_attention_bwd_f32_sum_kernel<<<int(need < 1056 ? need : 1056),
+                                      kThreads, 0, stream>>>(
+      static_cast<const float4*>(part), static_cast<float4*>(dk),
+      static_cast<float4*>(dv), n4, splits);
+  return launched_ok(launched);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block needs (elem: 4 f32, the scalar
-// row pass; 2 bf16, the wgmma kernel). The scalar key pass uses static
-// shared memory only (42 KB at d = 64).
+// Bytes of dynamic shared memory one CTA needs (elem: 4 float32, the larger
+// of the row and key passes, any Nk; 2 bf16, the wgmma kernel).
 size_t sr_attention_bwd_smem_bytes(int nk, int d, int elem) {
-  return elem == 2 ? BwdLayout(d, bwd_mtiles(nk)).total
-                   : RowLayout(nk, d, elem).total;
+  if (elem == 2) return BwdLayout(d, bwd_mtiles(nk)).total;
+  const size_t r = F32RowLayout(d).total, k = F32KeyLayout(d).total;
+  return r > k ? r : k;
 }
 
-int sr_attention_bwd_max_nk() { return kMaxSlots * 32; }
+// The most keys the kernels for `elem`-byte inputs take; 0: no limit (the
+// float32 kernels stream K and V).
+int sr_attention_bwd_max_nk(int elem) { return elem == 4 ? 0 : kMaxNkBf16; }
 
-// float32 (the scalar kernels). q, k, v, g, dq, dk, dv are 16-byte
-// aligned; stats is a float32 workspace of 3 * b * heads * nq values;
-// splits divides the query rows of the key pass (in tiles of 32 rows);
-// with splits > 1 part is a float32 workspace of splits * 2 * b * nk * c
-// values (else it is not read). *launched is set to the number of kernels
-// launched without error (2, or 3 with the split sum). Returns a
-// cudaError_t (0 on success); 1 (cudaErrorInvalidValue) for a shape the
-// kernels do not take.
+// float32 (the 3xTF32 row pass, key pass and split sum) over the grids of
+// ops/sr_attention.py's `bwd_f32_plan`: row_ctas_per_pair CTAs per
+// (batch, head) in the row pass; key_groups * splits in the key pass
+// (key_groups = ceil(ceil(nk / 64) / 2)). q, k, v, g, dq, dk, dv are
+// 16-byte aligned; stats is a float32 workspace of 4 * b * heads * nq
+// values; part, with splits > 1 (else null), a float32 workspace of
+// splits * 2 * b * nk * c values, and the split sum runs. *launched is set
+// to the number of kernels launched without error (2, or 3 with the split
+// sum). Returns a cudaError_t (0 on success); 1 (cudaErrorInvalidValue) for
+// a shape or plan the kernels do not take.
 int sr_attention_bwd(const void* q, const void* k, const void* v,
                      const void* g, void* dq, void* dk, void* dv, void* stats,
                      void* part, int b, int nq, int nk, int c, int heads,
-                     int block_q, int splits, int* launched, void* stream) {
+                     int row_ctas_per_pair, int key_groups, int splits,
+                     int* launched, void* stream) {
   const int d = c / heads;
   *launched = 0;
-  if (b < 1 || nq < 1 || nk < 1 || nk > kMaxSlots * 32 || d * heads != c ||
-      block_q < 1 || splits < 1 || (splits > 1 && part == nullptr))
+  if (b < 1 || nq < 1 || nk < 1 || d * heads != c)
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 32)
-    return launch<float, 32>(q, k, v, g, dq, dk, dv, stats, part, b, nq, nk,
-                             heads, block_q, splits, s, launched);
+    return launch_bwd_f32<32>(q, k, v, g, dq, dk, dv, stats, part, b, nq, nk,
+                              heads, row_ctas_per_pair, key_groups, splits, s,
+                              launched);
   if (d == 64)
-    return launch<float, 64>(q, k, v, g, dq, dk, dv, stats, part, b, nq, nk,
-                             heads, block_q, splits, s, launched);
+    return launch_bwd_f32<64>(q, k, v, g, dq, dk, dv, stats, part, b, nq, nk,
+                              heads, row_ctas_per_pair, key_groups, splits, s,
+                              launched);
   return int(cudaErrorInvalidValue);
 }
 
@@ -1229,7 +1483,7 @@ int sr_attention_bwd_wgmma(const void* q, const void* k, const void* v,
                            void* stream) {
   const int d = c / heads;
   *launched = 0;
-  if (b < 1 || nq < 1 || nk < 1 || nk > kMaxSlots * 32 || d * heads != c)
+  if (b < 1 || nq < 1 || nk < 1 || nk > kMaxNkBf16 || d * heads != c)
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 32)

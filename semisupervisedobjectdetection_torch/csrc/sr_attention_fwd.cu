@@ -4,74 +4,97 @@
 //
 // Replaces the Pallas TPU kernel semisupervisedobjectdetection_tpu/ops/
 // sr_attention.py::_attn_kernel and computes the same function: scores and
-// softmax in float32, one full-row softmax (the key row is short: Nk is 256
-// plus a few prompt/CLS tokens at MiT shapes, at most 288 here), the
-// normalised probabilities rounded to v's type before P.V, float32
-// accumulation, output in q's type.
+// softmax in float32, the normalised probabilities rounded to v's type
+// before P.V, float32 accumulation, output in q's type. One kernel per
+// dtype, both on wgmma with tiles brought in by TMA:
 //
-// Bound. At MiT-B5 512x512 shapes the function is bound by the bytes it
-// must move (q in, out back: 2*B*Nq*C elements) on the bf16 tensor-core
-// peak: 4*B*Nq*Nk*C flops over 2*B*(Nq+Nk)*C*2 bytes is ~250 flops a byte
-// at Nk = 256, d = 64, under the card's ~295. So the products must run on
-// the tensor cores at near their rate while q streams through at near the
-// memory rate; the softmax around them (one exp2 per score on the
-// special-function units, 16 a cycle an SM: at d = 64 as many cycles as the
-// products take on the tensor cores) is the next limit. Two kernels:
+// bfloat16: sr_attention_fwd_wgmma_kernel, one full-row softmax over all of
+// a (batch, head)'s keys held on chip (Nk <= 288).
+//   Bound. At MiT-B5 512x512 shapes the function is bound by the bytes it
+//   must move (q in, out back: 2*B*Nq*C elements) on the bf16 tensor-core
+//   peak: 4*B*Nq*Nk*C flops over 2*B*(Nq+Nk)*C*2 bytes is ~250 flops a byte
+//   at Nk = 256, d = 64, under the card's ~295. So the products must run on
+//   the tensor cores at near their rate while q streams through at near the
+//   memory rate; the softmax around them (one exp2 per score on the
+//   special-function units, 16 a cycle an SM: at d = 64 as many cycles as
+//   the products take on the tensor cores) is the next limit.
+//   A CTA is two consumer warpgroups and a producer warpgroup, one CTA an
+//   SM. A persistent grid of one CTA per SM walks the 64-row query tiles of
+//   all (batch, head)s in order, each CTA a contiguous, equal range, so a
+//   CTA takes many tiles of the same (batch, head) and loads its K and V
+//   once for them (again only where its range crosses into the next
+//   (batch, head)); its tiles alternate between the two consumers, which
+//   share K and V. The producer thread loads K and V by TMA (boxes of 32
+//   keys) into shared memory in the layout wgmma reads (128-byte swizzle at
+//   d = 64, 64-byte at d = 32), K and V on separate mbarriers so that the
+//   first product waits for K only, and keeps query tiles in flight in a
+//   ring of 3 stages per consumer (3-D tensor maps over (C, N, B), box
+//   (d, 64, 1) at column h*d: ragged query tails and keys past Nk are
+//   zero-filled by the TMA unit, never read across a batch boundary). A
+//   consumer warpgroup, per tile: s = q k^T by wgmma m64n256k16 (+ m64n32k16
+//   for the keys past 256) from shared memory, both operands K-major; the
+//   query stage released; the keys past Nk masked to -inf, the row max and
+//   sum over the 4 lanes of a quad, p = 2^(s c - m) / l rounded to bf16 in
+//   registers as the A operand (the accumulator layout of one product is
+//   the register-A layout of the next), so the rounding point is the plain
+//   version's; o = p v by wgmma m64n{d}k16 with V read MN-major (trans-b)
+//   from shared memory; o through its swizzled staging tile to a TMA store,
+//   which overlaps the next tile's products.
+//   What bounds it, measured on the H100 (PERF.md): per 64-row tile at
+//   Nk 256, d 64, the products take ~1,000 tensor-core cycles of an SM and
+//   the softmax ~700 instructions a thread (a max, an FMA, an exp2 on the
+//   special-function unit, an add, a multiply per score, a pack per pair)
+//   on the issue slots of the same SM, about as long as the products and
+//   the query/output bytes together. So the two consumers take turns at the
+//   softmax (a pair of named barriers): one's softmax runs while the
+//   other's products and store run. The result sits at 2.3-4x the byte
+//   bound, about SDPA's time at Nk 256 and under it at Nk 257-288.
+//   Resources per CTA: shared memory at d = 64 is 64 KB of K and V at
+//   Nk <= 256 (72 KB at Nk <= 288), 48 KB of query rings, 16 KB of staging,
+//   ~129-137 KB; 384 threads at 168 registers (setmaxnreg moves registers
+//   from the producer, 24, to the consumers, 240; ptxas compiles the kernel
+//   within the 168 a thread starts with, which the 144-float score row at
+//   Nk <= 288 fits). One CTA fits an SM. Its sums run in the tensor cores'
+//   order, so a bf16 output differs from the plain version's by an ulp or
+//   two in ~0.07% of elements.
 //
-// The Hopper kernel (sr_attention_fwd_wgmma_kernel, bfloat16, taken when
-// the caller asks for it: every bfloat16 path of the package). A CTA is two
-// consumer warpgroups and a producer warpgroup, one CTA an SM. A persistent
-// grid of one CTA per SM walks the 64-row query tiles of all (batch,
-// head)s in order, each CTA a contiguous, equal range, so a CTA takes many
-// tiles of the same (batch, head) and loads its K and V once for them
-// (again only where its range crosses into the next (batch, head)); its
-// tiles alternate between the two consumers, which share K and V. The
-// producer thread loads K and V by TMA (boxes of 32 keys) into shared
-// memory in the layout wgmma reads (128-byte swizzle at d = 64, 64-byte at
-// d = 32), K and V on separate mbarriers so that the first product waits
-// for K only, and keeps query tiles in flight in a ring of 3 stages per
-// consumer (3-D tensor maps over (C, N, B), box (d, 64, 1) at column h*d:
-// ragged query tails and keys past Nk are zero-filled by the TMA unit,
-// never read across a batch boundary). A consumer warpgroup, per tile:
-// s = q k^T by wgmma m64n256k16 (+ m64n32k16 for the keys past 256) from
-// shared memory, both operands K-major; the query stage released; the
-// keys past Nk masked to -inf, the row max and sum over the 4 lanes of a
-// quad, p = 2^(s c - m) / l rounded to bf16 in registers as the A operand
-// (the accumulator layout of one product is the register-A layout of the
-// next), so the rounding point is the plain version's; o = p v by wgmma
-// m64n{d}k16 with V read MN-major (trans-b) from shared memory; o through
-// its swizzled staging tile to a TMA store, which overlaps the next tile's
-// products.
-//
-// What bounds it, measured on the H100 (PERF.md): per 64-row tile at
-// Nk 256, d 64, the products take ~1,000 tensor-core cycles of an SM and
-// the softmax ~700 instructions a thread (a max, an FMA, an exp2 on the
-// special-function unit, an add, a multiply per score, a pack per pair)
-// on the issue slots of the same SM, about as long as the products and
-// the query/output bytes together. So the two consumers take turns at the
-// softmax (a pair of named barriers): one's softmax runs while the other's
-// products and store run. The result sits at 2.3-4x the byte bound, about
-// SDPA's time at Nk 256 and under it at Nk 257-288.
-//
-// Resources per CTA: shared memory at d = 64 is 64 KB of K and V at
-// Nk <= 256 (72 KB at Nk <= 288), 48 KB of query rings, 16 KB of staging,
-// ~129-137 KB; 384 threads at 168 registers (setmaxnreg moves registers
-// from the producer, 24, to the consumers, 240; ptxas compiles the kernel
-// within the 168 a thread starts with, which the 144-float score row at
-// Nk <= 288 fits). One CTA fits an SM. Its sums run in the tensor cores'
-// order, so a bf16 output differs from the plain version's by an ulp or
-// two in ~0.07% of elements.
-//
-// The scalar kernel (sr_attention_fwd_kernel, float32 and bfloat16). Its
-// bf16 results equal the plain version's bit for bit, and TF32 tensor cores
-// would not hold float32 results to their tolerance. One CTA of 8 warps per
-// (batch*head, block of query rows) stages K^T and V in shared memory; a
-// warp holds kRows query rows at once, lane l owns key columns l, l+32,
-// ..., so the row max and row sum are warp shuffles. The probabilities go
-// to a per-warp shared-memory row, from which every lane reads them as
-// broadcasts for P.V; lane l owns output columns l and l+32. Its products
-// are scalar float32 FMAs, so the FMA pipes and shared-memory reads bound
-// it rather than the bytes.
+// float32: sr_attention_fwd_f32_kernel, every product on the TF32 tensor
+// cores split three ways (3xTF32, sr_attention_wgmma.cuh): each float32
+// operand x is hi = tf32(x) plus lo = tf32(x - hi), and a b is summed as
+// a_lo b_hi + a_hi b_lo + a_hi b_hi in float32. The term dropped, a_lo b_lo,
+// is ~2^-22 of the product: one such q k^T at MiT-B5's stage-1 shape is
+// within 7.3e-7 of float64 as a share of its largest value, where torch's
+// float32 matmul is within 3.5e-7 and one TF32 product within 3.9e-4
+// (scripts/tf32_probe.py on the H100), far inside the float32 tolerance.
+//   Bound: 3 TF32 products per float32 product, so the float32 operations
+//   run at 495 / 3 = 165 TFLOP/s at best (against 67 TFLOP/s for float32
+//   FMAs outside the tensor cores); 4*B*Nq*Nk*C flops over 2*B*(Nq+Nk)*C*4
+//   bytes puts MiT-B5 far above the bytes line, so the products bound it.
+//   Any Nk: K and V stream through shared memory in blocks of 32 keys with
+//   an online softmax (a running row max and sum per query row, the output
+//   rescaled when the max moves), so shared memory does not grow with Nk.
+//   A CTA is two consumer warpgroups and a producer warpgroup. The grid
+//   gives each (batch, head) `ctas_per_pair` CTAs (the launch plan in
+//   ops/sr_attention.py, which fills the SMs), each a contiguous run of its
+//   64-row query tiles; the run's tiles alternate between the consumers,
+//   two at a time (a round), and both consumers read each K/V block of a
+//   round. One producer thread loads q tiles (one slot per consumer) and K
+//   and V blocks (a ring of 3 stages) by TMA, 3-D float32 maps over
+//   (C, N, B) in boxes of 32 columns (one 128-byte-swizzled panel),
+//   zero-filled past Nq and Nk. The producer warpgroup then splits each
+//   block: K in place into hi and lo (K-major as s = q k^T reads it), and V
+//   transposed into V^T hi and lo with the keys in kperm order, as o = p v
+//   reads it (tf32 has no transpose bit). A consumer splits its q tile into
+//   registers once (the A operand of s; its slot is then free for the next
+//   round's tile) and, per block: s = q k^T (m64n32k8), the keys past Nk
+//   masked, the online max and sum over the quad, p = 2^(s c - m) in
+//   registers split as the A operand of o += p v (m64n{d}k8); at the end
+//   o / l is stored from registers. 32-key blocks keep q's split, o and p
+//   within the 168 registers ptxas compiles the kernel for (with 64-key
+//   blocks it spilled at d = 64), and waste less of a ragged last block.
+//   Resources per CTA at d = 64: 2 x 16 KB of q tiles and 3 x 40 KB of K/V
+//   stages (K hi and lo, V^T hi and lo, V), 152 KB; 384 threads, the
+//   producer at 56 registers and the consumers at 224 (setmaxnreg).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -81,222 +104,12 @@
 #include <stdint.h>
 
 #include <atomic>
-#include <chrono>
 
 #include "sr_attention_wgmma.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 4;      // query rows a warp holds at once
-constexpr int kMaxSlots = 9;  // key columns per lane: Nk <= 288
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__host__ __device__ __forceinline__ size_t align16(size_t n) {
-  return (n + 15) & ~size_t(15);
-}
-
-// Shared-memory layout, in bytes from the start of the dynamic buffer:
-//   kt [d][nkp + 1] T   K transposed (the +1 spreads the transposing
-//                       stores over the banks)
-//   vs [nkp][d]     T   V
-//   qs [kWarps][kRows][d]   float   each warp's query rows
-//   ps [kWarps][kRows][nkp] float   each warp's probabilities
-struct Layout {
-  int nkp, ldk;
-  size_t kt, vs, qs, ps, total;
-  __host__ __device__ Layout(int nk, int d, int elem) {
-    nkp = (nk + 31) / 32 * 32;
-    ldk = nkp + 1;
-    kt = 0;
-    vs = align16(kt + size_t(d) * ldk * elem);
-    qs = align16(vs + size_t(nkp) * d * elem);
-    ps = qs + size_t(kWarps) * kRows * d * sizeof(float);
-    total = ps + size_t(kWarps) * kRows * nkp * sizeof(float);
-  }
-};
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-sr_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, T* __restrict__ out,
-                        int nq, int nk, int heads, int block_q, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Layout lay(nk, D, sizeof(T));
-  const int nkp = lay.nkp, ldk = lay.ldk, nc = nkp / 32;
-  T* kt = reinterpret_cast<T*>(smem + lay.kt);
-  T* vs = reinterpret_cast<T*>(smem + lay.vs);
-  const int c = heads * D;
-
-  const int bh = int(blockIdx.y), b = bh / heads, h = bh % heads;
-  const int tid = int(threadIdx.x), warp = tid >> 5, lane = tid & 31;
-  float* qw = reinterpret_cast<float*>(smem + lay.qs) + warp * kRows * D;
-  float* pw = reinterpret_cast<float*>(smem + lay.ps) + warp * kRows * nkp;
-
-  // Stage this (b, h)'s K^T and V in 16-byte loads; rows past nk are zero.
-  constexpr int kVec = 16 / sizeof(T);
-  const T* kb = k + size_t(b) * nk * c + h * D;
-  const T* vb = v + size_t(b) * nk * c + h * D;
-#pragma unroll 4
-  for (int i = tid; i < nkp * (D / kVec); i += kThreads) {
-    const int j = i / (D / kVec), e = (i % (D / kVec)) * kVec;
-    uint4 kraw = make_uint4(0u, 0u, 0u, 0u), vraw = kraw;
-    if (j < nk) {
-      kraw = *reinterpret_cast<const uint4*>(kb + size_t(j) * c + e);
-      vraw = *reinterpret_cast<const uint4*>(vb + size_t(j) * c + e);
-    }
-    const T* kv = reinterpret_cast<const T*>(&kraw);
-#pragma unroll
-    for (int x = 0; x < kVec; ++x) kt[(e + x) * ldk + j] = kv[x];
-    *reinterpret_cast<uint4*>(vs + j * D + e) = vraw;
-  }
-  __syncthreads();
-
-  const T* qb = q + size_t(b) * nq * c + h * D;
-  T* ob = out + size_t(b) * nq * c + h * D;
-  const int q0 = int(blockIdx.x) * block_q;
-  const int q_end = min(q0 + block_q, nq);
-  constexpr int kCols = D / 32;  // output columns per lane
-
-  for (int r0 = q0 + warp * kRows; r0 < q_end; r0 += kWarps * kRows) {
-    // This warp's query rows as float32; rows past the end are zero.
-    for (int i = lane; i < kRows * D; i += 32) {
-      const int row = r0 + i / D;
-      qw[i] = row < q_end ? to_f(qb[size_t(row) * c + i % D]) : 0.f;
-    }
-    __syncwarp();
-
-    // s[r][t] = q_r . k_(32t + lane)
-    float s[kRows][kMaxSlots];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int t = 0; t < kMaxSlots; ++t) s[r][t] = 0.f;
-#pragma unroll 2
-    for (int e = 0; e < D; e += 4) {
-      float4 qa[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        qa[r] = *reinterpret_cast<const float4*>(qw + r * D + e);
-#pragma unroll
-      for (int t = 0; t < kMaxSlots; ++t) {
-        if (t < nc) {
-          const T* kp = kt + e * ldk + t * 32 + lane;
-          const float k0 = to_f(kp[0]), k1 = to_f(kp[ldk]);
-          const float k2 = to_f(kp[2 * ldk]), k3 = to_f(kp[3 * ldk]);
-#pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-            float a = s[r][t];
-            a = fmaf(qa[r].x, k0, a);
-            a = fmaf(qa[r].y, k1, a);
-            a = fmaf(qa[r].z, k2, a);
-            a = fmaf(qa[r].w, k3, a);
-            s[r][t] = a;
-          }
-        }
-      }
-    }
-
-    // Row softmax over the nk valid keys; probabilities to shared memory,
-    // rounded to v's type (zero in the padded tail).
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      float m = -INFINITY;
-#pragma unroll
-      for (int t = 0; t < kMaxSlots; ++t) {
-        const bool ok = t < nc && t * 32 + lane < nk;
-        s[r][t] = ok ? s[r][t] * scale : -INFINITY;
-        m = fmaxf(m, s[r][t]);
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      float l = 0.f;
-#pragma unroll
-      for (int t = 0; t < kMaxSlots; ++t) {
-        const bool ok = t < nc && t * 32 + lane < nk;
-        s[r][t] = ok ? expf(s[r][t] - m) : 0.f;
-        l += s[r][t];
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        l += __shfl_xor_sync(0xffffffffu, l, o);
-#pragma unroll
-      for (int t = 0; t < kMaxSlots; ++t)
-        if (t < nc) pw[r * nkp + t * 32 + lane] = to_f(from_f<T>(s[r][t] / l));
-    }
-    __syncwarp();
-
-    // o[r][u] = sum_j p[r][j] * v[j][32u + lane]
-    float acc[kRows][kCols];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int u = 0; u < kCols; ++u) acc[r][u] = 0.f;
-#pragma unroll 2
-    for (int j = 0; j < nkp; j += 4) {
-      float4 pa[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        pa[r] = *reinterpret_cast<const float4*>(pw + r * nkp + j);
-#pragma unroll
-      for (int u = 0; u < kCols; ++u) {
-        const T* vp = vs + j * D + u * 32 + lane;
-        const float v0 = to_f(vp[0]), v1 = to_f(vp[D]);
-        const float v2 = to_f(vp[2 * D]), v3 = to_f(vp[3 * D]);
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          float a = acc[r][u];
-          a = fmaf(pa[r].x, v0, a);
-          a = fmaf(pa[r].y, v1, a);
-          a = fmaf(pa[r].z, v2, a);
-          a = fmaf(pa[r].w, v3, a);
-          acc[r][u] = a;
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = r0 + r;
-      if (row < q_end) {
-#pragma unroll
-        for (int u = 0; u < kCols; ++u)
-          ob[size_t(row) * c + u * 32 + lane] = from_f<T>(acc[r][u]);
-      }
-    }
-    __syncwarp();  // qw/pw are rewritten by the next row group
-  }
-}
-
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int nq, int nk, int heads, int block_q, cudaStream_t stream) {
-  const Layout lay(nk, D, sizeof(T));
-  auto kernel = sr_attention_fwd_kernel<T, D>;
-  static std::atomic<uint32_t> opted{0};
-  cudaError_t err = sr_wgmma::opt_in_smem(kernel, opted);
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid((nq + block_q - 1) / block_q, b * heads);
-  kernel<<<grid, kThreads, lay.total, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), nq, nk, heads, block_q,
-      1.0f / sqrtf(float(D)));
-  return int(cudaGetLastError());
-}
+constexpr int kMaxNkBf16 = 288;  // the bf16 kernel's K/V and score row
 
 // ---- bfloat16: the wgmma + TMA kernel ----
 
@@ -311,7 +124,7 @@ constexpr int kWgThreads = (kConsumers + 1) * kConsumerThreads;
 constexpr int kProducerRegs = 24;      // setmaxnreg: 128 * 24 + 256 * 240
 constexpr int kConsumerRegs = 240;     // = the 384 * 168 a CTA starts with
 constexpr int kMaxKeyTiles = 18;       // 16-key tiles of a score row
-static_assert(kMaxKeyTiles * 16 == kMaxSlots * 32, "one Nk limit");
+static_assert(kMaxKeyTiles * 16 == kMaxNkBf16, "one Nk limit");
 
 // Shared memory of the wgmma kernel, in bytes from a 1024-aligned base:
 //   k [16 KT][D]                          K, keys past Nk zero (TMA fill)
@@ -691,20 +504,321 @@ int dispatch_wgmma(const void* q, const void* k, const void* v, void* out,
                                        stream);
 }
 
+
+// ---- float32: the 3xTF32 wgmma + TMA kernel ----
+
+constexpr int kF32Stages = 3;          // K/V blocks in flight
+constexpr int kF32Keys = 32;           // keys of a K/V block
+constexpr int kF32Rows = 64;           // query rows of a tile
+constexpr int kF32ProducerRegs = 56;   // setmaxnreg: 128 * 56 + 256 * 224
+constexpr int kF32ConsumerRegs = 224;  // = the 384 * 168 a CTA starts with
+
+// Shared memory of the float32 kernel, in bytes from a 1024-aligned base;
+// every tile a float32 panel tile (sr_attention_wgmma.cuh):
+//   q  [kConsumers][64][D]      each consumer's query tile, as loaded
+//   per stage st < kF32Stages, five tiles of 32 * D floats:
+//     0 kh [32 keys][D]         K (TMA), then tf32(K) in place
+//     1 kl [32 keys][D]         tf32(K - tf32(K))
+//     2 vh [D][32 keys]         V^T hi, keys in kperm order
+//     3 vl [D][32 keys]         V^T lo
+//     4 vr [32 keys][D]         V (TMA)
+//   barriers: q_full, q_empty [kConsumers]; raw_full, full, empty
+//   [kF32Stages]
+struct F32Layout {
+  size_t tile, blk, q, stage, bar, total;
+  __host__ __device__ explicit F32Layout(int d) {
+    tile = size_t(kF32Rows) * d * sizeof(float);
+    blk = size_t(kF32Keys) * d * sizeof(float);
+    q = 0;
+    stage = q + kConsumers * tile;
+    bar = stage + kF32Stages * 5 * blk;
+    total = bar + (2 * kConsumers + 3 * kF32Stages) * 8 + 1024;
+  }
+};
+
+// The producer warpgroup's split of a K/V block in stage tiles kh .. vr:
+// K in place into hi and lo; V^T hi and lo in kperm order (lane l of warp
+// w writes key position l of columns w D / 4 .. + D / 4: 32 lanes on 32
+// banks; a quarter-warp's float4 reads of V fall on 8 keys of distinct
+// key % 8, so on 8 distinct swizzled chunks).
+template <int D>
+__device__ __forceinline__ void split_kv(unsigned char* kh, unsigned char* kl,
+                                         unsigned char* vh, unsigned char* vl,
+                                         const unsigned char* vr, int pt) {
+#pragma unroll
+  for (int i = pt; i < kF32Keys * D / 4; i += kConsumerThreads) {
+    const float4 x = *reinterpret_cast<const float4*>(kh + 16 * i);
+    uint4 hi, lo;
+    split_tf32(x.x, hi.x, lo.x);
+    split_tf32(x.y, hi.y, lo.y);
+    split_tf32(x.z, hi.z, lo.z);
+    split_tf32(x.w, hi.w, lo.w);
+    *reinterpret_cast<uint4*>(kh + 16 * i) = hi;
+    *reinterpret_cast<uint4*>(kl + 16 * i) = lo;
+  }
+  const int pos = pt & 31, key = kperm(pos), n0 = (pt >> 5) * (D / 4);
+#pragma unroll
+  for (int n4 = 0; n4 < D / 16; ++n4) {
+    const int n = n0 + 4 * n4;
+    const float4 x =
+        *reinterpret_cast<const float4*>(vr + f32_off(key, n, kF32Keys));
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      uint32_t hi, lo;
+      split_tf32(xs[e], hi, lo);
+      *reinterpret_cast<uint32_t*>(vh + f32_off(n + e, pos, D)) = hi;
+      *reinterpret_cast<uint32_t*>(vl + f32_off(n + e, pos, D)) = lo;
+    }
+  }
+}
+
+// Threads 0-255 are the two consumer warpgroups, 256-383 the producer
+// (thread 256 issues every TMA load; all 128 split the K/V blocks). CTA x
+// serves (batch, head) x / ctas_per_pair and its query tiles
+// [j T / n, (j + 1) T / n) (j = x % ctas_per_pair, n = ctas_per_pair,
+// T = tiles_per_bh); round r gives the run's tiles 2r and 2r + 1 to
+// consumers 0 and 1, and streams the pair's ceil(Nk / 32) K/V blocks once
+// for both (a consumer without a tile in the last round passes them on).
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+sr_attention_fwd_f32_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            float* __restrict__ out, int nq, int nk,
+                            int heads, int tiles_per_bh, int ctas_per_pair,
+                            float scale_log2) {
+  static_assert(D == 32 || D == 64, "head width 32 or 64");
+  constexpr int KS = D / 8;  // k-steps of q k^T
+  constexpr uint32_t kTileBytes = kF32Rows * D * sizeof(float);
+  constexpr uint32_t kBlkBytes = kF32Keys * D * sizeof(float);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const F32Layout lay(D);
+  const uint32_t base = smem_u32(smem);
+  auto q_tile = [&](int c) { return uint32_t(lay.q) + c * kTileBytes; };
+  auto kv_tile = [&](int st, int i) {
+    return uint32_t(lay.stage) + (st * 5 + i) * kBlkBytes;
+  };
+  const uint32_t bars = base + uint32_t(lay.bar);
+  auto q_full = [&](int c) { return bars + 8 * c; };
+  auto q_empty = [&](int c) { return bars + 8 * (kConsumers + c); };
+  auto raw_full = [&](int st) { return bars + 8 * (2 * kConsumers + st); };
+  auto full = [&](int st) {
+    return bars + 8 * (2 * kConsumers + kF32Stages + st);
+  };
+  auto empty = [&](int st) {
+    return bars + 8 * (2 * kConsumers + 2 * kF32Stages + st);
+  };
+
+  const int tid = int(threadIdx.x);
+  if (tid == 0) {
+    for (int c = 0; c < kConsumers; ++c) {
+      mbar_init(q_full(c), 1);
+      mbar_init(q_empty(c), kConsumerThreads / 32);
+    }
+    for (int st = 0; st < kF32Stages; ++st) {
+      mbar_init(raw_full(st), 1);
+      mbar_init(full(st), kConsumerThreads / 32);
+      mbar_init(empty(st), kConsumers * kConsumerThreads / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int pair = int(blockIdx.x) / ctas_per_pair;
+  const int chunk = int(blockIdx.x) - pair * ctas_per_pair;
+  const int b = pair / heads, h = pair - b * heads;
+  const int t0 = int(int64_t(chunk) * tiles_per_bh / ctas_per_pair);
+  const int ntiles =
+      int(int64_t(chunk + 1) * tiles_per_bh / ctas_per_pair) - t0;
+  const int rounds = (ntiles + 1) / 2;
+  const int nb = (nk + kF32Keys - 1) / kF32Keys;
+
+  const int wg = __shfl_sync(0xffffffffu, tid / kConsumerThreads, 0);
+  if (wg == kConsumers) {
+    // ---- producer: q tiles and K/V blocks by TMA; the K/V split
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kF32ProducerRegs));
+    const int pt = tid - kConsumers * kConsumerThreads;
+    uint32_t kv = 0;  // K/V blocks so far
+    for (int r = 0; r < rounds; ++r) {
+      if (pt == 0)
+        for (int c = 0; c < kConsumers && 2 * r + c < ntiles; ++c) {
+          mbar_wait(q_empty(c), (r & 1) ^ 1);
+          mbar_expect_tx(q_full(c), kTileBytes);
+          for (int p = 0; p < D / 32; ++p)
+            tma_load(base + q_tile(c) + p * kF32Rows * 128, &tq, q_full(c),
+                     h * D + 32 * p, (t0 + 2 * r + c) * kF32Rows, b);
+        }
+      for (int j = 0; j < nb; ++j, ++kv) {
+        const int st = int(kv % kF32Stages);
+        const uint32_t par = (kv / kF32Stages) & 1;
+        if (pt == 0) {
+          mbar_wait(empty(st), par ^ 1);
+          mbar_expect_tx(raw_full(st), 2 * kBlkBytes);
+          for (int p = 0; p < D / 32; ++p) {
+            tma_load(base + kv_tile(st, 0) + p * kF32Keys * 128, &tk,
+                     raw_full(st), h * D + 32 * p, j * kF32Keys, b);
+            tma_load(base + kv_tile(st, 4) + p * kF32Keys * 128, &tv,
+                     raw_full(st), h * D + 32 * p, j * kF32Keys, b);
+          }
+        }
+        mbar_wait(raw_full(st), par);
+        split_kv<D>(smem + kv_tile(st, 0), smem + kv_tile(st, 1),
+                    smem + kv_tile(st, 2), smem + kv_tile(st, 3),
+                    smem + kv_tile(st, 4), pt);
+        fence_proxy_async();
+        __syncwarp();
+        if ((pt & 31) == 0) mbar_arrive(full(st));
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: s = q k^T, online softmax, o += p v per K/V block
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      kF32ConsumerRegs));
+  const int ct = tid - wg * kConsumerThreads;
+  const int warp = ct >> 5, lane = ct & 31, g = lane >> 2, t4 = lane & 3;
+  const int c = heads * D;
+  uint32_t kv = 0;
+  for (int r = 0; r < rounds; ++r) {
+    const int tile = 2 * r + wg;
+    const bool mine = tile < ntiles;
+    uint32_t qh[4 * KS], ql[4 * KS];
+    if (mine) {
+      mbar_wait(q_full(wg), r & 1);
+      load_a_tf32<KS>(smem + q_tile(wg), kF32Rows, warp, g, t4, qh, ql);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(q_empty(wg));
+    }
+    float o[D / 2], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int j = 0; j < nb; ++j, ++kv) {
+      const int st = int(kv % kF32Stages);
+      mbar_wait(full(st), (kv / kF32Stages) & 1);
+      if (mine) {
+        float s[kF32Keys / 2];
+        fence_regs<4 * KS>(qh);
+        fence_regs<4 * KS>(ql);
+        wgmma_fence();
+        wgmma_3xtf32<kF32Keys, KS>(s, qh, ql, base + kv_tile(st, 0),
+                                   base + kv_tile(st, 1), kF32Keys, 0);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs<kF32Keys / 2>(s);
+        if ((j + 1) * kF32Keys > nk) {
+#pragma unroll
+          for (int i = 0; i < kF32Keys / 2; ++i) {
+            const int key = j * kF32Keys + 8 * (i >> 2) + 2 * t4 + (i & 1);
+            s[i] = key < nk ? s[i] : -INFINITY;
+          }
+        }
+        // the online max (the block holds a valid key, so it is finite)
+        float mx[2] = {-INFINITY, -INFINITY}, f[2];
+#pragma unroll
+        for (int i = 0; i < kF32Keys / 2; ++i)
+          mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+          mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+          const float mn = fmaxf(m[rr], mx[rr] * scale_log2);
+          f[rr] = exp2_approx(m[rr] - mn);
+          l[rr] *= f[rr];
+          m[rr] = mn;
+        }
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o[i] *= f[(i >> 1) & 1];
+#pragma unroll
+        for (int i = 0; i < kF32Keys / 2; ++i) {
+          s[i] = exp2_approx(fmaf(s[i], scale_log2, -m[(i >> 1) & 1]));
+          l[(i >> 1) & 1] += s[i];
+        }
+        uint32_t ph[kF32Keys / 2], pl[kF32Keys / 2];
+        acc_to_a_tf32<kF32Keys>(s, ph, pl);
+        fence_regs<kF32Keys / 2>(ph);
+        fence_regs<kF32Keys / 2>(pl);
+        fence_regs<D / 2>(o);
+        wgmma_fence();
+        wgmma_3xtf32<D, kF32Keys / 8>(o, ph, pl, base + kv_tile(st, 2),
+                                      base + kv_tile(st, 3), D, 1);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs<D / 2>(o);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(st));  // one per warp
+    }
+    if (mine) {
+      float inv[2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+        l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
+        inv[rr] = 1.f / l[rr];
+      }
+      const int row0 = (t0 + tile) * kF32Rows + 16 * warp + g;
+      float* ob = out + size_t(b) * nq * c + h * D;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = row0 + 8 * hf;
+        if (row < nq) {
+#pragma unroll
+          for (int jj = 0; jj < D / 8; ++jj)
+            *reinterpret_cast<float2*>(ob + size_t(row) * c + 8 * jj +
+                                       2 * t4) =
+                make_float2(o[4 * jj + 2 * hf] * inv[hf],
+                            o[4 * jj + 2 * hf + 1] * inv[hf]);
+        }
+      }
+    }
+  }
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* out, int b,
+               int nq, int nk, int heads, int ctas_per_pair,
+               cudaStream_t stream) {
+  auto kernel = sr_attention_fwd_f32_kernel<D>;
+  static std::atomic<uint32_t> opted{0};
+  cudaError_t err = opt_in_smem(kernel, opted);
+  if (err != cudaSuccess) return int(err);
+  const int tiles = (nq + kF32Rows - 1) / kF32Rows;
+  const int64_t grid = int64_t(b) * heads * ctas_per_pair;
+  if (ctas_per_pair < 1 || ctas_per_pair > tiles || grid > INT_MAX)
+    return int(cudaErrorInvalidValue);
+  const int c = heads * D;
+  CUtensorMap maps[3];
+  if (!encode_map_f32(&maps[0], q, b, nq, c, kF32Rows) ||
+      !encode_map_f32(&maps[1], k, b, nk, c, kF32Keys) ||
+      !encode_map_f32(&maps[2], v, b, nk, c, kF32Keys))
+    return int(cudaErrorInvalidValue);
+  kernel<<<int(grid), kWgThreads, F32Layout(D).total, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<float*>(out), nq, nk, heads,
+      tiles, ctas_per_pair, 1.4426950408889634f / sqrtf(float(D)));
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one CTA needs (elem: 4 f32, 2 bf16; mma:
-// the wgmma kernel, else the scalar one).
-size_t sr_attention_fwd_smem_bytes(int nk, int d, int elem, int mma) {
-  return mma ? WgLayout(d, nk <= 16 * 16 ? 16 : kMaxKeyTiles).total
-             : Layout(nk, d, elem).total;
+// Bytes of dynamic shared memory one CTA needs (elem: 4 the float32
+// kernel, any Nk; 2 the bfloat16 one).
+size_t sr_attention_fwd_smem_bytes(int nk, int d, int elem) {
+  return elem == 4 ? F32Layout(d).total
+                   : WgLayout(d, nk <= 16 * 16 ? 16 : kMaxKeyTiles).total;
 }
 
-int sr_attention_fwd_max_nk() { return kMaxSlots * 32; }
+// The most keys the kernel for `elem`-byte inputs takes; 0: no limit (the
+// float32 kernel streams K and V).
+int sr_attention_fwd_max_nk(int elem) { return elem == 4 ? 0 : kMaxNkBf16; }
 
-// How many CTAs of the wgmma kernel for (nk, d) fit an SM of the current
+// How many CTAs of the bfloat16 kernel for (nk, d) fit an SM of the current
 // device; a negative cudaError_t if the query fails.
 int sr_attention_fwd_wgmma_ctas_per_sm(int nk, int d) {
   int n = 0;
@@ -718,51 +832,27 @@ int sr_attention_fwd_wgmma_ctas_per_sm(int nk, int d) {
   return err == cudaSuccess ? n : -int(err);
 }
 
-// Host nanoseconds to encode the four tensor maps of one wgmma launch,
-// averaged over `iters` (the maps are made anew for every launch); -1 if
-// an encoding fails.
-double sr_attention_fwd_map_ns(const void* q, const void* k, const void* v,
-                               const void* out, int b, int nq, int nk, int c,
-                               int heads, int iters) {
-  const int d = c / heads;
-  CUtensorMap maps[4];
-  const auto t0 = std::chrono::steady_clock::now();
-  for (int i = 0; i < iters; ++i) {
-    const bool ok = d == 64 ? encode_maps<64>(maps, q, k, v, out, b, nq, nk, c)
-                            : encode_maps<32>(maps, q, k, v, out, b, nq, nk, c);
-    if (!ok) return -1.0;
-  }
-  const auto t1 = std::chrono::steady_clock::now();
-  return std::chrono::duration<double, std::nano>(t1 - t0).count() /
-         (iters > 0 ? iters : 1);
-}
-
-// dtype: 0 float32, 1 bfloat16. mma: 1 runs the wgmma kernel (bfloat16
-// only; block_q is then unused), 0 the scalar one. q, k, v and out are
+// dtype: 0 float32 (the 3xTF32 kernel over b * heads * ctas_per_pair CTAs,
+// as ops/sr_attention.py's launch plan sets it), 1 bfloat16 (the bf16
+// kernel, one CTA an SM; ctas_per_pair unused). q, k, v and out are
 // 16-byte aligned. Returns a cudaError_t (0 on success); 1
 // (cudaErrorInvalidValue) for a shape or type the kernel does not take.
 int sr_attention_fwd(const void* q, const void* k, const void* v, void* out,
                      int b, int nq, int nk, int c, int heads, int dtype,
-                     int block_q, int mma, void* stream) {
+                     int ctas_per_pair, void* stream) {
   const int d = c / heads;
-  if (b < 1 || nq < 1 || nk < 1 || nk > kMaxSlots * 32 || d * heads != c ||
-      block_q < 1 || (mma && dtype != 1))
+  if (b < 1 || nq < 1 || nk < 1 || d * heads != c ||
+      (dtype == 1 && nk > kMaxNkBf16))
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && d == 32)
-    return launch<float, 32>(q, k, v, out, b, nq, nk, heads, block_q, s);
+    return launch_f32<32>(q, k, v, out, b, nq, nk, heads, ctas_per_pair, s);
   if (dtype == 0 && d == 64)
-    return launch<float, 64>(q, k, v, out, b, nq, nk, heads, block_q, s);
-  if (mma && d == 32)
-    return dispatch_wgmma<32>(q, k, v, out, b, nq, nk, heads, s);
-  if (mma && d == 64)
-    return dispatch_wgmma<64>(q, k, v, out, b, nq, nk, heads, s);
+    return launch_f32<64>(q, k, v, out, b, nq, nk, heads, ctas_per_pair, s);
   if (dtype == 1 && d == 32)
-    return launch<__nv_bfloat16, 32>(q, k, v, out, b, nq, nk, heads,
-                                     block_q, s);
+    return dispatch_wgmma<32>(q, k, v, out, b, nq, nk, heads, s);
   if (dtype == 1 && d == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, out, b, nq, nk, heads,
-                                     block_q, s);
+    return dispatch_wgmma<64>(q, k, v, out, b, nq, nk, heads, s);
   return int(cudaErrorInvalidValue);
 }
 

@@ -313,12 +313,162 @@ __device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// ---- float32 products on the TF32 tensor cores (3xTF32) ----
+//
+// A float32 x splits into hi = tf32(x) (round to nearest) and
+// lo = tf32(x - hi); a b is then a_lo b_hi + a_hi b_lo + a_hi b_hi, each a
+// TF32 product summed in float32 in the same accumulator (the a_lo b_lo
+// term dropped is ~2^-22 of a b). wgmma takes .tf32 operands in shared
+// memory K-major only (the transpose bits are for 16-bit types), so every
+// shared-memory operand here is a tile whose rows run along the product's
+// reduction: a float32 tile of R rows and W columns is stored as W / 32
+// panels of [R][32] floats (128-byte rows, 128-byte swizzle), each panel
+// R * 128 bytes, as the float32 tensor maps write them.
+
+// tf32(x) by round to nearest (ties away), as the bits of a float.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
+}
+
+// x = hi + lo, both TF32 (lo holds what tf32(x) drops, rounded again).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// The byte offset of element (r, c) of a float32 panel tile of `rows` rows.
+__device__ __forceinline__ uint32_t f32_off(uint32_t r, uint32_t c,
+                                            uint32_t rows) {
+  uint32_t off = (c >> 5) * rows * 128u + r * 128u + (c & 31u) * 4u;
+  return off ^ (((off >> 7) & 7u) << 4);
+}
+
+// The wgmma descriptor of k-step kk (8 columns) of a float32 panel tile of
+// `rows` rows at `addr` (1024-aligned), K-major, 128-byte swizzle: 8-row
+// groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t f32_desc(uint32_t addr, int kk,
+                                             uint32_t rows) {
+  const uint32_t a = addr + (kk >> 2) * rows * 128u + (kk & 3) * 32u;
+  return uint64_t((a & 0x3FFFF) >> 4) | (uint64_t(1024 >> 4) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+// d (+)= A B for a 64 x 32 tile over k = 8: A (64 x 8 tf32) in registers
+// (thread (warp w, lane 4g + t): a[0] row 16w + g column t, a[1] row
+// 16w + g + 8 column t, a[2] and a[3] the same rows at column t + 4), B
+// (32 x 8) K-major in shared memory (its descriptor), d float32.
+__device__ __forceinline__ void wgmma_tf32_n32(float* d, const uint32_t* a,
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : SR_F16(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// As wgmma_tf32_n32 for a 64 x 64 tile.
+__device__ __forceinline__ void wgmma_tf32_n64(float* d, const uint32_t* a,
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : SR_F32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
 #undef SR_F1
 #undef SR_F4
 #undef SR_F16
 #undef SR_F32
 #undef SR_F64
 #undef SR_F128
+
+// The 3xTF32 product d (+)= A B over k = 8 * KS of an N-column tile (32 or
+// 64): A split in registers (ahi, alo: 4 values a k-step), B the hi and lo
+// panel tiles of `rows` rows at bhi, blo; per k-step lo hi, hi lo, then
+// hi hi (with Swap, hi lo first: the same terms in the same order as the
+// product with A and B exchanged, so the two give the same bits).
+// `accumulate` 0 starts d from zero.
+template <int N, int KS, bool Swap = false>
+__device__ __forceinline__ void wgmma_3xtf32(float* d, const uint32_t* ahi,
+                                             const uint32_t* alo,
+                                             uint32_t bhi, uint32_t blo,
+                                             uint32_t rows, int accumulate) {
+  static_assert(N == 32 || N == 64, "N is 32 or 64");
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const uint64_t dh = f32_desc(bhi, kk, rows), dl = f32_desc(blo, kk, rows);
+    const uint32_t* a1 = Swap ? ahi + 4 * kk : alo + 4 * kk;
+    const uint32_t* a2 = Swap ? alo + 4 * kk : ahi + 4 * kk;
+    const uint64_t b1 = Swap ? dl : dh, b2 = Swap ? dh : dl;
+    if constexpr (N == 64) {
+      wgmma_tf32_n64(d, a1, b1, kk > 0 || accumulate);
+      wgmma_tf32_n64(d, a2, b2, 1);
+      wgmma_tf32_n64(d, ahi + 4 * kk, dh, 1);
+    } else {
+      wgmma_tf32_n32(d, a1, b1, kk > 0 || accumulate);
+      wgmma_tf32_n32(d, a2, b2, 1);
+      wgmma_tf32_n32(d, ahi + 4 * kk, dh, 1);
+    }
+  }
+}
+
+// The A fragments (hi, lo) of k-steps 0 .. KS - 1 of rows 0-63 of a float32
+// panel tile of `rows` rows at `tile` (generic pointer), for thread (warp w,
+// lane 4g + t) of a warpgroup: row 16w + g (+ 8), column 8kk + t (+ 4).
+template <int KS>
+__device__ __forceinline__ void load_a_tf32(const unsigned char* tile,
+                                            uint32_t rows, int warp, int g,
+                                            int t, uint32_t* hi,
+                                            uint32_t* lo) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t r = 16 * warp + g + 8 * (j & 1);
+      const uint32_t c = 8 * kk + t + 4 * (j >> 1);
+      split_tf32(*reinterpret_cast<const float*>(tile + f32_off(r, c, rows)),
+                 hi[4 * kk + j], lo[4 * kk + j]);
+    }
+}
+
+// The accumulator of a 64 x N product (thread (warp w, lane 4g + t): d[i]
+// at row 16w + g + 8 ((i >> 1) & 1), column 8 (i / 4) + 2t + (i & 1)) as
+// the split register A operand of a product along its N columns. A k-step
+// holds 8 columns; the A layout wants columns t and t + 4 where the
+// accumulator has 2t and 2t + 1, so A's column t is taken to be column 2t
+// and its column t + 4 column 2t + 1: the B operand of that product stores
+// its 8 reduction positions of a k-step in the order kperm() gives.
+template <int N>
+__device__ __forceinline__ void acc_to_a_tf32(const float* d, uint32_t* hi,
+                                              uint32_t* lo) {
+#pragma unroll
+  for (int kk = 0; kk < N / 8; ++kk) {
+    split_tf32(d[4 * kk + 0], hi[4 * kk + 0], lo[4 * kk + 0]);
+    split_tf32(d[4 * kk + 2], hi[4 * kk + 1], lo[4 * kk + 1]);
+    split_tf32(d[4 * kk + 1], hi[4 * kk + 2], lo[4 * kk + 2]);
+    split_tf32(d[4 * kk + 3], hi[4 * kk + 3], lo[4 * kk + 3]);
+  }
+}
+
+// The source index of reduction position `pos` of a B tile read by
+// acc_to_a_tf32's A operand: within each 8, positions 0-3 hold 0, 2, 4, 6
+// and 4-7 hold 1, 3, 5, 7.
+__host__ __device__ __forceinline__ int kperm(int pos) {
+  const int c = pos & 7;
+  return (pos & ~7) | (c < 4 ? 2 * c : 2 * (c - 4) + 1);
+}
 
 // The register-A product of N = D columns (64 or 32).
 template <int D>
@@ -382,6 +532,17 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// Makes the current device's primary context current on the calling
+// thread, as the runtime does at its first call that needs one.
+// cuTensorMapEncodeTiled needs a current context, and a thread whose first
+// CUDA work is this launch (a Python thread, autograd's backward thread)
+// may have none yet.
+inline bool bind_context() {
+  int dev = 0;
+  return cudaGetDevice(&dev) == cudaSuccess &&
+         cudaSetDevice(dev) == cudaSuccess;
+}
+
 // The 3-D tensor map over a (B, N, C) bf16 tensor that a kernel reads or
 // writes in boxes of (D columns, `rows` rows, 1 batch), swizzled for
 // wgmma; out-of-bounds rows read as zero and are not written.
@@ -389,7 +550,7 @@ template <int D>
 bool encode_map(CUtensorMap* map, const void* ptr, int b, int n, int c,
                 int rows) {
   const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
+  if (fn == nullptr || !bind_context()) return false;
   const cuuint64_t dims[3] = {cuuint64_t(c), cuuint64_t(n), cuuint64_t(b)};
   const cuuint64_t strides[2] = {cuuint64_t(c) * sizeof(bf16),
                                  cuuint64_t(n) * c * sizeof(bf16)};
@@ -400,6 +561,24 @@ bool encode_map(CUtensorMap* map, const void* ptr, int b, int n, int c,
             swizzle_bits<D>() == 3 ? CU_TENSOR_MAP_SWIZZLE_128B
                                    : CU_TENSOR_MAP_SWIZZLE_64B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The 3-D tensor map over a (B, N, C) float32 tensor that a kernel reads in
+// boxes of (32 columns, `rows` rows, 1 batch): one panel of a float32 panel
+// tile, 128-byte swizzle; out-of-bounds rows read as zero.
+inline bool encode_map_f32(CUtensorMap* map, const void* ptr, int b, int n,
+                           int c, int rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr || !bind_context()) return false;
+  const cuuint64_t dims[3] = {cuuint64_t(c), cuuint64_t(n), cuuint64_t(b)};
+  const cuuint64_t strides[2] = {cuuint64_t(c) * sizeof(float),
+                                 cuuint64_t(n) * c * sizeof(float)};
+  const cuuint32_t box[3] = {32, cuuint32_t(rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

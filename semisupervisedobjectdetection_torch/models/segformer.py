@@ -53,6 +53,7 @@ from semisupervisedobjectdetection_torch.core.config import MiTConfig
 from semisupervisedobjectdetection_torch.ops.sr_attention import (
     HEAD_DIMS,
     MAX_NK,
+    max_nk,
     sr_attention,
     sr_attention_reference,
 )
@@ -153,12 +154,14 @@ def check_attention_kernels(cfg: MiTConfig, h: int, w: int,
                             device: torch.device) -> None:
     """Raise ValueError, before a model is built, when `cfg` at h x w would
     send the SR-attention kernels shapes they refuse on `device` (a CUDA
-    device with `attn_impl="kernel"`): Nk above `MAX_NK` or a head width
-    outside `HEAD_DIMS`. Nothing falls back to the plain attention."""
+    device with `attn_impl="kernel"`): a head width outside `HEAD_DIMS`, or
+    in bfloat16 Nk above `MAX_NK` (the float32 kernels take any Nk).
+    Nothing falls back to the plain attention."""
     if torch.device(device).type != "cuda" or cfg.attn_impl != "kernel":
         return
+    limit = max_nk(compute_dtype(cfg))
     for i, (_, nk, d) in enumerate(attention_shapes(cfg, h, w)):
-        if nk > MAX_NK:
+        if limit is not None and nk > limit:
             prompt, cls = cfg.prompt_tokens[i], cfg.cls_tokens[i]
             raise ValueError(
                 f"stage {i}: SR-attention over Nk={nk} keys "
@@ -242,9 +245,6 @@ class EfficientSelfAttention(nn.Module):
         self.num_heads = num_heads
         self.sr_ratio = sr_ratio
         self.attn_impl = attn_impl
-        # The bfloat16 forward on wgmma (`sr_attention(..., mma=True)`);
-        # `api.SegFormerModel`'s float32 serving copy turns it off.
-        self.attn_fwd_mma = True
         self.query = Linear(hidden, hidden)
         self.key = Linear(hidden, hidden)
         self.value = Linear(hidden, hidden)
@@ -264,7 +264,7 @@ class EfficientSelfAttention(nn.Module):
         k = self.key(kv_in)
         v = self.value(kv_in)
         if self.attn_impl == "kernel":
-            return sr_attention(q, k, v, self.num_heads, self.attn_fwd_mma)
+            return sr_attention(q, k, v, self.num_heads)
         return sr_attention_reference(q, k, v, self.num_heads)
 
 

@@ -26,26 +26,33 @@ _SOURCE = "sr_attention_fwd.cu"
 _BWD_SOURCE = "sr_attention_bwd.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64)
-# The most keys either kernel takes (`kMaxSlots * 32` in both sources): one
-# (batch, head)'s K and V sit on chip and the score row of a query tile sits
-# in registers (the bf16 forward's 64-row tile: 18 tiles of 16 keys). Larger
-# Nk needs a loop over K/V blocks (ROADMAP.md Queue 2).
+# The most keys the bfloat16 kernels take (`kMaxNkBf16` in both sources):
+# one (batch, head)'s K and V sit on chip and the score row of a query tile
+# sits in registers (the forward's 64-row tile: 18 tiles of 16 keys). The
+# float32 kernels stream K and V in blocks and take any Nk (`max_nk`).
 MAX_NK = 288
-# Query rows per block of the scalar kernels (the bf16 forward walks 64-row
-# tiles over a persistent grid and takes no block size).
-BLOCK_Q = 128
-# The backward's key pass in float32 (scalar kernel): blocks of 32 keys per
-# (batch, head), query rows in tiles of 32; its rows are split so that about
-# this many blocks run (4 per SM on an H100).
-BWD_KEYS_PER_BLOCK = 32
-BWD_ROW_TILE = 32
-BWD_TARGET_BLOCKS = 528
 # The bfloat16 backward (the wgmma kernel) walks 64-row query tiles, one
 # CTA an SM; the H100's SM count is the CPU's stand-in for the card's.
 BWD_WGMMA_ROW_TILE = 64
 H100_SMS = 132
+# The float32 kernels' tiles as their launch plans count them: 64-row query
+# tiles (the forward and the backward's row pass), 64-key blocks (the key
+# pass's M, two per CTA) and 32-row query tiles (the key pass's ranges).
+F32_ROW_TILE = 64
+F32_KEY_BLOCK = 64
+F32_KEY_PASS_ROWS = 32
 # Opt-in shared memory a block may use on Hopper (227 KB).
 MAX_SMEM_BYTES = 232448
+# The kernel a forward call of each dtype launches (`csrc/sr_attention_fwd.cu`):
+# the kernel follows the dtype alone.
+FWD_KERNELS = {torch.bfloat16: "sr_attention_fwd_wgmma_kernel",
+               torch.float32: "sr_attention_fwd_f32_kernel"}
+
+
+def max_nk(dtype: torch.dtype):
+    """The most keys the kernels for `dtype` take: `MAX_NK` for bfloat16,
+    None (no limit) for float32."""
+    return MAX_NK if dtype == torch.bfloat16 else None
 
 
 def _split(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -105,19 +112,21 @@ def sr_attention_backward_reference(q: torch.Tensor, k: torch.Tensor,
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The built forward kernel library with its C signatures declared."""
-    lib = _build.load_library(_SOURCE)
+    return declare_fwd(_build.load_library(_SOURCE))
+
+
+def declare_fwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """`lib`, a build of `csrc/sr_attention_fwd.cu`, with the C signatures
+    of its exports declared."""
     lib.sr_attention_fwd.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.sr_attention_fwd.restype = ctypes.c_int
-    lib.sr_attention_fwd_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.sr_attention_fwd_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.sr_attention_fwd_smem_bytes.restype = ctypes.c_size_t
-    lib.sr_attention_fwd_max_nk.argtypes = []
+    lib.sr_attention_fwd_max_nk.argtypes = [ctypes.c_int]
     lib.sr_attention_fwd_max_nk.restype = ctypes.c_int
     lib.sr_attention_fwd_wgmma_ctas_per_sm.argtypes = [ctypes.c_int] * 2
     lib.sr_attention_fwd_wgmma_ctas_per_sm.restype = ctypes.c_int
-    lib.sr_attention_fwd_map_ns.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6)
-    lib.sr_attention_fwd_map_ns.restype = ctypes.c_double
     lib.sr_attention_fwd_error_string.argtypes = [ctypes.c_int]
     lib.sr_attention_fwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -134,7 +143,7 @@ def declare_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     of its exports declared."""
     launched = ctypes.POINTER(ctypes.c_int)
     lib.sr_attention_bwd.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
         + [launched, ctypes.c_void_p])
     lib.sr_attention_bwd.restype = ctypes.c_int
     lib.sr_attention_bwd_wgmma.argtypes = (
@@ -143,7 +152,7 @@ def declare_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sr_attention_bwd_wgmma.restype = ctypes.c_int
     lib.sr_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.sr_attention_bwd_smem_bytes.restype = ctypes.c_size_t
-    lib.sr_attention_bwd_max_nk.argtypes = []
+    lib.sr_attention_bwd_max_nk.argtypes = [ctypes.c_int]
     lib.sr_attention_bwd_max_nk.restype = ctypes.c_int
     lib.sr_attention_bwd_error_string.argtypes = [ctypes.c_int]
     lib.sr_attention_bwd_error_string.restype = ctypes.c_char_p
@@ -151,20 +160,21 @@ def declare_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _fwd_limits(nk: int, d: int, elem: int, mma: bool) -> Tuple[int, int]:
-    """(shared-memory bytes per block, largest Nk) of a forward kernel."""
+def _fwd_limits(nk: int, d: int, elem: int):
+    """(shared-memory bytes per block, largest Nk or None) of the forward
+    kernel for `elem`-byte inputs."""
     lib = _lib()
-    return (lib.sr_attention_fwd_smem_bytes(nk, d, elem, mma),
-            lib.sr_attention_fwd_max_nk())
+    return (lib.sr_attention_fwd_smem_bytes(nk, d, elem),
+            lib.sr_attention_fwd_max_nk(elem) or None)
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_limits(nk: int, d: int, elem: int) -> Tuple[int, int]:
-    """(shared-memory bytes per block, largest Nk) of the backward kernel
-    for `elem`-byte inputs (the float32 row pass, the bf16 wgmma kernel)."""
+def _bwd_limits(nk: int, d: int, elem: int):
+    """(shared-memory bytes per block, largest Nk or None) of the backward
+    kernels for `elem`-byte inputs."""
     lib = _bwd_lib()
     return (lib.sr_attention_bwd_smem_bytes(nk, d, elem),
-            lib.sr_attention_bwd_max_nk())
+            lib.sr_attention_bwd_max_nk(elem) or None)
 
 
 def _launch(fn, device: torch.device, *args) -> int:
@@ -191,7 +201,7 @@ def _check(q, k, v, num_heads: int) -> None:
 
 
 def _check_kernel_inputs(name: str, tensors, num_heads: int, smem: int,
-                         max_nk: int) -> None:
+                         max_keys) -> None:
     """Raise for what a kernel does not take: the dtype, the head width,
     the device, the layout, and Nk beyond the shared memory of a block."""
     q = tensors[0][1]
@@ -211,22 +221,68 @@ def _check_kernel_inputs(name: str, tensors, num_heads: int, smem: int,
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{tname} must be contiguous and 16-byte "
                              "aligned")
-    if nk > max_nk or smem > MAX_SMEM_BYTES:
+    if (max_keys is not None and nk > max_keys) or smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"{name} kernel: Nk={nk} keys at head width {d} ({q.dtype}) "
             f"need {smem} bytes of shared memory per block; the kernel "
-            f"takes Nk <= {max_nk} within {MAX_SMEM_BYTES} bytes")
+            f"takes Nk <= {max_keys} within {MAX_SMEM_BYTES} bytes")
 
 
-def bwd_key_splits(b: int, nq: int, nk: int, num_heads: int) -> int:
-    """How many splits of the query rows the float32 backward's key pass
-    takes: enough that key blocks * B * heads * splits blocks fill the card
-    (32-key blocks, ~528 blocks: stage 1 of MiT-B5 at batch 16 is 8 * 16
-    blocks, 5 splits), each split at least one 32-row tile."""
-    blocks = -(-nk // BWD_KEYS_PER_BLOCK) * b * num_heads
-    want = -(-BWD_TARGET_BLOCKS // blocks)
-    rows = -(-(-(-nq // want)) // BWD_ROW_TILE) * BWD_ROW_TILE
-    return -(-nq // rows)
+def f32_ctas_per_pair(b: int, nq: int, num_heads: int,
+                      sms: int = H100_SMS) -> int:
+    """CTAs per (batch, head) of the float32 forward and of the float32
+    backward's row pass: each takes a contiguous run of the (batch, head)'s
+    64-row query tiles, and as many as fill the SMs once (at least one,
+    at most one per tile)."""
+    tiles = -(-nq // F32_ROW_TILE)
+    return max(1, min(tiles, sms // (b * num_heads)))
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_f32_plan(b: int, nq: int, nk: int, c: int, num_heads: int,
+                 sms: int = H100_SMS) -> dict:
+    """The float32 backward's launch (`sr_attention_bwd` in
+    `csrc/sr_attention_bwd.cu`), which takes it as given: the row pass's
+    CTAs per (batch, head) (`f32_ctas_per_pair`); the key pass's grid of
+    (batch, head) x key group (two 64-key blocks, one per consumer) x
+    split (a contiguous range of the pair's 32-row query tiles), with as
+    many splits as fill the SMs once (at least one, at most one per tile);
+    the float32 workspaces (row statistics; the splits' dk and dv slots,
+    summed in split order by a third kernel where splits > 1) and the
+    kernels one call launches. Cached per shape; callers do not modify the
+    dict."""
+    pairs = b * num_heads
+    key_blocks = -(-nk // F32_KEY_BLOCK)
+    groups = -(-key_blocks // 2)
+    q_tiles = -(-nq // F32_KEY_PASS_ROWS)
+    splits = max(1, min(q_tiles, sms // (pairs * groups)))
+    cpp = f32_ctas_per_pair(b, nq, num_heads, sms)
+    return {"row_ctas_per_pair": cpp, "row_grid": pairs * cpp,
+            "key_blocks": key_blocks, "key_groups": groups,
+            "q_tiles": q_tiles, "splits": splits,
+            "key_grid": pairs * groups * splits,
+            "stats_floats": pairs * nq * 4,
+            "workspace_floats": splits * 2 * b * nk * c if splits > 1 else 0,
+            "kernels": ("sr_attention_bwd_f32_rows_kernel",
+                        "sr_attention_bwd_f32_keys_kernel")
+            + (("sr_attention_bwd_f32_sum_kernel",) if splits > 1 else ())}
+
+
+def bwd_f32_key_work(plan: dict, pairs: int):
+    """The key pass's work, CTA by CTA in launch order, as the kernel
+    reads it from the plan: (pair, key block, first and last query tile)
+    for each consumer that holds a key block."""
+    groups, splits, tiles = plan["key_groups"], plan["splits"], \
+        plan["q_tiles"]
+    work = []
+    for x in range(pairs * groups * splits):
+        split, grp = x % splits, (x // splits) % groups
+        pair = x // (splits * groups)
+        first, end = split * tiles // splits, (split + 1) * tiles // splits
+        for kb in (2 * grp, 2 * grp + 1):
+            if kb < plan["key_blocks"]:
+                work.append((pair, kb, first, end - 1))
+    return work
 
 
 @functools.lru_cache(maxsize=None)
@@ -282,24 +338,26 @@ def _device_of(q: torch.Tensor) -> str:
 
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             num_heads: int, mma: bool) -> torch.Tensor:
+             num_heads: int) -> torch.Tensor:
     """The forward: the plain version on a CPU tensor, else one launch of
-    `csrc/sr_attention_fwd.cu`, its wgmma + TMA kernel for bfloat16 with
-    `mma` (counted in `sr_attention.launches`, and the wgmma ones also in
+    `csrc/sr_attention_fwd.cu`'s kernel for q's dtype (counted in
+    `sr_attention.launches`, the bfloat16 kernel's also in
     `sr_attention.mma_launches`)."""
     if _device_of(q) == "cpu":
         return sr_attention_reference(q, k, v, num_heads)
     b, nq, c = q.shape
     nk = k.shape[1]
-    mma = mma and q.dtype == torch.bfloat16
     lib = _lib()
     _check_kernel_inputs(
         "sr_attention", (("q", q), ("k", k), ("v", v)), num_heads,
-        *_fwd_limits(nk, c // num_heads, q.element_size(), mma))
+        *_fwd_limits(nk, c // num_heads, q.element_size()))
+    bf16 = q.dtype == torch.bfloat16
+    cpp = 0 if bf16 else f32_ctas_per_pair(b, nq, num_heads,
+                                          _sm_count(q.device.index))
     out = torch.empty_like(q)
     err = _launch(lib.sr_attention_fwd, q.device, q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), out.data_ptr(), b, nq, nk, c, num_heads,
-                  _DTYPES[q.dtype], BLOCK_Q, mma)
+                  _DTYPES[q.dtype], cpp)
     if err:
         raise RuntimeError(
             f"sr_attention_fwd launch failed: "
@@ -307,7 +365,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"(B={b}, Nq={nq}, Nk={nk}, C={c}, heads={num_heads}, "
             f"{q.dtype})")
     sr_attention.launches += 1
-    sr_attention.mma_launches += mma
+    sr_attention.mma_launches += bf16
     return out
 
 
@@ -319,21 +377,26 @@ def sr_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Replaces the Pallas TPU kernel
     `semisupervisedobjectdetection_tpu/ops/sr_attention.py::_bwd_kernel`.
-    On a CUDA tensor it launches `csrc/sr_attention_bwd.cu` (float32 or
-    bfloat16, head width 32 or 64, Nk up to 288) or raises; on a CPU tensor
-    it computes `sr_attention_backward_reference`.
+    On a CUDA tensor it launches `csrc/sr_attention_bwd.cu`'s kernels for
+    q's dtype (float32 or bfloat16, head width 32 or 64; bfloat16 up to
+    `MAX_NK` keys, float32 any Nk) or raises; on a CPU tensor it computes
+    `sr_attention_backward_reference`.
 
     What bounds it on the H100: 10*B*Nq*Nk*C flops (five products) against
     q, g, dq (B*Nq*C each) and k, v, dk, dv (B*Nk*C each) moved once puts it
-    under the flops line on the bf16 tensor cores at MiT-B5 stages 1-3.
-    bfloat16 runs the Hopper kernel: every product on wgmma, tiles by TMA,
-    the row statistics on chip, dk and dv in registers across each CTA's
-    run of query tiles, over the grid of `bwd_launch_plan`; where that grid
-    splits a (batch, head) over CTAs, a second kernel sums their float32
-    parts in CTA order. float32 runs the scalar kernels (a row pass, a key
-    pass over `bwd_key_splits` splits and their sum in split order),
-    because TF32 would not hold float32 results to their tolerance (see
-    PERF.md). No atomics: the result is the same every run.
+    under the flops line at MiT-B5 stages 1-3. Every product runs on wgmma
+    with tiles brought in by TMA. bfloat16 runs one kernel: the row
+    statistics on chip, dk and dv in registers across each CTA's run of
+    query tiles, over the grid of `bwd_launch_plan`; where that grid splits
+    a (batch, head) over CTAs, a second kernel sums their float32 parts in
+    CTA order. float32 splits each product three ways on the TF32 tensor
+    cores (3xTF32: hi = tf32(x), lo = tf32(x - hi), a b = a_lo b_hi +
+    a_hi b_lo + a_hi b_hi, within ~1e-6 of float64; at most 495 / 3 = 165
+    TFLOP/s) and streams K and V in blocks, over the grids of
+    `bwd_f32_plan`: a row pass (row statistics and dq), a key pass (dk and
+    dv, keys as the product's rows, over split ranges of query tiles) and,
+    where there are splits, their sum in split order. No atomics: the
+    result is the same every run.
 
     `sr_attention_bwd.launches` counts calls that launched the kernels (not
     CPU calls); `sr_attention_bwd.last_launches` is the number of kernels
@@ -354,9 +417,9 @@ def sr_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
     launched = ctypes.c_int(0)
+    sms = _sm_count(q.device.index)
     if q.dtype == torch.bfloat16:
-        plan = bwd_launch_plan(b, nq, nk, c, num_heads,
-                               _sm_count(q.device.index))
+        plan = bwd_launch_plan(b, nq, nk, c, num_heads, sms)
         part = torch.empty(plan["workspace_floats"], dtype=torch.float32,
                            device=q.device)
         err = _launch(lib.sr_attention_bwd_wgmma, q.device, q.data_ptr(),
@@ -365,17 +428,18 @@ def sr_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       part.data_ptr() if plan["split"] else None, b, nq, nk,
                       c, num_heads, plan["grid"], ctypes.byref(launched))
     else:
-        # per query row: max, l and rowsum(dp * p)
-        stats = torch.empty(b * num_heads * nq * 3, dtype=torch.float32,
+        plan = bwd_f32_plan(b, nq, nk, c, num_heads, sms)
+        stats = torch.empty(plan["stats_floats"], dtype=torch.float32,
                             device=q.device)
-        splits = bwd_key_splits(b, nq, nk, num_heads)
-        part = torch.empty(splits * 2 * k.numel() if splits > 1 else 0,
-                           dtype=torch.float32, device=q.device)
+        part = torch.empty(plan["workspace_floats"], dtype=torch.float32,
+                           device=q.device)
         err = _launch(lib.sr_attention_bwd, q.device, q.data_ptr(),
                       k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(),
                       dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-                      part.data_ptr() if splits > 1 else None, b, nq, nk, c,
-                      num_heads, BLOCK_Q, splits, ctypes.byref(launched))
+                      part.data_ptr() if plan["splits"] > 1 else None, b, nq,
+                      nk, c, num_heads, plan["row_ctas_per_pair"],
+                      plan["key_groups"], plan["splits"],
+                      ctypes.byref(launched))
     if err:
         raise RuntimeError(
             f"sr_attention_bwd launch failed: "
@@ -399,53 +463,52 @@ class SRAttention(torch.autograd.Function):
     kernels, on the CPU the plain versions."""
 
     @staticmethod
-    def forward(ctx, q, k, v, num_heads: int, mma: bool = True):
+    def forward(ctx, q, k, v, num_heads: int):
         ctx.num_heads = num_heads
         ctx.save_for_backward(q, k, v)
-        return _forward(q, k, v, num_heads, mma)
+        return _forward(q, k, v, num_heads)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
         dq, dk, dv = sr_attention_bwd(q, k, v, g.contiguous(),
                                       ctx.num_heads)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None
 
 
 def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 num_heads: int, mma: bool = True) -> torch.Tensor:
+                 num_heads: int) -> torch.Tensor:
     """SR attention q (B,Nq,C) x k,v (B,Nk,C) -> (B,Nq,C) over `num_heads`
     heads of width C/num_heads, differentiable in q, k and v.
 
     Replaces the Pallas TPU kernel
     `semisupervisedobjectdetection_tpu/ops/sr_attention.py::_attn_kernel`.
-    On a CUDA tensor it launches `csrc/sr_attention_fwd.cu` (float32 or
-    bfloat16, head width 32 or 64, Nk up to 288) or raises; on a CPU tensor
-    it computes the plain version. Its gradient is `sr_attention_bwd`.
+    On a CUDA tensor it launches `csrc/sr_attention_fwd.cu`'s kernel for
+    q's dtype (head width 32 or 64) or raises; on a CPU tensor it computes
+    the plain version. Its gradient is `sr_attention_bwd`. Both kernels run
+    their products on wgmma with the query tiles, K and V brought in by
+    TMA, and sum in the tensor cores' order:
 
-    bfloat16 has two kernels: by default (`mma=True`) the Hopper one, on
-    wgmma with K, V and the query tiles brought in by TMA, whose sums run in
-    the tensor cores' order, so that a small share of its outputs differ
-    from the plain version's by an ulp or two; with `mma=False` the scalar
-    one, whose results equal the plain version's bit for bit. Every bf16
-    path of the package, serving included, takes the Hopper kernel. float32
-    always runs the scalar kernel.
-
-    What bounds it on the H100: the function moves 2*B*(Nq+Nk)*C elements
-    and does 4*B*Nq*Nk*C flops, ~250 flops a byte at Nk 256 and head width
-    64 against the card's ~295 for bf16, so at MiT-B5 512x512 it sits just
-    under the bytes line. The kernel keeps the whole score row on chip (K
-    and V of one (batch, head) in shared memory for many 64-row query tiles,
-    the row in registers), so only q, k, v and the output cross device
-    memory; its products run on wgmma and the query tiles stream in by TMA
-    while the products run. The scalar kernel does its products as float32
-    FMAs, which then bound it (see PERF.md).
+    - bfloat16: all of a (batch, head)'s K and V on chip and one full-row
+      softmax (Nk up to `MAX_NK`); a small share of its outputs differ from
+      the plain version's by an ulp or two. The function moves
+      2*B*(Nq+Nk)*C elements and does 4*B*Nq*Nk*C flops, ~250 flops a byte
+      at Nk 256 and head width 64 against the card's ~295 for bf16, so at
+      MiT-B5 512x512 it sits just under the bytes line.
+    - float32: each product split three ways on the TF32 tensor cores
+      (3xTF32: hi = tf32(x), lo = tf32(x - hi), a b = a_lo b_hi + a_hi b_lo
+      + a_hi b_hi; the dropped a_lo b_lo is ~2^-22 of a b, so a product is
+      within ~1e-6 of float64, far inside the float32 tolerance). Three
+      TF32 products per float32 product bound it at 495 / 3 = 165 TFLOP/s,
+      which puts MiT-B5's float32 shapes above the bytes line. K and V
+      stream through shared memory in 64-key blocks with an online softmax,
+      so it takes any Nk.
 
     `sr_attention.launches` counts forward kernel launches (not CPU calls),
-    `sr_attention.mma_launches` those of the wgmma kernel.
+    `sr_attention.mma_launches` those of the bfloat16 kernel.
     """
     _check(q, k, v, num_heads)
-    return SRAttention.apply(q, k, v, num_heads, mma)
+    return SRAttention.apply(q, k, v, num_heads)
 
 
 sr_attention.launches = 0

@@ -105,7 +105,8 @@ def kernels_launched(fn, match: str):
         time.sleep(0.02)
     found = sorted((e.time_range.start, m.group(0)) for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA
-                   and (m := re.search(match + r"[a-z_]*?_kernel", e.name)))
+                   and (m := re.search(match + r"[a-z0-9_]*?_kernel",
+                                       e.name)))
     return out, [name for _, name in found]
 
 

@@ -7,12 +7,10 @@ chip_smoke's serve gate.
         [--device cuda]
 
 The same seeded weights and seeded uint8 images (scaled to [0, 1]) go
-through `SegFormerModel.predict` in batches of 8 on four paths:
+through `SegFormerModel.predict` in batches of 8 on three paths:
 
-- `served`: what `SegFormerModel` serves in bfloat16 (the Hopper wgmma
+- `served`: what `SegFormerModel` serves in bfloat16 (the bfloat16 wgmma
   SR-attention forward);
-- `scalar`: bfloat16 with the scalar forward (`mma=False`), whose attention
-  outputs equal the plain version's bit for bit;
 - `plain`: bfloat16 with the plain attention;
 - `float32`: the plain attention in float32, TF32 off.
 
@@ -39,25 +37,17 @@ from semisupervisedobjectdetection_torch.core.config import (
     MIT_VARIANTS,
     MiTConfig,
 )
-from semisupervisedobjectdetection_torch.models.segformer import (
-    EfficientSelfAttention,
-)
 from semisupervisedobjectdetection_torch.utils.device import resolve_device
 
 BATCH = 8
 QUANTILES = (0.001, 0.01, 0.1, 0.5)
 
 
-def masks(cfg: MiTConfig, x: np.ndarray, seed: int, device: torch.device,
-          scalar: bool = False) -> np.ndarray:
+def masks(cfg: MiTConfig, x: np.ndarray, seed: int,
+          device: torch.device) -> np.ndarray:
     """`SegFormerModel(config=cfg, seed=seed).predict` of `x` in batches of
-    8; with `scalar`, its bfloat16 serving copy runs the scalar
-    SR-attention forward."""
+    8."""
     model = SegFormerModel(config=cfg, seed=seed, device=device)
-    if scalar:
-        for layer in model.model.modules():
-            if isinstance(layer, EfficientSelfAttention):
-                layer.attn_fwd_mma = False
     out = np.concatenate([model.predict(x[i:i + BATCH])
                           for i in range(0, len(x), BATCH)])
     del model
@@ -95,7 +85,6 @@ def compare(cfg: MiTConfig, x: np.ndarray, seed: int = 0,
     float32 NHWC images `x`."""
     bf16 = cfg.replace(dtype="bfloat16", attn_impl="kernel")
     paths = {"served": masks(bf16, x, seed, device),
-             "scalar": masks(bf16, x, seed, device, scalar=True),
              "plain": masks(bf16.replace(attn_impl="plain"), x, seed,
                             device)}
     f32 = masks(cfg.replace(dtype="float32", attn_impl="plain"), x, seed,

@@ -17,6 +17,10 @@ from semisupervisedobjectdetection_torch.core.config import (
     MiTConfig,
     TrainConfig,
 )
+from semisupervisedobjectdetection_torch.models.segformer import (
+    forward_masks,
+)
+from semisupervisedobjectdetection_torch.ops import sr_attention as sra
 from test_torch_segformer import (  # noqa: F401 (autouse fixture)
     SIZE,
     TINY,
@@ -141,10 +145,11 @@ def test_predict_with_target_equals_eval(loss):
     assert 0.0 <= float(p_loss) <= 1.0
 
 
-def test_serving_copy_follows_training():
+def test_serving_copy_follows_training(monkeypatch):
     """The serving copy is rebuilt after a step and after a load, so
-    `predict` serves the trained weights; it records no gradients, and
-    takes the Hopper forward in bfloat16 (the scalar one in float32)."""
+    `predict` serves the trained weights; it records no gradients, and its
+    SR-attention takes tensors of its dtype, so the forward kernel follows
+    the dtype (the bfloat16 wgmma kernel, the float32 3xTF32 one)."""
     m = _model(seed=7)
     x, gt = _batch(4)
     first = m.predict(x)
@@ -153,10 +158,23 @@ def test_serving_copy_follows_training():
     assert not any(p.requires_grad for p in served.parameters())
     bf16 = SegFormerModel(config=MiTConfig(**{**TINY, "dtype": "bfloat16"}),
                           device="cpu", seed=7).model
-    for model, hopper in ((served, False), (bf16, True)):
-        flags = [layer.attn_fwd_mma for layer in model.modules()
-                 if hasattr(layer, "attn_fwd_mma")]
-        assert flags and all(f == hopper for f in flags)
+    seen = []
+    fwd = sra.SRAttention.forward
+
+    def record(ctx, q, k, v, num_heads):
+        seen.append(q.dtype)
+        return fwd(ctx, q, k, v, num_heads)
+
+    monkeypatch.setattr(sra.SRAttention, "forward", staticmethod(record))
+    for model, dtype in ((served, torch.float32), (bf16, torch.bfloat16)):
+        seen.clear()
+        with torch.no_grad():
+            forward_masks(model, torch.from_numpy(x))
+        assert seen and all(d == dtype for d in seen)
+        assert sra.FWD_KERNELS[dtype] == {
+            torch.float32: "sr_attention_fwd_f32_kernel",
+            torch.bfloat16: "sr_attention_fwd_wgmma_kernel"}[dtype]
+    monkeypatch.undo()
     m.train_one_epoch(x, gt)
     assert m.model is not served
     assert not np.array_equal(m.predict(x), first)

@@ -154,21 +154,25 @@ def test_default_device_needs_a_card(cli, monkeypatch):
 
 def test_prefix_past_the_kernels_is_refused_before_a_model(monkeypatch):
     """MiT-B5 at 512x512 reduces every stage to 256 keys: 10 prompt tokens
-    give Nk = 266, which the kernels take; 40 give 296, past their 288, and
-    the card path refuses that before it makes data or a model (nothing
-    falls back to the plain attention). The CPU runs the plain attention and
-    takes any prefix."""
+    give Nk = 266, which every kernel takes; 40 give 296, past the bfloat16
+    kernels' 288, and the card path refuses that in bfloat16 (the CLIs'
+    default dtype) before it makes data or a model (nothing falls back to
+    the plain attention); the float32 kernels take any Nk. The CPU runs the
+    plain attention and takes any prefix."""
     cuda = torch.device("cuda")
+    bf16 = {"dtype": "bfloat16"}
     assert [nk for _, nk, _ in attention_shapes(
         mit_b5(prompt_tokens=(10,) * 4), 512, 512)] == [266] * 4
-    check_attention_kernels(mit_b5(prompt_tokens=(32,) * 4), 512, 512, cuda)
+    check_attention_kernels(mit_b5(prompt_tokens=(32,) * 4, **bf16), 512,
+                            512, cuda)
     with pytest.raises(ValueError, match="Nk <= 288"):
-        check_attention_kernels(mit_b5(prompt_tokens=(40,) * 4), 512, 512,
-                                cuda)
-    check_attention_kernels(mit_b5(prompt_tokens=(40,) * 4), 512, 512,
-                            torch.device("cpu"))
+        check_attention_kernels(mit_b5(prompt_tokens=(40,) * 4, **bf16), 512,
+                                512, cuda)
+    check_attention_kernels(mit_b5(prompt_tokens=(40,) * 4), 512, 512, cuda)
+    check_attention_kernels(mit_b5(prompt_tokens=(40,) * 4, **bf16), 512,
+                            512, torch.device("cpu"))
     check_attention_kernels(mit_b5(prompt_tokens=(40,) * 4,
-                                   attn_impl="plain"), 512, 512, cuda)
+                                   attn_impl="plain", **bf16), 512, 512, cuda)
 
     def built(*a, **k):
         raise AssertionError("a model or data was built")

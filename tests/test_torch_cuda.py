@@ -1,9 +1,11 @@
 """Card-only tests of the port's CUDA kernels: `sr_attention_fwd` (its
-scalar kernel and its Hopper wgmma + TMA kernel, also at every main-path
-shape) and `sr_attention_bwd` (its scalar float32 kernels and its Hopper
-wgmma + TMA bfloat16 kernel, also at its edge shapes, launching only that
-design's kernels) against their plain versions on the card (also at the
-few-shot step's shapes), gradients
+bfloat16 wgmma + TMA kernel, also at every main-path shape, and its float32
+3xTF32 kernel) and `sr_attention_bwd` (its bfloat16 wgmma + TMA kernel,
+also at its edge shapes, and its float32 3xTF32 row pass, key pass and
+split sum), each launching only its design's kernels, against their plain
+versions on the card (also at the few-shot step's shapes, and in float32
+past the bfloat16 limit up to Nk 1024, bit-identical on a rerun),
+gradients
 through `sr_attention` on CUDA, the launch counts of a small EMA step, a
 train-mode gradient through the kernels, and the augmentation on the card
 against the CPU.
@@ -17,7 +19,8 @@ import pytest
 import torch
 
 from semisupervisedobjectdetection_torch.ops.sr_attention import (
-    bwd_key_splits,
+    FWD_KERNELS,
+    bwd_f32_plan,
     bwd_launch_plan,
     sr_attention,
     sr_attention_backward_reference,
@@ -87,17 +90,16 @@ def test_kernel_matches_plain(cuda, dtype, b, nq, nk, c, h):
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
 
 
-@pytest.mark.parametrize("mma", [False, True])
 @pytest.mark.parametrize("b,nq,nk,c,h", SHAPES)
-def test_bf16_forward_kernels_match_plain(cuda, mma, b, nq, nk, c, h):
-    """Both bfloat16 forward kernels: the scalar one (`mma=False`) and the
-    Hopper wgmma one (the default, every bf16 path's)."""
+def test_bf16_forward_kernels_match_plain(cuda, b, nq, nk, c, h):
+    """The bfloat16 forward kernel (wgmma, every bf16 path's), counted in
+    both counters."""
     q, k, v = _qkv(cuda, b, nq, nk, c, torch.bfloat16)
     before = sr_attention.launches, sr_attention.mma_launches
-    out = sr_attention(q, k, v, h, mma=mma)
+    out = sr_attention(q, k, v, h)
     torch.cuda.synchronize()
     assert (sr_attention.launches, sr_attention.mma_launches) == (
-        before[0] + 1, before[1] + mma)
+        before[0] + 1, before[1] + 1)
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
     ref = sr_attention_reference(q, k, v, h)
     assert (out.float() - ref.float()).abs().max().item() <= \
@@ -111,7 +113,7 @@ def test_mma_kernels_at_edge_shapes(cuda, b, nq, nk, c, h):
     dtype = torch.bfloat16
     q, k, v = _qkv(cuda, b, nq, nk, c, dtype)
     g = _qkv(cuda, b, nq, nk, c, dtype, seed=1)[0]
-    out = sr_attention(q, k, v, h, mma=True)
+    out = sr_attention(q, k, v, h)
     got = sr_attention_bwd(q, k, v, g, h)
     again = sr_attention_bwd(q, k, v, g, h)
     torch.cuda.synchronize()
@@ -181,13 +183,9 @@ def test_kernel_rejects_what_it_cannot_run(cuda):
     q, k, v = _qkv(cuda, 1, 16, 8, 48, torch.float32)
     with pytest.raises(ValueError, match="head width"):
         sr_attention(q, k, v, 1)                      # d = 48
-    q, k, v = _qkv(cuda, 1, 16, 300, 64, torch.float32)
-    with pytest.raises(ValueError, match="shared memory"):
-        sr_attention(q, k, v, 1)                      # nk = 300
     q, k, v = _qkv(cuda, 1, 16, 300, 64, torch.bfloat16)
-    for mma in (False, True):
-        with pytest.raises(ValueError, match="shared memory"):
-            sr_attention(q, k, v, 1, mma=mma)         # nk = 300
+    with pytest.raises(ValueError, match="Nk <= 288"):
+        sr_attention(q, k, v, 1)                      # bf16 nk = 300
     q, k, v = _qkv(cuda, 1, 16, 8, 64, torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         sr_attention(q, k, v, 1)
@@ -232,9 +230,9 @@ FEWSHOT_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,nq,nk,c,h", FEWSHOT_SHAPES)
 def test_kernels_at_fewshot_shapes(cuda, dtype, b, nq, nk, c, h):
-    """K1 (the tensor-core kernel in bfloat16, the scalar one in float32)
-    and K2 against their plain versions at the few-shot shapes; two K2
-    launches give the same bits."""
+    """K1 and K2 (the bfloat16 wgmma kernels, the float32 3xTF32 ones)
+    against their plain versions at the few-shot shapes; two K2 launches
+    give the same bits."""
     q, k, v = _qkv(cuda, b, nq, nk, c, dtype)
     g = _qkv(cuda, b, nq, nk, c, dtype, seed=1)[0]
     out = sr_attention(q, k, v, h)
@@ -317,7 +315,8 @@ def test_wgmma_bwd_at_edge_shapes(cuda, b, nq, nk, c, h):
 def test_bf16_bwd_launches_only_the_wgmma_design(cuda, b, nq, nk, c, h):
     """A bfloat16 call launches the kernels of its launch plan (the wgmma
     kernel, and the split sum where the grid splits a (batch, head)) and
-    none of an earlier design; a float32 call the scalar kernels. The
+    none of an earlier design; a float32 call those of its plan (the row
+    pass, the key pass, and the split sum where the key pass splits). The
     kernels are those the profiler saw run on the card, and their number
     is the launch count the wrapper recorded from the C launcher."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
@@ -332,10 +331,7 @@ def test_bf16_bwd_launches_only_the_wgmma_design(cuda, b, nq, nk, c, h):
     q, k, v = (t.float() for t in (q, k, v))
     _, ran = kernels_launched(lambda: sr_attention_bwd(q, k, v, q, h),
                               "sr_attention_bwd")
-    assert ran == ["sr_attention_bwd_rows_kernel",
-                   "sr_attention_bwd_keys_kernel"] + (
-        ["sr_attention_bwd_sum_kernel"]
-        if bwd_key_splits(b, nq, nk, h) > 1 else [])
+    assert tuple(ran) == bwd_f32_plan(b, nq, nk, c, h, sms)["kernels"]
     assert sr_attention_bwd.last_launches == len(ran)
 
 
@@ -343,12 +339,76 @@ def test_bwd_kernel_rejects_what_it_cannot_run(cuda):
     q, k, v = _qkv(cuda, 1, 16, 8, 48, torch.float32)
     with pytest.raises(ValueError, match="head width"):
         sr_attention_bwd(q, k, v, q, 1)               # d = 48
-    q, k, v = _qkv(cuda, 1, 16, 300, 64, torch.float32)
-    with pytest.raises(ValueError, match="shared memory"):
-        sr_attention_bwd(q, k, v, q, 1)               # nk = 300
+    q, k, v = _qkv(cuda, 1, 16, 300, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="Nk <= 288"):
+        sr_attention_bwd(q, k, v, q, 1)               # bf16 nk = 300
     q, k, v = _qkv(cuda, 1, 16, 8, 64, torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         sr_attention_bwd(q, k, v, q, 1)
+
+
+# The float32 kernels (3xTF32, K/V streamed) past the bfloat16 limit and at
+# their edges: Nk 1 (one key: dq and dk exactly zero), 257, 288, 300, 356
+# (100 prompt tokens at 512x512) and 1024 (stage 1 at 1024x1024); head
+# widths 32 and 64; ragged Nq; B * heads of 1 and of 200.
+F32_SHAPES = [
+    (2, 100, 1, 64, 1),
+    (1, 1000, 257, 64, 1),       # B * heads 1
+    (2, 333, 288, 32, 1),        # head width 32
+    (2, 150, 300, 64, 1),
+    (2, 1124, 356, 320, 5),      # stage 3, 100 prompt tokens
+    (1, 4096, 1024, 64, 1),      # Nk 1024
+    (200, 77, 65, 32, 1),        # B * heads 200, head width 32
+    (25, 70, 356, 512, 8),       # B * heads 200, Nk 356
+]
+
+
+@pytest.mark.parametrize("b,nq,nk,c,h", F32_SHAPES)
+def test_f32_kernels_match_plain_at_any_nk(cuda, b, nq, nk, c, h):
+    """The float32 forward and backward against their plain versions
+    (forward at KERNEL_TOL f32 2e-5, backward at KERNEL_BWD_TOL f32 1e-4 of
+    the largest gradient, exactly zero where the plain version's is),
+    bit-identical on a rerun, launching the kernels of their design as the
+    profiler saw them, counted once a call."""
+    q, k, v = _qkv(cuda, b, nq, nk, c, torch.float32)
+    g = _qkv(cuda, b, nq, nk, c, torch.float32, seed=1)[0]
+    before = (sr_attention.launches, sr_attention.mma_launches,
+              sr_attention_bwd.launches)
+    out = sr_attention(q, k, v, h)
+    again, ran = kernels_launched(lambda: sr_attention(q, k, v, h),
+                                  "sr_attention_fwd")
+    assert ran == [FWD_KERNELS[torch.float32]]
+    got = sr_attention_bwd(q, k, v, g, h)
+    again_bwd, ran = kernels_launched(
+        lambda: sr_attention_bwd(q, k, v, g, h), "sr_attention_bwd")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert tuple(ran) == bwd_f32_plan(b, nq, nk, c, h, sms)["kernels"]
+    assert sr_attention_bwd.last_launches == len(ran)
+    assert (sr_attention.launches, sr_attention.mma_launches,
+            sr_attention_bwd.launches) == (before[0] + 2, before[1],
+                                           before[2] + 2)
+    assert torch.equal(out, again)
+    ref = sr_attention_reference(q, k, v, h)
+    assert (out - ref).abs().max().item() <= TOL[torch.float32]
+    for a, a2, r, x in zip(got, again_bwd,
+                           sr_attention_backward_reference(q, k, v, g, h),
+                           (q, k, v)):
+        assert a.dtype == torch.float32 and a.shape == x.shape
+        assert torch.equal(a, a2)
+        if r.abs().max().item() == 0.0:
+            assert a.abs().max().item() == 0.0
+        else:
+            assert _rel_err(a, r) <= FEWSHOT_BWD_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_launches_the_kernel_of_its_dtype(cuda, dtype):
+    """A forward call runs the kernel of its dtype alone, as the profiler
+    saw it on the card."""
+    q, k, v = _qkv(cuda, 2, 1025, 257, 320, dtype)
+    _, ran = kernels_launched(lambda: sr_attention(q, k, v, 5),
+                              "sr_attention_fwd")
+    assert ran == [FWD_KERNELS[dtype]]
 
 
 def test_ema_step_launches_both_kernels(cuda):

@@ -1,6 +1,6 @@
 """The port stands alone: no module of `semisupervisedobjectdetection_torch`
-nor `chip_smoke.py` nor `scripts/k1_design_ab.py` nor
-`scripts/k2_phase_profile.py` imports JAX, Flax,
+nor `chip_smoke.py` nor `scripts/k1_design_ab.py`,
+`scripts/k2_phase_profile.py` or `scripts/tf32_probe.py` imports JAX, Flax,
 transformers or the JAX package, and the entry points do not fall back to
 the CPU when no card is present."""
 
@@ -54,7 +54,8 @@ def test_every_module_imports_without_jax():
 
 def test_chip_smoke_bound_from_shapes():
     """The bound of B5 stage 1 at batch 8 in bf16: 34.1 MB at 3.35 TB/s
-    outweighs 8.59 GFLOP at 989 TFLOP/s."""
+    outweighs 8.59 GFLOP at 989 TFLOP/s; in float32 the 8.59 GFLOP at
+    165 TFLOP/s (3xTF32) outweigh 68.2 MB."""
     sys.path.insert(0, ROOT)
     import chip_smoke
 
@@ -62,9 +63,11 @@ def test_chip_smoke_bound_from_shapes():
     assert by == "bytes"
     assert ms == pytest.approx((2 * 8 * 16384 * 64 + 2 * 8 * 256 * 64)
                                * 2 / 3.35e12 * 1e3)
+    # float32 at the 3xTF32 rate of its kernels: 495 / 3 TFLOP/s
     ms, by = chip_smoke.attention_bound(8, 16384, 256, 64, "float32")
     assert by == "operations"
-    assert ms == pytest.approx(4 * 8 * 16384 * 256 * 64 / 67e12 * 1e3)
+    assert ms == pytest.approx(4 * 8 * 16384 * 256 * 64 / (495e12 / 3)
+                               * 1e3)
 
 
 def test_chip_smoke_backward_bound_from_shapes():
@@ -120,23 +123,23 @@ def test_default_entry_point_needs_a_card(monkeypatch):
 
 
 def test_k1_design_ab_sums_and_imports():
-    """`scripts/k1_design_ab.py` imports no JAX, sums K1's 312 launches of a
-    flagship EMA step (bound 3.623 ms) and 52 of a serve forward (bound
-    0.2265 ms) and K2's 104 of a flagship EMA step (bound 1.659 ms), and
-    without a card exits 2 before it builds anything."""
+    """`scripts/k1_design_ab.py` imports no JAX, sums K1's 52 launches of a
+    float32 few-shot forward (bound 0.2468 ms at 165 TFLOP/s) and K2's 104
+    of a few-shot pair loss's backward (bound 1.234 ms), and without a card
+    exits 2 before it builds anything."""
     code = (
         "import sys\n"
         "sys.path.insert(0, 'scripts')\n"
         "import k1_design_ab as ab\n"
-        "rows = [{'B': b, 'shape': list(s), 'x': {'k': 1.0}}\n"
-        "        for b in (32, 16, 8) for s in ab.STAGE_SHAPES]\n"
-        "print(ab._sum(rows, ab.EMA_STEP, 'x', 'k'),\n"
-        "      ab._sum(rows, ab.SERVE_FORWARD, 'x', 'k'),\n"
-        "      round(ab._bound_sum(ab.EMA_STEP), 3),\n"
-        "      round(ab._bound_sum(ab.SERVE_FORWARD), 4),\n"
-        "      ab._sum(rows, ab.BWD_EMA_STEP, 'x', 'k'),\n"
-        "      round(ab._bound_sum(ab.BWD_EMA_STEP,\n"
-        "                          ab.attention_bwd_bound), 3))\n"
+        "rows = [{'B': 2, 'shape': list(s),\n"
+        "         'x': {'device_ms_mean': 1.0, 'host_paced_ms_mean': 1.0}}\n"
+        "        for s in ab.FEWSHOT_SHAPES]\n"
+        "f = ab._sums(rows, ((2, 1),), ab.FEWSHOT_SHAPES, ('x',), 'float32',"
+        " False)\n"
+        "b = ab._sums(rows, ((2, 2),), ab.FEWSHOT_SHAPES, ('x',), 'float32',"
+        " True)\n"
+        "print(f['x']['device_ms'], round(f['bound_ms'], 4),\n"
+        "      b['x']['host_paced_ms'], round(b['bound_ms'], 3))\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "sys.exit(1 if bad else 0)\n")
@@ -144,14 +147,12 @@ def test_k1_design_ab_sums_and_imports():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert proc.stdout.split() == ["312.0", "52.0", "3.623", "0.2265",
-                                   "104.0", "1.659"]
+    assert proc.stdout.split() == ["52.0", "0.2468", "104.0", "1.234"]
     env["CUDA_VISIBLE_DEVICES"] = ""
     proc = subprocess.run(
         [sys.executable, "scripts/k1_design_ab.py", "--other",
-         "no_such_source.cu", "--bwd", "no_such_source.cu"], cwd=ROOT,
-        env=env, capture_output=True,
-        text=True, timeout=300)
+         "no_such_folder", "--bwd"], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300)
     assert proc.returncode == 2, proc.stdout + proc.stderr
 
 
@@ -175,6 +176,27 @@ def test_k2_phase_profile_imports_and_needs_a_card():
     assert proc.stdout.split() == ["9"]
     env["CUDA_VISIBLE_DEVICES"] = ""
     proc = subprocess.run([sys.executable, "scripts/k2_phase_profile.py"],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 2, proc.stdout + proc.stderr
+
+
+def test_tf32_probe_imports_and_needs_a_card():
+    """`scripts/tf32_probe.py` imports no JAX and, without a card, exits 2
+    before it builds anything."""
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, 'scripts')\n"
+        "import tf32_probe\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run([sys.executable, "scripts/tf32_probe.py"],
                           cwd=ROOT, env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 2, proc.stdout + proc.stderr

@@ -1,8 +1,8 @@
-"""The kernels' build and options, on the CPU: the library digest of
+"""The kernels' build and choice, on the CPU: the library digest of
 `ops/_build.py` follows the headers a source includes; the forward's kernel
-choice (`sr_attention(..., mma=)`) leaves the CPU path the plain version;
-a model takes the Hopper (wgmma) forward, and so does the bfloat16 serving
-model, while the float32 one takes the scalar forward;
+follows the dtype of the tensors a model sends it (training and serving
+models, in bfloat16 and float32); the kernel-shape refusals follow the
+config's dtype (bfloat16 refuses Nk > 288, float32 takes any Nk);
 `utils/serve_gate.py` reads the serving paths on the CPU.
 No JAX: these run in well under a second each."""
 
@@ -12,16 +12,15 @@ import torch
 
 from semisupervisedobjectdetection_torch import bench
 from semisupervisedobjectdetection_torch.api import SegFormerModel
-from semisupervisedobjectdetection_torch.core.config import MiTConfig
+from semisupervisedobjectdetection_torch.core.config import MiTConfig, mit_b5
 from semisupervisedobjectdetection_torch.models.segformer import (
     EfficientSelfAttention,
     SegFormer,
+    check_attention_kernels,
 )
 from semisupervisedobjectdetection_torch.ops import _build
-from semisupervisedobjectdetection_torch.ops.sr_attention import (
-    sr_attention,
-    sr_attention_reference,
-)
+from semisupervisedobjectdetection_torch.ops import sr_attention as sra
+from semisupervisedobjectdetection_torch.train.common import forward_masks
 from semisupervisedobjectdetection_torch.utils import serve_gate
 
 
@@ -52,43 +51,77 @@ def test_kernel_sources_hash_the_shared_header(source):
     assert names == [source, "sr_attention_wgmma.cuh"]
 
 
-@pytest.mark.parametrize("mma", [False, True])
-def test_mma_option_on_cpu_is_the_plain_version(mma):
-    rng = np.random.default_rng(0)
-    q, k, v = (torch.from_numpy(rng.normal(size=(2, n, 64))
-                                .astype(np.float32)).to(torch.bfloat16)
-               for n in (33, 17, 17))
-    before = sr_attention.launches, sr_attention.mma_launches
-    out = sr_attention(q, k, v, 2, mma=mma)
-    assert torch.equal(out, sr_attention_reference(q, k, v, 2))
-    assert (sr_attention.launches, sr_attention.mma_launches) == before
-
-
 def _attention_layers(model):
     return [m for m in model.modules()
             if isinstance(m, EfficientSelfAttention)]
 
 
-def test_model_takes_the_tensor_core_forward():
+def _attention_dtypes(model, x, monkeypatch):
+    """The dtypes of the q tensors `model`'s SR-attention calls take in the
+    training steps' forward of `x` (NHWC float32), read in `SRAttention`'s
+    forward."""
+    seen = []
+    fwd = sra.SRAttention.forward
+
+    def record(ctx, q, k, v, num_heads):
+        seen.append(q.dtype)
+        return fwd(ctx, q, k, v, num_heads)
+
+    monkeypatch.setattr(sra.SRAttention, "forward", staticmethod(record))
+    with torch.no_grad():
+        forward_masks(model, x)
+    return seen
+
+
+def test_model_takes_the_tensor_core_forward(monkeypatch):
     """The training step builds `SegFormer` from its config: every
-    attention layer takes the Hopper (wgmma) bfloat16 forward."""
-    layers = _attention_layers(SegFormer(bench.quick_config()))
-    assert len(layers) == 4
-    assert all(m.attn_impl == "kernel" and m.attn_fwd_mma for m in layers)
+    attention layer takes the kernel path, and the forward kernel it
+    reaches is the one of its config's dtype (the quick config's float32:
+    the 3xTF32 kernel, on the tensor cores like the bfloat16 one)."""
+    cfg = bench.quick_config()
+    model = SegFormer(cfg)
+    layers = _attention_layers(model)
+    assert len(layers) == 4 and all(m.attn_impl == "kernel"
+                                    for m in layers)
+    dtypes = _attention_dtypes(model, torch.rand(1, 64, 64, 3), monkeypatch)
+    assert cfg.dtype == "float32" and dtypes == [torch.float32] * 4
+    assert sra.FWD_KERNELS[dtypes[0]] == "sr_attention_fwd_f32_kernel"
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_serving_model_takes_the_hopper_forward_in_bf16(dtype):
-    """bfloat16 serving runs the Hopper forward in every attention layer,
-    held to the float32 model by chip_smoke's serve gate; float32 serving
-    keeps the scalar forward (the flag reads true only where the Hopper
-    kernel runs)."""
+def test_serving_model_takes_the_hopper_forward_in_bf16(dtype, monkeypatch):
+    """The serving copy sends every attention layer tensors of its
+    config's dtype, so the forward kernel follows the dtype: the bfloat16
+    wgmma kernel in bfloat16 (held to the float32 model by chip_smoke's
+    serve gate), the float32 3xTF32 kernel in float32."""
     cfg = MiTConfig(depths=(1, 2, 1, 1), hidden_sizes=(8, 16, 32, 64),
                     num_heads=(1, 2, 4, 8), decoder_hidden=16, dtype=dtype)
-    layers = _attention_layers(SegFormerModel(config=cfg,
-                                              device="cpu").model)
-    assert len(layers) == 5
-    assert [m.attn_fwd_mma for m in layers] == [dtype == "bfloat16"] * 5
+    served = SegFormerModel(config=cfg, device="cpu").model
+    assert len(_attention_layers(served)) == 5
+    dtypes = _attention_dtypes(served, torch.rand(1, 64, 64, 3), monkeypatch)
+    assert dtypes == [getattr(torch, dtype)] * 5
+    assert sra.FWD_KERNELS[dtypes[0]] == {
+        "bfloat16": "sr_attention_fwd_wgmma_kernel",
+        "float32": "sr_attention_fwd_f32_kernel"}[dtype]
+
+
+@pytest.mark.parametrize("size,tokens", [(512, 100), (1024, 0)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_refusals_follow_the_dtype(dtype, size, tokens):
+    """`check_attention_kernels` on a CUDA device (it reads only the device
+    type): MiT-B5 with 100 prompt tokens per stage at 512x512 (Nk 356) and
+    at 1024x1024 (Nk 1024 at stage 1) passes in float32, whose kernels take
+    any Nk, and is refused in bfloat16 with the bf16 limit's message."""
+    cfg = mit_b5(dtype=dtype, prompt_tokens=(tokens,) * 4)
+    device = torch.device("cuda")
+    if dtype == "float32":
+        check_attention_kernels(cfg, size, size, device)
+        return
+    nk = 256 + tokens if size == 512 else 1024
+    with pytest.raises(ValueError,
+                       match=f"stage 0: SR-attention over Nk={nk} keys .*"
+                             f"the kernels take Nk <= {sra.MAX_NK}"):
+        check_attention_kernels(cfg, size, size, device)
 
 
 def test_serve_gate_readings_on_cpu():
@@ -100,10 +133,10 @@ def test_serve_gate_readings_on_cpu():
     x = np.random.default_rng(0).uniform(size=(2, 64, 64, 3)).astype(
         np.float32)
     out = serve_gate.compare(cfg, x, device=torch.device("cpu"))
-    assert out["mask_flip_vs_plain"] == {"served": 0.0, "scalar": 0.0}
-    assert out["max_abs_err_vs_plain"] == {"served": 0.0, "scalar": 0.0}
+    assert out["mask_flip_vs_plain"] == {"served": 0.0}
+    assert out["max_abs_err_vs_plain"] == {"served": 0.0}
     for key in ("mask_flip_vs_float32", "mean_abs_err_vs_float32"):
-        assert set(out[key]) == {"served", "scalar", "plain"}
+        assert set(out[key]) == {"served", "plain"}
         assert all(0.0 <= v <= 1.0 for v in out[key].values())
     assert list(out["float32_abs_minus_half_quantiles"]) == [
         "0.001", "0.01", "0.1", "0.5"]

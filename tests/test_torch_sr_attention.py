@@ -66,6 +66,39 @@ def test_plain_matches_jax_pallas_bf16(b, nq, nk, c, h):
                                atol=1e-2)
 
 
+@pytest.mark.parametrize("b,nq,nk,c,h", [
+    (1, 48, 300, 64, 1),      # Nk 300: a 44-token prefix at stage 1
+    (1, 40, 356, 64, 2),      # Nk 356: 100 prompt tokens at 512x512
+    (1, 24, 1024, 32, 1),     # Nk 1024: stage 1 at 1024x1024, head width 32
+])
+def test_plain_matches_jax_pallas_past_the_bf16_limit(b, nq, nk, c, h):
+    """At the Nk the float32 kernels take past the bfloat16 limit (288),
+    the plain forward and backward the kernels are held to on the card
+    agree with the JAX package's Pallas kernels (interpret mode), which
+    have no Nk limit."""
+    from semisupervisedobjectdetection_tpu.ops.sr_attention import (
+        _backward as jax_backward,
+    )
+    from semisupervisedobjectdetection_torch.ops.sr_attention import (
+        sr_attention_backward_reference,
+    )
+
+    q, k, v = _inputs(b, nq, nk, c, 2)
+    g = np.random.default_rng(3).normal(size=(b, nq, c)).astype(np.float32)
+    ja = [jnp.asarray(a) for a in (q, k, v, g)]
+    with pltpu.force_tpu_interpret_mode():
+        pallas = np.asarray(jax_sr_attention(*ja[:3], h))
+        pallas_bwd = jax_backward(*ja, h)
+    ta = [torch.from_numpy(a) for a in (q, k, v, g)]
+    got = sr_attention(*ta[:3], h).numpy()
+    np.testing.assert_allclose(got, pallas, atol=2e-5, rtol=1e-4)
+    for name, a, p in zip(("dq", "dk", "dv"),
+                          sr_attention_backward_reference(*ta, h),
+                          pallas_bwd):
+        np.testing.assert_allclose(a.numpy(), np.asarray(p), atol=1e-5,
+                                   rtol=1e-5, err_msg=name)
+
+
 def test_cpu_call_is_plain_and_not_counted():
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 40, 9, 32))
     before = sr_attention.launches

@@ -19,12 +19,14 @@ from semisupervisedobjectdetection_tpu.ops.sr_attention import (
     _xla_vjp_bwd,
 )
 from semisupervisedobjectdetection_torch.ops.sr_attention import (
-    BWD_ROW_TILE,
-    BWD_TARGET_BLOCKS,
     BWD_WGMMA_ROW_TILE,
+    F32_KEY_BLOCK,
+    F32_KEY_PASS_ROWS,
+    F32_ROW_TILE,
     H100_SMS,
     SRAttention,
-    bwd_key_splits,
+    bwd_f32_key_work,
+    bwd_f32_plan,
     bwd_launch_plan,
     sr_attention,
     sr_attention_backward_reference,
@@ -126,22 +128,54 @@ def test_backward_rejects_bad_shapes(g_shape):
 
 
 @pytest.mark.parametrize("b,nq,nk,h,want", [
-    (16, 16384, 256, 1, 5),    # B5 stage 1 at batch 16: 128 blocks alone
-    (16, 4096, 256, 2, 3),     # stage 2: 256 blocks
-    (16, 1024, 256, 5, 1),     # stage 3: 640 blocks fill the card
+    (16, 16384, 256, 1, 4),    # B5 stage 1 at batch 16: 16 pairs x 2 groups
+    (16, 4096, 256, 2, 2),     # stage 2: 64 CTAs a split
+    (16, 1024, 256, 5, 1),     # stage 3: 160 CTAs fill the card alone
     (16, 256, 256, 8, 1),      # stage 4
     (2, 300, 5, 1, 10),        # few keys: splits down to one row tile
+    (2, 16385, 257, 1, 22),    # few-shot stage 1: 2 pairs x 3 groups
+    (2, 1124, 356, 5, 4),      # stage 3 with 100 prompt tokens (Nk 356)
+    (1, 65536, 1024, 1, 16),   # stage 1 at 1024x1024 (Nk 1024)
 ])
 def test_key_pass_splits_fill_the_card(b, nq, nk, h, want):
-    """The backward kernel's key pass splits its query rows so that about
-    `BWD_TARGET_BLOCKS` blocks run, each split at least one row tile, and
-    no split is empty once the kernel rounds the rows per split to tiles."""
-    splits = bwd_key_splits(b, nq, nk, h)
-    assert splits == want
-    rows = -(-(-(-nq // splits)) // BWD_ROW_TILE) * BWD_ROW_TILE
-    assert (splits - 1) * rows < nq <= splits * rows
-    blocks = -(-nk // 32) * b * h
-    assert splits == 1 or (splits - 1) * blocks < BWD_TARGET_BLOCKS
+    """The float32 backward's launch plan: the key pass splits each
+    (batch, head)'s 32-row query tiles into as many contiguous ranges as
+    fill the SMs once with (batch, head) x key group x split CTAs, and
+    covers every (query tile, 64-key block) pair of every (batch, head)
+    exactly once, the ranges of a key block in split order (the order the
+    split sum adds them); the row pass gives every 64-row tile to exactly
+    one CTA; the workspaces and kernels follow the split count."""
+    c = 64 * h
+    plan = bwd_f32_plan(b, nq, nk, c, h)
+    pairs, tiles = b * h, -(-nq // F32_KEY_PASS_ROWS)
+    blocks = -(-nk // F32_KEY_BLOCK)
+    assert plan["splits"] == want
+    assert plan["key_grid"] == pairs * plan["key_groups"] * want
+    assert plan["key_grid"] <= H100_SMS or want == 1
+    assert want == tiles or (pairs * plan["key_groups"] * (want + 1)
+                             > H100_SMS)
+    work = bwd_f32_key_work(plan, pairs)
+    seen = {}
+    for pair, kb, first, last in work:
+        assert first <= last
+        seen.setdefault((pair, kb), []).append((first, last))
+    assert sorted(seen) == [(p, kb) for p in range(pairs)
+                            for kb in range(blocks)]
+    for ranges in seen.values():
+        # contiguous, in split order, no tile twice, every tile once
+        assert ranges[0][0] == 0 and ranges[-1][1] == tiles - 1
+        assert all(r[1] + 1 == n[0] for r, n in zip(ranges, ranges[1:]))
+        assert len(ranges) == want
+    assert plan["workspace_floats"] == (want * 2 * b * nk * c
+                                        if want > 1 else 0)
+    assert plan["stats_floats"] == pairs * nq * 4
+    assert plan["kernels"] == ("sr_attention_bwd_f32_rows_kernel",
+                               "sr_attention_bwd_f32_keys_kernel") + (
+        ("sr_attention_bwd_f32_sum_kernel",) if want > 1 else ())
+    row_tiles, n = -(-nq // F32_ROW_TILE), plan["row_ctas_per_pair"]
+    runs = [(j + 1) * row_tiles // n - j * row_tiles // n for j in range(n)]
+    assert plan["row_grid"] == pairs * n and sum(runs) == row_tiles
+    assert min(runs) >= 1
 
 
 @pytest.mark.parametrize("b,nq,nk,c,h,grid,split", [
