@@ -12,12 +12,14 @@ non-zero before the final line:
                 spills (from `-Xptxas -v`) and its count of tensor-core
                 instructions (HMMA, HGMMA) in the SASS of the built library
                 (`cuobjdump --dump-sass`), ptxas's warnings, each design's
-                shared memory, K1's bf16 CTAs per SM and each dtype's Nk
-                limit (bf16 288, float32 none). Every tensor-core kernel
+                shared memory (none grows with Nk: every kernel takes any
+                Nk) and K1's bf16 CTAs per SM. Every tensor-core kernel
                 must show HGMMA and no HMMA, and neither a stack frame nor
                 spills: K1's and K2's bf16 wgmma kernels (four
-                instantiations each), K1's float32 3xTF32 kernel and K2's
-                float32 row and key passes (two each, d 32/64).
+                instantiations each), the bf16 streaming kernels past 288
+                keys (K1's, K2's row and key passes: two each, d 32/64),
+                K1's float32 3xTF32 kernel and K2's float32 row and key
+                passes (two each).
 3. kernel     - `sr_attention_fwd` (K1) against its plain PyTorch version:
                 the bf16 kernel at the four MiT-B5 512x512 stage shapes at
                 batch 8 (serving), 16 (student) and 32 (teacher), at two
@@ -28,7 +30,10 @@ non-zero before the final line:
                 prefix shapes at batch 8, at the few-shot and transfer
                 shapes at batch 2, and past the bf16 limit at batch 2 at the
                 four Nk-356 shapes (100 prompt tokens per stage) and at Nk
-                300, and at Nk 1024 (stage 1 at 1024x1024) at batch 1: max
+                300, and at Nk 1024 (stage 1 at 1024x1024) at batch 1; the
+                bf16 streaming kernel past 288 keys at Nk 300 (batch 2), the
+                Nk-356 shapes (batch 16, the transfer grid's 100-token
+                point) and Nk 1024 (batch 1): max
                 abs error against a stated tolerance, bit-equal reruns, the
                 error against float64, and CUDA-event device times (queued
                 behind a sleep kernel, so not paced by the host) of the
@@ -44,13 +49,17 @@ non-zero before the final line:
                 shapes (Nk 266) in bfloat16, at the four few-shot shapes (a
                 CLS query row and key per stage) at batch 2 in both types,
                 and in float32 at batch 2 at the transfer shapes, the Nk-356
-                shapes and Nk 300, and at Nk 1024 at batch 1: max error
+                shapes and Nk 300, and at Nk 1024 at batch 1, and in bf16
+                past 288 keys (the streaming row pass, key pass and split
+                sum) at Nk 300 (batch 2), the Nk-356 shapes (batch 16) and
+                Nk 1024 (batch 1): max error
                 against a stated tolerance (float32 also against float64),
                 bit-equality of two launches, the kernels one call launched
                 as the profiler saw them against its launch plan's (bf16:
                 the wgmma kernel, and the split sum where its grid splits a
-                (batch, head); float32: the row pass, the key pass and the
-                split sum where the key pass splits) and against the count
+                (batch, head), past 288 keys the streaming passes; float32:
+                the row pass, the key pass and the split sum where the key
+                pass splits) and against the count
                 its C launcher reported, the plan's grid or splits, the
                 host microseconds of a call, and the times of the kernels,
                 the plain version and the autograd backward of
@@ -130,8 +139,8 @@ non-zero before the final line:
                 every K1 and K2 launch has Nk = 266.
 13b. transfer_grad_nk356 - transfer_grad's configuration with 100 prompt
                 tokens per stage (the transfer grid's largest), so every K1
-                and K2 launch has Nk = 356, which the float32 kernels take
-                and bf16 refuses: the same checks at GRAD_F32_TOL.
+                and K2 launch has Nk = 356: the same checks at
+                GRAD_F32_TOL.
 14. transfer_step - the transfer CLI's step in bfloat16 through
                 `SegFormerModel.train_one_epoch` at the flagship point (the
                 configuration of transfer_grad, 32 images per step in 2
@@ -153,7 +162,7 @@ non-zero before the final line:
                 weights equal the warm start bit for bit after training, the
                 prompt tokens moved from their seeded init, the same launch
                 counts per step; and --prompt-tokens 40,40,40,40 (Nk = 296)
-                refused before any model or data is made.
+                in bf16 taken by the kernel check that once refused it.
 
 17. ts_step    - the gradient teacher-student steps
                 (`train/teacher_student.py`) at the flagship point (MiT-B5
@@ -216,6 +225,15 @@ non-zero before the final line:
                 then `--predict` from its best checkpoint: CSV rows,
                 checkpoint names, and the `epoch_report` launches per step
                 and per eval batch.
+25. tune_cli   - `cli/transfer.py::main --tune --tune-lrs 1e-4
+                --tune-tokens 10,100 --epochs 5 --resume --no-quirks` at the
+                CLI point (bf16): the 4 grid points (frozen (0, 1) and
+                (0, 1, 2)) of one epoch each in the JAX CLI's shuffled
+                order, each with a finite best eval line, then the `best:`
+                line; --resume ignored, no checkpoint written; K1 and K2
+                launched at Nk 266 and Nk 356 (the 100-token points on the
+                bf16 streaming kernels), 208 K1 and 104 K2 per train step
+                and 52 K1 per eval batch.
 
 Then the `kernels` summary line, the `nvidia-smi` name/power-limit line and,
 last, {"ok": true, "device": {...}}.
@@ -225,7 +243,6 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
-import gc
 import io
 import json
 import os
@@ -339,15 +356,15 @@ TRANSFER_NK = 266
 # join each stage's queries and keys.
 TRANSFER_SHAPES = tuple((nq + t, nk + t, c, h) for (nq, nk, c, h), t
                         in zip(STAGE_SHAPES, TRANSFER_TOKENS))
-TRANSFER_REFUSED_TOKENS = (40, 40, 40, 40)     # Nk = 296 > 288 in bf16
+TRANSFER_WIDE_TOKENS = (40, 40, 40, 40)   # Nk = 296: bf16 past 288 keys
 # The transfer grid's largest prompt (100 tokens per stage at 512x512: every
-# layer's Nk is 356), which the float32 kernels take and bf16 refuses.
+# layer's Nk is 356), which bf16 runs on its streaming kernels.
 NK356_TOKENS = (100, 100, 100, 100)
 NK356 = 356
 NK356_SHAPES = tuple((nq + t, nk + t, c, h) for (nq, nk, c, h), t
                      in zip(STAGE_SHAPES, NK356_TOKENS))
-# More float32 shapes past the bf16 limit: a 44-token prefix at stage 1
-# (Nk 300), and stage 1 of a 1024x1024 input (Nq 65536, Nk 1024).
+# More shapes past the bf16 kernels' 288 on-chip keys: a 44-token prefix at
+# stage 1 (Nk 300), and stage 1 of a 1024x1024 input (Nq 65536, Nk 1024).
 NK300_SHAPE = (16384 + 44, 300, 64, 1)
 NK1024_SHAPE = (65536, 1024, 64, 1)
 FROZEN_PREFIXES = tuple(f"segformer.encoder.block.{i}."
@@ -516,7 +533,9 @@ def _reset_counts():
 
     sr_attention.launches = 0
     sr_attention.mma_launches = 0
+    sr_attention.stream_launches = 0
     sr_attention_bwd.launches = 0
+    sr_attention_bwd.stream_launches = 0
 
 
 def _counts():
@@ -528,6 +547,16 @@ def _counts():
 
     return (sr_attention.launches, sr_attention_bwd.launches,
             sr_attention.mma_launches)
+
+
+def _stream_counts():
+    """Launches of the bf16 streaming K1 and K2 (past 288 keys)."""
+    from semisupervisedobjectdetection_torch.ops.sr_attention import (
+        sr_attention,
+        sr_attention_bwd,
+    )
+
+    return sr_attention.stream_launches, sr_attention_bwd.stream_launches
 
 
 def phase_device():
@@ -610,10 +639,13 @@ def _demangle(symbols):
 
 
 def _design(sym: str) -> str:
-    """A kernel's design from its symbol: the bf16 wgmma kernels, the
-    float32 3xTF32 ones (products on wgmma too), or a split sum."""
+    """A kernel's design from its symbol: the bf16 wgmma kernels, the bf16
+    streaming ones past 288 keys, the float32 3xTF32 ones (products on
+    wgmma too), or a split sum."""
     if "_wgmma_kernel" in sym:
         return "wgmma"
+    if re.search(r"_wgmma_(stream|rows|keys)_kernel", sym):
+        return "wgmma_stream"
     if "_f32_" in sym and "_sum_" not in sym:
         return "3xtf32"
     return "sum"
@@ -624,7 +656,7 @@ def phase_build():
     from semisupervisedobjectdetection_torch.ops.sr_attention import (
         _BWD_SOURCE,
         _SOURCE,
-        MAX_NK,
+        MAX_SMEM_BYTES,
         _bwd_lib,
         _lib,
     )
@@ -634,15 +666,16 @@ def phase_build():
         lib, bwd = [f.result() for f in [pool.submit(_lib),
                                          pool.submit(_bwd_lib)]]
     seconds = time.perf_counter() - t0
-    # the CLIs refuse, before building a model, what the kernels of the
-    # config's dtype refuse: bf16 Nk > MAX_NK, float32 nothing (0)
-    limits = {"bfloat16": (lib.sr_attention_fwd_max_nk(2),
-                           bwd.sr_attention_bwd_max_nk(2)),
-              "float32": (lib.sr_attention_fwd_max_nk(4),
-                          bwd.sr_attention_bwd_max_nk(4))}
-    if limits != {"bfloat16": (MAX_NK, MAX_NK), "float32": (0, 0)}:
-        raise AssertionError(f"kernels take Nk <= {limits} (0: any); the "
-                             f"wrapper's bf16 MAX_NK is {MAX_NK}")
+    # every kernel takes any Nk: no design's shared memory grows with it
+    # (bf16 holds K/V on chip up to 288 keys and streams them past)
+    smem_nk = {(i, d, elem): {fn(nk, d, elem) for nk in (289, 356, 1024,
+                                                         65536)}
+               for i, fn in enumerate((lib.sr_attention_fwd_smem_bytes,
+                                       bwd.sr_attention_bwd_smem_bytes))
+               for d in (32, 64) for elem in (2, 4)}
+    if any(len(v) != 1 or max(v) > MAX_SMEM_BYTES
+           for v in smem_nk.values()):
+        raise AssertionError(f"shared memory grows with Nk: {smem_nk}")
     rows = []
     for source in (_SOURCE, _BWD_SOURCE):
         info = _build.BUILD_INFO[source]
@@ -653,6 +686,8 @@ def phase_build():
                     lib.sr_attention_fwd_smem_bytes(nk, 64, elem)
                     for nk in (256, 266) for name, elem in (
                         ("bf16_wgmma", 2), ("f32_3xtf32", 4))}
+            smem["nk356_d64_bf16_wgmma_stream"] = \
+                lib.sr_attention_fwd_smem_bytes(356, 64, 2)
             # the wgmma kernel's CTAs per SM (shared memory and its 384
             # threads at 168 registers allow one)
             extra["wgmma_ctas_per_sm"] = {
@@ -663,7 +698,8 @@ def phase_build():
                     bwd.sr_attention_bwd_smem_bytes(nk, 64, elem)
                     for nk in (256, 266) for name, elem in (
                         ("bf16_wgmma", 2), ("f32_3xtf32", 4))}
-        extra["nk_limit"] = limits
+            smem["nk356_d64_bf16_wgmma_stream"] = \
+                bwd.sr_attention_bwd_smem_bytes(356, 64, 2)
         emit({"phase": "build", "source": source,
               "seconds": round(seconds, 3),
               "nvcc_seconds": round(info["seconds"], 3),
@@ -684,11 +720,14 @@ def phase_build():
             rows.append(row)
     # every tensor-core kernel on wgmma (HGMMA and no HMMA): K1's and K2's
     # bf16 kernels, four instantiations each (d 32/64 by Nk <= 256/288);
-    # K1's float32 kernel and K2's float32 row and key passes, two each
-    # (d 32/64)
+    # past 288 keys K1's bf16 streaming kernel and K2's streaming row and
+    # key passes, and K1's float32 kernel and K2's float32 row and key
+    # passes, two each (d 32/64)
     want = {(_SOURCE, "wgmma"): 4, (_BWD_SOURCE, "wgmma"): 4,
+            (_SOURCE, "wgmma_stream"): 2, (_BWD_SOURCE, "wgmma_stream"): 4,
             (_SOURCE, "3xtf32"): 2, (_BWD_SOURCE, "3xtf32"): 4}
-    tensor = [r for r in rows if r["design"] in ("wgmma", "3xtf32")]
+    tensor = [r for r in rows
+              if r["design"] in ("wgmma", "wgmma_stream", "3xtf32")]
     for (source, design), n in want.items():
         mine = [r for r in tensor
                 if (r["source"], r["design"]) == (source, design)]
@@ -714,10 +753,12 @@ def _k1_cases():
     step's shapes at the student batch and at the few-shot shapes (batch
     2); the float32 kernel (3xTF32) at the stage and prefix shapes at the
     serving batch, at the few-shot and transfer shapes at batch 2 (as
-    fewshot_grad and transfer_grad run them), and past the bf16 limit: the
+    fewshot_grad and transfer_grad run them), and past 288 keys: the
     Nk-356 shapes (100 prompt tokens per stage, transfer_grad_nk356) at
     batch 2, Nk 300 at batch 2 and Nk 1024 (stage 1 at 1024x1024) at
-    batch 1."""
+    batch 1; the bf16 streaming kernel past 288 keys at Nk 300 (batch 2),
+    the Nk-356 shapes at the student batch (tune_cli's 100-token points)
+    and Nk 1024 (batch 1)."""
     cases = [(b, s, "bfloat16", "wgmma")
              for b in (BATCH, MICRO, TEACHER_BATCH) for s in STAGE_SHAPES]
     cases += [(BATCH, s, "float32", "3xtf32")
@@ -730,6 +771,9 @@ def _k1_cases():
     cases += [(FEW_BATCH, s, "float32", "3xtf32")
               for s in TRANSFER_SHAPES + NK356_SHAPES + (NK300_SHAPE,)]
     cases += [(1, NK1024_SHAPE, "float32", "3xtf32")]
+    cases += [(b, s, "bfloat16", "wgmma_stream")
+              for b, s in [(FEW_BATCH, NK300_SHAPE)]
+              + [(MICRO, s) for s in NK356_SHAPES] + [(1, NK1024_SHAPE)]]
     return cases
 
 
@@ -824,6 +868,10 @@ def phase_kernel_bwd():
     cases += [(FEW_BATCH, s, "float32")
               for s in TRANSFER_SHAPES + NK356_SHAPES + (NK300_SHAPE,)]
     cases += [(1, NK1024_SHAPE, "float32")]
+    # past 288 keys in bf16 (the streaming passes): Nk 300, the transfer
+    # grid's Nk-356 shapes at the student batch, Nk 1024
+    cases += [(b, s, "bfloat16") for b, s in [(FEW_BATCH, NK300_SHAPE)]
+              + [(MICRO, s) for s in NK356_SHAPES] + [(1, NK1024_SHAPE)]]
     for b, shape, dtype_name in cases:
         nq, nk, c, h = shape
         dtype = getattr(torch, dtype_name)
@@ -854,11 +902,21 @@ def phase_kernel_bwd():
         # reported
         _, kernels = kernels_launched(
             lambda: sr_attention_bwd(q, k, v, g, h), "sr_attention_bwd")
-        if dtype_name == "bfloat16":
+        if dtype_name == "bfloat16" and not bwd_launch_plan(
+                b, nq, nk, c, h, _sm_count(0))["stream"]:
             plan = bwd_launch_plan(b, nq, nk, c, h, _sm_count(0))
             want = list(plan["kernels"])
             design = {"design": "wgmma", "grid": plan["grid"],
                       "split": plan["split"],
+                      "host_us_per_call": host_us(
+                          lambda: sr_attention_bwd(q, k, v, g, h))}
+        elif dtype_name == "bfloat16":
+            plan = bwd_launch_plan(b, nq, nk, c, h, _sm_count(0))
+            want = list(plan["kernels"])
+            design = {"design": "wgmma_stream",
+                      "row_ctas_per_pair": plan["row_ctas_per_pair"],
+                      "key_groups": plan["key_groups"],
+                      "key_pass_splits": plan["splits"],
                       "host_us_per_call": host_us(
                           lambda: sr_attention_bwd(q, k, v, g, h))}
         else:
@@ -1651,7 +1709,7 @@ def phase_transfer_grad(tokens=TRANSFER_TOKENS, want_nk=TRANSFER_NK,
     """The float32 transfer gradients through the kernels against the plain
     path with `tokens` prompt tokens per stage, every K1 and K2 launch at
     `want_nk` keys (transfer_grad: 10 tokens, Nk 266; transfer_grad_nk356:
-    100 tokens, Nk 356, which the bf16 kernels refuse)."""
+    100 tokens, Nk 356, the bf16 streaming kernels' in bf16)."""
     import numpy as np
     import torch
 
@@ -1960,6 +2018,7 @@ def phase_transfer_cli(smi: str, sup: dict):
     from semisupervisedobjectdetection_torch.core.config import mit_b5
     from semisupervisedobjectdetection_torch.models.segformer import (
         SegFormer,
+        check_attention_kernels,
         init_weights,
     )
 
@@ -1998,21 +2057,15 @@ def phase_transfer_cli(smi: str, sup: dict):
             after["model"]["segformer.encoder.block.2.0.mlp.dense1.weight"],
             warm["model"]["segformer.encoder.block.2.0.mlp.dense1.weight"])
         del warm, after, seeded
-        # a prefix past the kernels' 288 keys: refused before anything is
-        # built on the card
-        gc.collect()
-        mem0 = torch.cuda.memory_allocated()
-        _reset_counts()
-        t0 = time.perf_counter()
+        # a prefix past 288 keys in bf16: the kernel check that once
+        # refused it takes it (the streaming kernels run it; tune_cli)
         try:
-            transfer.main(point + ["--prompt-tokens", ",".join(
-                map(str, TRANSFER_REFUSED_TOKENS))])
+            check_attention_kernels(mit_b5(dtype="bfloat16",
+                                           prompt_tokens=TRANSFER_WIDE_TOKENS),
+                                    IMG, IMG, torch.device("cuda"))
             refusal = None
-        except SystemExit as e:
+        except ValueError as e:
             refusal = str(e)
-        refusal_s = time.perf_counter() - t0
-        refusal_mem = torch.cuda.memory_allocated() - mem0
-        refusal_launches = _counts()
     finally:
         tempfile.tempdir = old_tmp
         shutil.rmtree(root, ignore_errors=True)
@@ -2023,10 +2076,8 @@ def phase_transfer_cli(smi: str, sup: dict):
            "frozen_with_moments": len(frozen_moments),
            "prompt_max_abs_move": prompt_moves,
            "stage2_moved": trained_moved,
-           "refused_tokens": list(TRANSFER_REFUSED_TOKENS),
-           "refusal": refusal, "refusal_s": refusal_s,
-           "refusal_memory_bytes": refusal_mem,
-           "refusal_launches": refusal_launches, "card": smi}
+           "wide_tokens": list(TRANSFER_WIDE_TOKENS),
+           "wide_tokens_refusal": refusal, "card": smi}
     emit(row)
     if len(rows) != 2 or not all(math.isfinite(float(r["train_loss"]))
                                  and math.isfinite(float(r["eval_loss"]))
@@ -2039,10 +2090,90 @@ def phase_transfer_cli(smi: str, sup: dict):
                              "the trained ones did not move")
     if not all(v > 0 for v in prompt_moves.values()):
         raise AssertionError(f"prompt tokens did not train: {prompt_moves}")
-    if refusal is None or "288" not in refusal or refusal_mem > 0 or \
-            refusal_launches != (0, 0, 0):
-        raise AssertionError(f"Nk > 288 not refused before a model: "
-                             f"{refusal!r}, {refusal_mem} bytes")
+    if refusal is not None:
+        raise AssertionError(f"Nk 296 in bf16 refused: {refusal!r}")
+    return row
+
+
+class _Tee(io.TextIOBase):
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, text):
+        self.buf.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def phase_tune_cli(smi: str):
+    """`cli/transfer.py --tune` at the CLI point in bf16: lr 1e-4 x frozen
+    {(0, 1), (0, 1, 2)} x tokens {10, 100}, one epoch a point (--epochs
+    5), --no-quirks so the prompt tokens train and K2 runs in every layer;
+    --resume given and ignored."""
+    import math
+    import tempfile
+
+    from semisupervisedobjectdetection_torch.cli import transfer
+    from semisupervisedobjectdetection_torch.core.config import product_grid
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    old_tmp, tempfile.tempdir = tempfile.tempdir, root
+    ck = os.path.join(root, "ck")
+    tokens = (10, 100)
+    argv = _cli_point() + ["--tune", "--tune-lrs", "1e-4", "--tune-tokens",
+                           ",".join(map(str, tokens)), "--epochs", "5",
+                           "--no-quirks", "--resume", "--checkpoint-dir", ck,
+                           "--metrics-csv", os.path.join(root, "m.csv")]
+    grid = product_grid([1e-4], [TRANSFER_FROZEN, (0, 1, 2)], tokens,
+                        shuffle=True, seed=SEED)
+    try:
+        _reset_counts()
+        tee = _Tee(sys.stdout)
+        t0 = time.perf_counter()
+        with _record_nk() as nk, contextlib.redirect_stdout(tee):
+            best, best_pt = transfer.main(argv)
+        run_s = time.perf_counter() - t0
+        launches, stream = _counts(), _stream_counts()
+        lines = tee.buf.getvalue().splitlines()
+        written = sorted(os.listdir(ck)) if os.path.isdir(ck) else []
+        csvs = sorted(f for f in os.listdir(root) if f.endswith(".csv"))
+    finally:
+        tempfile.tempdir = old_tmp
+        shutil.rmtree(root, ignore_errors=True)
+    shows = [f"lr={p[0]} frozen={p[1]} tokens={p[2]}" for p in grid]
+    points = [ln for ln in lines if ": best eval " in ln]
+    objective = [float(ln.rsplit(" ", 1)[1]) for ln in points]
+    best_line = [ln for ln in lines if ln.startswith("best: ")]
+    n = len(grid)
+    want = (n * (SUP_K1_PER_STEP + sum(B5_DEPTHS)), n * SUP_K2_PER_STEP)
+    row = {"phase": "tune_cli", "argv": argv, "run_s": run_s,
+           "points": points, "best": best_line, "best_point": best_pt,
+           "resume_ignored": any("--resume is ignored" in ln
+                                 for ln in lines),
+           "checkpoints_written": written, "point_csvs": csvs,
+           "launches_k1_k2_k1mma": launches, "stream_launches_k1_k2": stream,
+           "launches_expected_k1_k2": want,
+           "nk_k1": sorted(set(nk["k1"])), "nk_k2": sorted(set(nk["k2"])),
+           "card": smi}
+    emit(row)
+    if [ln.split(": best eval")[0] for ln in points] != shows or \
+            not all(math.isfinite(x) for x in objective) or \
+            best_line != [f"best: {shows[grid.index(best_pt)]} "
+                          f"loss={min(objective):.4f}"]:
+        raise AssertionError(f"tune grid lines {points}, best {best_line}; "
+                             f"want the points {shows}")
+    if written or not row["resume_ignored"] or len(csvs) != n:
+        raise AssertionError(f"checkpoints {written}, point CSVs {csvs}")
+    if launches[:2] != want or launches[2] != launches[0] or \
+            stream != (want[0] // 2, want[1] // 2) or \
+            row["nk_k1"] != [266, 356] or row["nk_k2"] != [266, 356]:
+        raise AssertionError(f"tune_cli launches {launches}, streaming "
+                             f"{stream}, want {want}; Nk {row['nk_k1']} "
+                             f"{row['nk_k2']}")
     return row
 
 
@@ -2966,7 +3097,7 @@ def _kernel_entry(rows, passes, dtype="bfloat16", shapes=STAGE_SHAPES,
 def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
             transfer_grad, transfer_grad_nk356, transfer_step, sup_cli,
             transfer_cli, ts_step, ts_cli, ae_step, ae_cli, serve_ckpt,
-            fewshot_grad, fewshot_step, fewshot_cli, grad):
+            fewshot_grad, fewshot_step, fewshot_cli, grad, tune_cli):
     """The `kernels` line: each kernel's times, bound and plain/library
     times summed over what its main path runs, with its launches there.
     K1's bf16 kernel (`sr_attention_fwd`, wgmma, every bf16 path) and K2's
@@ -3000,7 +3131,11 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
     fewshot_cli) and serve_ckpt; `per_fewshot_ae_step` and
     `per_fewshot_seg_step` sum each kernel over one few-shot step at batch
     2 (the CLS shapes: 4 or 2 categories, each a forward and a recompute,
-    and a backward)."""
+    and a backward). The bf16 streaming kernels past 288 keys
+    (`sr_attention_fwd_stream`, `sr_attention_bwd_stream`: the same
+    wrappers, counted apart) sum over one Nk-356 transfer step at batch 16
+    (tune_cli's 100-token points, where their launches are counted), with
+    their rows at Nk 300 and Nk 1024 beside it."""
 
     def kernel_calls(i):
         return sum(c["launches_k1_k2_k1mma"][i]
@@ -3048,7 +3183,8 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
     src = "semisupervisedobjectdetection_torch/csrc/"
     tpu = "semisupervisedobjectdetection_tpu/ops/sr_attention.py"
     step = ((TEACHER_BATCH, ACCUM), (MICRO, 2 * ACCUM))
-    wg_rows = [r for r in k1_rows if r["dtype"] == "bfloat16"]
+    wg_rows = [r for r in k1_rows if r["design"] == "wgmma"]
+    stream_rows = [r for r in k1_rows if r["design"] == "wgmma_stream"]
     f32_rows = [r for r in k1_rows if r["dtype"] == "float32"]
     k1 = _kernel_entry(
         wg_rows, step,
@@ -3130,7 +3266,8 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
         per=f"one B5 512x512 float32 forward at batch {FEW_BATCH} with a "
             f"CLS token per stage (Nk 257), as fewshot_grad runs it, "
             f"{sum(B5_DEPTHS)} launches")
-    k2_bf16 = [r for r in k2_rows if r["dtype"] == "bfloat16"]
+    k2_bf16 = [r for r in k2_rows if r["design"] == "wgmma"]
+    k2_stream = [r for r in k2_rows if r["design"] == "wgmma_stream"]
     k2_f32 = [r for r in k2_rows if r["dtype"] == "float32"]
     k2 = _kernel_entry(
         k2_bf16, ((MICRO, ACCUM),),
@@ -3183,7 +3320,48 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
         per=f"one few-shot pair loss's backward in B5 512x512 float32 at "
             f"batch {FEW_BATCH} with a CLS token per stage (Nk 257), as "
             f"fewshot_grad runs it, {2 * sum(B5_DEPTHS)} launches")
-    return [k1, k1_f32, k2, k2_f32_entry]
+    tune_path = ("tune_cli (4 transfer grid points of 1 epoch: 1 train "
+                 f"step and 1 eval batch of {n_ev} each; the 2 at 100 "
+                 "tokens, Nk 356)")
+
+    def stream_entry(rows, passes, kernel, i, **fields):
+        """A bf16 streaming entry (past 288 keys): summed over one
+        Nk-356 transfer step at the student batch (tune_cli's 100-token
+        points), with the rows at Nk 300 and Nk 1024 beside it."""
+        def at(shape, b):
+            return {key: r[key] for r in rows
+                    if (r["B"], r["Nq"], r["Nk"], r["C"], r["heads"])
+                    == (b,) + shape
+                    for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")}
+        return _kernel_entry(
+            rows, passes, shapes=NK356_SHAPES, route="cuda",
+            design="wgmma_stream", source=src + f"sr_attention_{kernel}.cu",
+            launches=tune_cli["stream_launches_k1_k2"][i],
+            launches_per=tune_path,
+            launches_by_path={tune_path: tune_cli["stream_launches_k1_k2"][i]},
+            at_nk300_batch2=at(NK300_SHAPE, FEW_BATCH),
+            at_nk1024_batch1=at(NK1024_SHAPE, 1),
+            bound_rate=PEAK_RATE_NAME["bfloat16"], **fields)
+
+    k1_stream = stream_entry(
+        stream_rows, ((MICRO, 2 * ACCUM),), "fwd", 0,
+        name="sr_attention_fwd_stream", replaces=tpu + ":36",
+        host_us_per_call=max(r["host_us_per_call"] for r in stream_rows),
+        per="one Nk-356 transfer step's forwards: 2 x (forward + "
+            "recompute) of B5 512x512 bf16 at batch 16 with 100 prompt "
+            f"tokens per stage, {SUP_K1_PER_STEP} launches")
+    k2_stream_entry = stream_entry(
+        k2_stream, ((MICRO, ACCUM),), "bwd", 1,
+        name="sr_attention_bwd_stream", replaces=tpu + ":115",
+        max_rel_err=max(r["rel_err"] for r in k2_stream),
+        host_us_per_call=max(r["host_us_per_call"] for r in k2_stream),
+        launches_per_call=sorted({r["launches_per_call"]
+                                  for r in k2_stream}),
+        per="one Nk-356 transfer step's backward: 2 x the backward of B5 "
+            "512x512 bf16 at batch 16 with 100 prompt tokens per stage, "
+            f"{SUP_K2_PER_STEP} launches")
+    return [k1, k1_f32, k1_stream, k2, k2_f32_entry, k2_stream_entry]
 
 
 def main() -> int:
@@ -3231,7 +3409,8 @@ def main() -> int:
                           ("ae_cli", lambda: phase_ae_cli(smi)),
                           ("fewshot_grad", phase_fewshot_grad),
                           ("fewshot_step", lambda: phase_fewshot_step(smi)),
-                          ("fewshot_cli", lambda: phase_fewshot_cli(smi))):
+                          ("fewshot_cli", lambda: phase_fewshot_cli(smi)),
+                          ("tune_cli", lambda: phase_tune_cli(smi))):
             t = time.perf_counter()
             results[phase] = fn()
             seconds[phase] = round(time.perf_counter() - t, 2)
@@ -3254,7 +3433,8 @@ def main() -> int:
                                       results["fewshot_grad"],
                                       results["fewshot_step"],
                                       results["fewshot_cli"],
-                                      results["grad"])}
+                                      results["grad"],
+                                      results["tune_cli"])}
         emit({"phase": "total", "seconds": round(time.perf_counter() - t0,
                                                  2), "per_phase": seconds})
     except Exception as e:

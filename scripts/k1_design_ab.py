@@ -21,9 +21,11 @@ g, dq, dk, dv, stats, part, b, nq, nk, c, heads, block_q, splits,
 launched, stream)`, its float32 key pass over `d7bb129_key_splits` splits)
 is called as that commit's wrapper called it.
 
-At each MiT-B5 512x512 stage shape and each few-shot shape (a CLS query row
-and key per stage, batch 2: Nq = H*W + 1, Nk 257), in the order other,
-this, this, other, each design is timed by two clocks:
+At each MiT-B5 512x512 stage shape, each few-shot shape (a CLS query row
+and key per stage, batch 2: Nq = H*W + 1, Nk 257), each transfer-step
+shape (10 prompt tokens per stage, Nk 266) and at Nk 288 (the most keys
+the bf16 kernels hold on chip), in the order other, this, this, other,
+each design is timed by two clocks:
 
 - `device_ms`: chip_smoke's `cuda_ms`, whose timed calls are queued behind
   a sleep kernel, so that CUDA events see the device run them back to back;
@@ -33,13 +35,15 @@ this, this, other, each design is timed by two clocks:
 The plain version and `F.scaled_dot_product_attention` (forward, or its
 autograd backward with `--bwd`; a yardstick only) are timed beside them;
 `host_us` is the host microseconds of one call. Each design's output is
-held to the plain version at chip_smoke's `KERNEL_TOL` (`KERNEL_BWD_TOL`).
-The stage shapes run at the batch of a serve forward (8) for K1 and of a
-student microbatch (16) for K2. Prints one JSON line per shape, then one
+held to the plain version at chip_smoke's `KERNEL_TOL` (`KERNEL_BWD_TOL`),
+and `bit_equal` says whether the two designs' outputs (dq, dk and dv with
+`--bwd`) are the same bits. The stage and transfer shapes run at the batch
+of a serve forward (8) for K1 and of a student microbatch (16) for K2. Prints one JSON line per shape, then one
 with the sums per few-shot pass (K1: one float32 forward, 52 launches; K2:
 one few-shot pair loss's backward, 2 x 52 launches) and per stage pass,
 beside chip_smoke's bound, then the card's name and power limit. Exits 2
-without a card, 1 if an output disagrees.
+without a card, 1 if an output disagrees with the plain version or, with
+`--require-bit-equal`, if the two designs' outputs differ in a bit.
 """
 
 from __future__ import annotations
@@ -66,6 +70,7 @@ from chip_smoke import (  # noqa: E402
     MICRO,
     SEED,
     STAGE_SHAPES,
+    TRANSFER_SHAPES,
     _heads,
     _rel_err,
     attention_bound,
@@ -78,6 +83,19 @@ from chip_smoke import (  # noqa: E402
 # tiles, split so that about 528 blocks run; its scalar kernels' query
 # block.
 D7BB129_KEYS, D7BB129_TILE, D7BB129_BLOCKS, D7BB129_BLOCK_Q = 32, 32, 528, 128
+# Nk at the 288 keys the bf16 kernels hold on chip (their fifth M-tile and
+# 18th key tile), head width 64, ragged Nq
+NK288_CASE = (4, (1000, 288, 128, 2))
+
+
+def _same_bits(a, b) -> bool:
+    """Whether two outputs (a tensor, or a tuple of them) are the same
+    bits."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return bool(torch.equal(a, b))
+    return all(bool(torch.equal(x, y)) for x, y in zip(a, b))
 
 
 def host_paced_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -228,7 +246,8 @@ def using(lib, bwd: bool = False):
 
 def _rows(other: Other, name: str, dtype_name: str, bwd: bool):
     """One row per shape: other, this, this, other, the plain version and
-    SDPA, on both clocks."""
+    SDPA, on both clocks, and whether other's and this design's outputs are
+    the same bits."""
     import torch
     import torch.nn.functional as F
 
@@ -243,7 +262,7 @@ def _rows(other: Other, name: str, dtype_name: str, bwd: bool):
     gen = torch.Generator(device="cuda").manual_seed(SEED + bwd)
     stage_b = MICRO if bwd else BATCH
     cases = [(FEW_BATCH, s) for s in FEWSHOT_SHAPES] + \
-        [(stage_b, s) for s in STAGE_SHAPES]
+        [(stage_b, s) for s in STAGE_SHAPES + TRANSFER_SHAPES] + [NK288_CASE]
     rows, bad = [], []
     for b, (nq, nk, c, h) in cases:
         q, k, v, g = (torch.randn(b, n, c, device="cuda", generator=gen)
@@ -274,6 +293,7 @@ def _rows(other: Other, name: str, dtype_name: str, bwd: bool):
                name: {"device_ms": [], "host_paced_ms": [], "host_us": []},
                "this": {"device_ms": [], "host_paced_ms": [],
                         "host_us": []}}
+        row["bit_equal"] = _same_bits(fns[name](), fns["this"]())
         for design in (name, "this", "this", name):
             fn, r = fns[design], row[design]
             r["err"] = max(r.get("err", 0.0), err_of(fn()))
@@ -320,6 +340,8 @@ def main(argv=None) -> int:
                    choices=("float32", "bfloat16"))
     p.add_argument("--other-name", default="other")
     p.add_argument("--out", type=Path, default=None)
+    p.add_argument("--require-bit-equal", action="store_true",
+                   help="exit 1 where the two designs' outputs differ")
     args = p.parse_args(argv)
     import torch
 
@@ -353,6 +375,10 @@ def main(argv=None) -> int:
                                           STAGE_SHAPES, designs, args.dtype,
                                           True)
     sums["other_interface"] = "d7bb129" if other.d7bb129 else "package"
+    sums["bit_equal_rows"] = [sum(r["bit_equal"] for r in rows), len(rows)]
+    if args.require_bit_equal:
+        bad += [(r["B"], r["shape"], "not bit-equal") for r in rows
+                if not r["bit_equal"]]
     sums["card"] = chip_smoke.nvidia_smi_line()
     chip_smoke.emit({"k1_ab": sums})
     if args.out:

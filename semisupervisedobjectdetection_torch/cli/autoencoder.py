@@ -19,9 +19,14 @@ loss (the reference's gate, `:107-108`) and, under --resume, the
 CLI (`cli/transfer.py --pretrain-weight`), whose 1-label classifier takes
 the reconstruction head's channel 0.
 
-It runs on the CUDA card unless `--device cpu` is given. `--tune` (the lr x
-weight-decay x gamma grid) is not ported yet and is refused with a message
-naming ROADMAP.md.
+`--tune` sweeps lr x weight decay x scheduler gamma (--tune-lrs,
+--tune-wds, --tune-gammas) on an 80/20 split of the labeled tiles as the
+reference's `Hyperparameter_Tuning` (`:133-170`): the shuffled grid's first
+--tune-max (9) points, each warm-started from --pretrain-weight and trained
+for max(epochs // 5, 1) epochs on the labeled tiles only, without
+checkpoints; --resume is ignored.
+
+It runs on the CUDA card unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -61,9 +66,12 @@ def _images_only(loader):
 
 
 def train_loop(model: SegFormerModel, loaders, dcfg, tc, args,
-               logger: MetricLogger) -> List[dict]:
+               logger: MetricLogger, save_model: bool = True) -> List[dict]:
     """The reference's `Train` loop (`:30-131`), from
-    `segformer_autoencoder_last` under --resume. The augmentation of an
+    `segformer_autoencoder_last` under --resume; the unlabeled pass runs
+    where `loaders` has one. `save_model=False` (a `--tune` grid point)
+    writes no checkpoint and neither resumes nor keeps a preempted state.
+    The augmentation of an
     epoch and its train-mode draws come from (--seed, epoch) alone, so a
     resumed epoch repeats them. Returns one report per epoch, also printed
     as an `epoch_report` JSON line: the seconds of the epoch, of each
@@ -74,7 +82,7 @@ def train_loop(model: SegFormerModel, loaders, dcfg, tc, args,
     its checkpoint."""
     device = model.device
     best, best_path, start_epoch = float("inf"), None, 0
-    resume = bool(args.resume and args.checkpoint_dir)
+    resume = bool(save_model and args.resume and args.checkpoint_dir)
     if resume:
         got = model.resume(args.checkpoint_dir, PREFIX)
         if got is not None:
@@ -95,13 +103,15 @@ def train_loop(model: SegFormerModel, loaders, dcfg, tc, args,
             images[0] += imgs.shape[0]
 
         for i, flag in enumerate(("train", "unlabeled")):
+            if flag not in loaders:
+                continue
             batches = prefetch_train_batches(
                 _images_only(loaders[flag]), fold_in(args.seed, 3 * epoch + i),
                 dcfg, device, depth=args.prefetch)
             phases[flag] = common.run_phase(batches, step, device)
             if preemption.stop_requested():
                 common.preempt_exit(args, [(PREFIX, model.state, best)],
-                                    epoch)
+                                    epoch, tuning=not save_model)
         model.scheduler_step()
         train_losses = common.host_floats(train_losses)
 
@@ -125,7 +135,7 @@ def train_loop(model: SegFormerModel, loaders, dcfg, tc, args,
         t0 = time.perf_counter()
         if train_loss + eval_loss < best:
             best = train_loss + eval_loss
-            if args.checkpoint_dir:
+            if save_model and args.checkpoint_dir:
                 best_path = os.path.join(args.checkpoint_dir,
                                          best_checkpoint_name(
                                              PREFIX, epoch, train_loss,
@@ -155,22 +165,59 @@ def train_loop(model: SegFormerModel, loaders, dcfg, tc, args,
     return reports
 
 
-def main(argv: Optional[List[str]] = None) -> List[dict]:
+def tune(args, cfg, dcfg, tc, device):
+    """--tune: the labeled tiles split 80/20 (the unlabeled ones unused),
+    then `common.run_tune_grid` with each point warm-started from
+    --pretrain-weight, its objective the best train + eval loss. Returns
+    (best, best point)."""
+    dcfg = common.ensure_data(args, dcfg)
+    loaders = common.make_loaders(dcfg, args.seed, flags=("train",))
+    sub = common.split_loaders(dcfg, loaders["train"].dataset, args.seed)
+    common.check_grad_accum(args, sub["train"])
+
+    def run_point(tci, plog):
+        model = SegFormerModel(pretrain_weight=args.pretrain_weight,
+                               num_labels=3, train_config=tci, config=cfg,
+                               hf_weights=args.hf_weights, seed=args.seed,
+                               grad_accum=args.grad_accum, device=device)
+        reports = train_loop(model, sub, dcfg, tci, args, plog,
+                             save_model=False)
+        return reports[-1]["best_train_plus_eval"] if reports \
+            else float("inf")
+
+    return common.run_tune_grid(args, tc, run_point,
+                                objective="best train+eval")
+
+
+def main(argv: Optional[List[str]] = None):
     p = common.base_parser(__doc__.split("\n\n")[0])
     p.add_argument("--resume", action="store_true",
                    help="write a <checkpoint-dir>/segformer_autoencoder_last "
                         "checkpoint every epoch and continue from it when "
-                        "present")
+                        "present (ignored under --tune)")
     p.add_argument("--tune", action="store_true",
                    help="grid search lr x weight-decay x scheduler-gamma "
-                        "(not ported)")
+                        "on an 80/20 labeled split "
+                        "(ref Hyperparameter_Tuning, `:133-170`)")
+    p.add_argument("--tune-lrs", default="1e-4,5e-5,1e-5")
+    p.add_argument("--tune-wds", default="5e-5")
+    p.add_argument("--tune-gammas", default="0.97")
+    p.add_argument("--tune-max", type=int, default=9,
+                   help="cap on shuffled grid points (ref takes the "
+                        "first 9, `:157`)")
     args = p.parse_args(argv)
-    common.refuse_unported(args, (("--tune", args.tune),))
+    common.refuse_unported(args)
+    if args.tune and args.resume:
+        print("--resume is ignored under --tune (grid points must not "
+              "share one _last checkpoint)")
+        args.resume = False
     device = resolve_device(args.device)
     cfg = common.apply_perf_preset(
         MIT_VARIANTS[args.variant](num_labels=3, dtype=args.dtype), args)
     common.check_kernel_shapes(cfg, args, device)
     dcfg, tc = common.configs_from_args(args)
+    if args.tune:
+        return tune(args, cfg, dcfg, tc, device)
     dcfg = common.ensure_data(args, dcfg, need_unlabeled=True)
     loaders = common.make_loaders(dcfg, args.seed,
                                   flags=("train", "eval", "unlabeled"))

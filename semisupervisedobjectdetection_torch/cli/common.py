@@ -1,11 +1,12 @@
 """Shared plumbing of the port's training CLIs, the part of the JAX
 package's `cli/common.py` that the supervised, transfer, teacher-student
-and autoencoder loops read: the argument parser (the same flags and
-defaults, plus `--device`), the configs from the flags, synthetic data, the
-tile loaders, the batch checks, the check that the SR-attention kernels
-take the configuration's shapes, the preemption exit, the staging of host
-batches on the device, the timed run of a loop's phase, and the
-kernel-launch counts of an epoch report.
+autoencoder and few-shot loops read: the argument parser (the same flags
+and defaults, plus `--device`), the configs from the flags, synthetic data,
+the tile loaders and the 80/20 split of the `--tune` paths, the `--tune`
+sweep (`sweep_grid`, `run_tune_grid`), the batch checks, the check that
+the SR-attention kernels take the configuration's shapes, the preemption
+exit, the staging of host batches on the device, the timed run of a loop's
+phase, and the kernel-launch counts of an epoch report.
 
 Flags whose paths are not ported yet are refused by `refuse_unported`
 with a `SystemExit` that names ROADMAP.md; none of them falls back to
@@ -26,17 +27,22 @@ from semisupervisedobjectdetection_torch.core.config import (
     DataConfig,
     MIT_VARIANTS,
     TrainConfig,
+    product_grid,
 )
 from semisupervisedobjectdetection_torch.data.augment import (
     augment_batch,
     eval_batch,
 )
-from semisupervisedobjectdetection_torch.data.loader import TileLoader
+from semisupervisedobjectdetection_torch.data.loader import (
+    TileLoader,
+    split_dataset,
+)
 from semisupervisedobjectdetection_torch.data.prefetch import upload
 from semisupervisedobjectdetection_torch.data.synthetic import (
     write_synthetic_dataset,
 )
 from semisupervisedobjectdetection_torch.data.tiles import TileDataset
+from semisupervisedobjectdetection_torch.utils.logging import MetricLogger
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:
@@ -134,10 +140,9 @@ def refuse_unported(args, extra: Tuple[Tuple[str, bool], ...] = ()) -> None:
 
 def check_kernel_shapes(cfg, args, device: torch.device) -> None:
     """SystemExit, before any model is built, when the SR-attention kernels
-    for `cfg`'s dtype would refuse its shapes at --img-size on `device`
-    (bfloat16: more than 288 keys, 32 prompt/CLS tokens per stage at
-    512x512; float32 takes any Nk). The CLIs never fall back to the plain
-    attention on the card."""
+    would refuse `cfg`'s shapes at --img-size on `device` (a head width
+    they do not take; both dtypes take any Nk). The CLIs never fall back to
+    the plain attention on the card."""
     from semisupervisedobjectdetection_torch.models.segformer import (
         check_attention_kernels,
     )
@@ -285,7 +290,7 @@ def check_grad_accum(args, train_loader) -> None:
             f"of {len(train_loader.dataset) % bs}; enable drop_last")
 
 
-def preempt_exit(args, saves, epoch: int):
+def preempt_exit(args, saves, epoch: int, *, tuning: bool = False):
     """Checkpoint and exit 0 after a preemption signal stopped a training
     loop mid-epoch (`utils/preemption.py`; the loops poll
     `preemption.stop_requested()` between batches).
@@ -295,10 +300,14 @@ def preempt_exit(args, saves, epoch: int):
     `--resume` restart redoes the partial epoch from its start, with the
     same augmentation (the loops derive it from the seed and the epoch).
     Saved even without --resume: preemption is when the state must
-    survive."""
+    survive. A `--tune` grid point (`tuning`, passed by each caller) is a
+    throwaway run: its state is not written, so no later `--resume` starts
+    from it."""
     from semisupervisedobjectdetection_torch.checkpoint.io import save_last
     from semisupervisedobjectdetection_torch.utils import preemption
 
+    if tuning:
+        saves = []
     wrote = []
     if args.checkpoint_dir:
         for prefix, state, best in saves:
@@ -308,6 +317,8 @@ def preempt_exit(args, saves, epoch: int):
     if wrote:
         msg += (f"wrote {', '.join(wrote)} to {args.checkpoint_dir}; "
                 f"restart with --resume to continue from epoch {epoch}")
+    elif tuning:
+        msg += "tune grid point state NOT saved (rerun the sweep)"
     else:
         msg += "no --checkpoint-dir set, training state NOT saved"
     print(msg, flush=True)
@@ -341,6 +352,86 @@ def make_loaders(dcfg: DataConfig, seed: int = 0,
                                drop_last=dcfg.drop_last, seed=seed,
                                on_bad_tile=dcfg.bad_tile_policy)
     return out
+
+
+def split_loaders(dcfg: DataConfig, dataset, seed: int) -> dict:
+    """80/20 train/eval loaders over one labeled dataset, the split of the
+    `--tune` paths (the reference's hyperparameter-tuning split)."""
+    tr, va = split_dataset(dataset, 0.8, seed)
+    return {name: TileLoader(ds, min(dcfg.batch_size, max(len(ds), 1)),
+                             shuffle=dcfg.shuffle, drop_last=dcfg.drop_last,
+                             seed=seed, on_bad_tile=dcfg.bad_tile_policy)
+            for name, ds in (("train", tr), ("eval", va))}
+
+
+def tune_point_logger(args, tag: str) -> MetricLogger:
+    """A grid point's MetricLogger: --metrics-csv with the point's tag
+    before its extension, so each point has a CSV of its own (one shared
+    file would mix the points' rows and repeat their epochs)."""
+    if not args.metrics_csv:
+        return MetricLogger(None)
+    root, ext = os.path.splitext(args.metrics_csv)
+    return MetricLogger(f"{root}.{tag}{ext or '.csv'}")
+
+
+def sweep_grid(args, grid, run_point, *, tag_of, show_of=None,
+               objective: str = "best eval", empty_hint: str = ""):
+    """The `--tune` sweep of every grid CLI: each point of `grid` (a list
+    of tuples) runs as `run_point(point, logger)` with its own CSV
+    (`tune_point_logger`; `tag_of(point)` names every axis) and returns its
+    objective; one line per point, then the best. An empty grid exits at
+    once; a sweep without a finite objective says so. Returns (best,
+    best point or None)."""
+    if not grid:
+        raise SystemExit("--tune grid is empty" +
+                         (f" ({empty_hint})" if empty_hint else ""))
+    show_of = show_of or tag_of
+    best, best_pt = float("inf"), None
+    for pt in grid:
+        plog = tune_point_logger(args, tag_of(pt))
+        try:
+            loss = run_point(pt, plog)
+        finally:
+            plog.close()
+        print(f"{show_of(pt)}: {objective} {loss:.4f}")
+        if loss < best:
+            best, best_pt = loss, pt
+    if best_pt is None:
+        print(f"tune: no grid point produced a finite {objective} "
+              f"({len(grid)} points tried)")
+    else:
+        print(f"best: {show_of(best_pt)} loss={best:.4f}")
+    return best, best_pt
+
+
+def run_tune_grid(args, tc: TrainConfig, run_point,
+                  objective: str = "best eval"):
+    """The lr x weight-decay x scheduler-gamma sweep (`--tune-lrs`,
+    `--tune-wds`, `--tune-gammas`): the shuffled cartesian grid
+    (`product_grid`, seeded by --seed), its first --tune-max points, each
+    trained by `run_point(train_config, logger)` at max(epochs // 5, 1)
+    epochs. Returns (best, best point or None)."""
+    grid = product_grid(
+        [float(x) for x in args.tune_lrs.split(",")],
+        [float(x) for x in args.tune_wds.split(",")],
+        [float(x) for x in args.tune_gammas.split(",")],
+        shuffle=True, seed=args.seed)[:args.tune_max]
+
+    def point(pt, plog):
+        lr, wd, gamma = pt
+        print(f"tuning: lr={lr} weight_decay={wd} scheduler={gamma}")
+        tci = tc.replace(lr=lr, weight_decay=wd, lr_decay=gamma,
+                         epochs=max(tc.epochs // 5, 1))
+        return run_point(tci, plog)
+
+    return sweep_grid(
+        args, grid, point,
+        tag_of=lambda p: f"lr{p[0]}_wd{p[1]}_g{p[2]}",
+        show_of=lambda p: (f"lr={p[0]} weight_decay={p[1]} "
+                           f"scheduler={p[2]}"),
+        objective=objective,
+        empty_hint="check --tune-lrs / --tune-wds / --tune-gammas / "
+                   "--tune-max")
 
 
 def host_floats(xs) -> List[float]:

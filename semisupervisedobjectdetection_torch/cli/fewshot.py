@@ -32,9 +32,13 @@ evaluates --pretrain-weight instead of training. --pretrain-weight is a
 warm start: weights only, fresh Adam, epoch 0. --hf-weights is not read
 here, as in the JAX CLI.
 
-It runs on the CUDA card unless `--device cpu` is given. `--tune` (the lr x
-weight-decay x gamma grid) is not ported yet and is refused with a message
-naming ROADMAP.md.
+`--tune` sweeps lr x weight decay x scheduler gamma over the --mode loop
+(the reference's grid, `:362-363`: lr {8e-5, 5e-5, 2e-5, 5e-6} x wd 5e-5 x
+gamma 0.97, shuffled by --seed, the first --tune-max (18) points): each
+point trains for max(epochs // 5, 1) epochs without checkpoints; --resume
+is ignored.
+
+It runs on the CUDA card unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -196,11 +200,14 @@ def _eval_losses(state, eval_loader, dcfg, device, recon: bool
 
 
 def train_run(args, dcfg, tc, cfg, logger: MetricLogger, eval_loader, lab,
-              unlab, iters: int, device: torch.device) -> List[dict]:
+              unlab, iters: int, device: torch.device,
+              save_model: bool = True) -> List[dict]:
     """The few-shot training run of --mode, from `fewshot_<mode>_last`
     under --resume (the pair draws then restart from
-    `random.Random(seed + start_epoch)`, as in the JAX CLI). Returns one
-    report per epoch, also printed as an `epoch_report` JSON line."""
+    `random.Random(seed + start_epoch)`, as in the JAX CLI).
+    `save_model=False` (a `--tune` grid point) writes no checkpoint and
+    neither resumes nor keeps a preempted state. Returns one report per
+    epoch, also printed as an `epoch_report` JSON line."""
     accum = max(args.grad_accum, 1)
     prefix = f"fewshot_{args.mode}"
     state = build_state(args, cfg, tc, device)
@@ -208,7 +215,7 @@ def train_run(args, dcfg, tc, cfg, logger: MetricLogger, eval_loader, lab,
     rr_lab, rr_unlab = RoundRobin(lab), RoundRobin(unlab)
     ckpt = BestCheckpointer(args.checkpoint_dir, prefix=prefix)
     best, start_epoch = float("inf"), 0
-    resume = bool(args.resume and args.checkpoint_dir)
+    resume = bool(save_model and args.resume and args.checkpoint_dir)
     if resume:
         got = load_last(args.checkpoint_dir, prefix, state)
         if got is not None:
@@ -239,7 +246,8 @@ def train_run(args, dcfg, tc, cfg, logger: MetricLogger, eval_loader, lab,
             fold_in(args.seed, epoch), dcfg, device, args.prefetch)
         phase = common.run_phase(batches, step, device)
         if preemption.stop_requested():
-            common.preempt_exit(args, [(prefix, state, best)], epoch)
+            common.preempt_exit(args, [(prefix, state, best)], epoch,
+                                tuning=not save_model)
         state.scheduler_step()
         train_losses = common.host_floats(train_losses)
 
@@ -257,7 +265,7 @@ def train_run(args, dcfg, tc, cfg, logger: MetricLogger, eval_loader, lab,
         t0 = time.perf_counter()
         if eval_loss < best:
             best = eval_loss
-            if args.checkpoint_dir:
+            if save_model and args.checkpoint_dir:
                 ckpt.maybe_save(state, epoch, train_loss, eval_loss, fps)
         if resume:
             save_last(args.checkpoint_dir, prefix, state, epoch, best)
@@ -318,20 +326,24 @@ def main(argv: Optional[List[str]] = None):
     p.add_argument("--resume", action="store_true",
                    help="write a <checkpoint-dir>/fewshot_<mode>_last "
                         "checkpoint every epoch and continue from it when "
-                        "present")
+                        "present (ignored under --tune)")
     p.add_argument("--tune", action="store_true",
                    help="grid search lr x weight-decay x scheduler-gamma "
-                        "(not ported)")
-    p.add_argument("--tune-lrs", help="not ported")
-    p.add_argument("--tune-wds", help="not ported")
-    p.add_argument("--tune-gammas", help="not ported")
-    p.add_argument("--tune-max", type=int, help="not ported")
+                        "over the selected --mode loop (reference grid "
+                        "`:362-363`: lr {8e-5,5e-5,2e-5,5e-6} x wd 5e-5 "
+                        "x gamma 0.97, shuffled, first --tune-max points)")
+    p.add_argument("--tune-lrs", default="8e-5,5e-5,2e-5,5e-6")
+    p.add_argument("--tune-wds", default="5e-5")
+    p.add_argument("--tune-gammas", default="0.97")
+    p.add_argument("--tune-max", type=int, default=18,
+                   help="cap on shuffled grid points (the reference's "
+                        "tuning loop takes the first 18, `:387`)")
     args = p.parse_args(argv)
-    common.refuse_unported(args, (
-        ("--tune", args.tune), ("--tune-lrs", args.tune_lrs is not None),
-        ("--tune-wds", args.tune_wds is not None),
-        ("--tune-gammas", args.tune_gammas is not None),
-        ("--tune-max", args.tune_max is not None)))
+    common.refuse_unported(args)
+    if args.tune and args.resume:
+        print("--resume is ignored under --tune (grid points must not "
+              "share one _last checkpoint)")
+        args.resume = False
     device = resolve_device(args.device)
     dcfg, tc = common.configs_from_args(args)
     _check_fewshot_accum(args, dcfg)
@@ -361,6 +373,14 @@ def main(argv: Optional[List[str]] = None):
     lab = category_loaders(dcfg, "labeled", args.seed)
     unlab = category_loaders(dcfg, "unlabeled", args.seed)
     print(f"{len(lab)} labeled domains, {len(unlab)} unlabeled domains")
+    if args.tune:
+        def run_point(tci, plog):
+            reports = train_run(args, dcfg, tci, cfg, plog, eval_loader, lab,
+                                unlab, iters, device, save_model=False)
+            return reports[-1]["best_eval_loss"] if reports \
+                else float("inf")
+
+        return common.run_tune_grid(args, tc, run_point)
     logger = MetricLogger(args.metrics_csv)
     try:
         return train_run(args, dcfg, tc, cfg, logger, eval_loader, lab,

@@ -15,12 +15,15 @@ per epoch. `--predict` evaluates a checkpoint (--pretrain-weight) instead
 of training, and `--dump-masks` writes each eval tile's ground-truth and
 predicted mask overlays. By default (the reference's quirk) the forward of
 a train step runs in eval mode; --no-quirks runs it in train mode.
+`--tune-lr a,b,c` grid-searches the learning rate on an 80/20 split of the
+train tiles (the reference's `Hyperparameter_Tuning`, `:103-144`): each
+point trains a fresh model for max(epochs // 5, 1) epochs and writes no
+checkpoint, and --resume is off.
 
 It runs on the CUDA card unless `--device cpu` is given. Not ported yet, and
 refused with a message naming ROADMAP.md: `--loss bce`, `--int8`, `--fp8`,
-`--int8-snapshot`, `--sliding-raster`, `--tune-lr`, `--async-checkpoint`,
-`--parallel` other than none, `--profile-dir`, `--plot-curves` and
-`--ffn-impl`.
+`--int8-snapshot`, `--sliding-raster`, `--async-checkpoint`, `--parallel`
+other than none, `--profile-dir`, `--plot-curves` and `--ffn-impl`.
 """
 
 from __future__ import annotations
@@ -71,12 +74,15 @@ def _try_resume(args, model: SegFormerModel, ckpt: BestCheckpointer):
 
 
 def train_loop(model: SegFormerModel, loaders, dcfg, tc, args,
-               logger: MetricLogger, loss_type: str = "dice"
-               ) -> List[dict]:
+               logger: MetricLogger, loss_type: str = "dice",
+               save_model: bool = True) -> List[dict]:
     """The epoch loop of the reference's `Train` (`segFormer_main.py:
-    35-100`), from `segformer_last` under --resume. The augmentation of an
-    epoch and its train-mode draws come from (--seed, epoch) alone, so a
-    resumed epoch repeats them. Returns one report per epoch, also printed
+    35-100`), from `segformer_last` under --resume. `save_model=False` (a
+    `--tune` grid point) writes no checkpoint and neither resumes nor keeps
+    a preempted state, as the reference's `Hyperparameter_Tuning(
+    save_model=False)` (`:125-142`). The augmentation of an epoch and its
+    train-mode draws come from (--seed, epoch) alone, so a resumed epoch
+    repeats them. Returns one report per epoch, also printed
     as an `epoch_report` JSON line: the seconds of the epoch, of its train
     steps (ended by a device synchronisation), of the waits on the
     prefetcher within them, of the eval and of the checkpoint writes, the
@@ -84,7 +90,9 @@ def train_loop(model: SegFormerModel, loaders, dcfg, tc, args,
     launches in the train steps and in the eval, and the best eval loss."""
     device = model.device
     ckpt = BestCheckpointer(args.checkpoint_dir, prefix=PREFIX)
-    start_epoch, best = _try_resume(args, model, ckpt)
+    resume = save_model and args.resume and args.checkpoint_dir
+    start_epoch, best = (_try_resume(args, model, ckpt) if resume
+                         else (0, float("inf")))
     reports = []
     for epoch in range(start_epoch, tc.epochs):
         model.generator.manual_seed(fold_in(args.seed, 2 * epoch + 1))
@@ -119,7 +127,8 @@ def train_loop(model: SegFormerModel, loaders, dcfg, tc, args,
         train_k1, train_k2 = (a - b for a, b in
                               zip(common.kernel_launches(), (k1, k2)))
         if preemption.stop_requested():
-            common.preempt_exit(args, [(PREFIX, model.state, best)], epoch)
+            common.preempt_exit(args, [(PREFIX, model.state, best)], epoch,
+                                tuning=not save_model)
         model.scheduler_step()
         train_losses = common.host_floats(train_losses)
 
@@ -152,10 +161,10 @@ def train_loop(model: SegFormerModel, loaders, dcfg, tc, args,
         t0 = time.perf_counter()
         if eval_loss < best:
             best = eval_loss
-            if args.checkpoint_dir:
+            if save_model and args.checkpoint_dir:
                 ckpt.maybe_save(model.state, epoch, train_loss, eval_loss,
                                 fps)
-        if args.resume and args.checkpoint_dir:
+        if resume:
             save_last(args.checkpoint_dir, PREFIX, model.state, epoch, best)
         t1 = time.perf_counter()
         report = {
@@ -201,6 +210,36 @@ def predict(model: SegFormerModel, loaders, dcfg, args) -> dict:
     return {"eval_loss": mean, "dumped": dumped}
 
 
+def best_eval(reports: List[dict]) -> float:
+    """A training run's objective: its best eval loss (inf without an
+    epoch)."""
+    return reports[-1]["best_eval_loss"] if reports else float("inf")
+
+
+def tune_lr(args, cfg, dcfg, tc, loaders, device):
+    """--tune-lr: per learning rate a fresh model trained on 80% of the
+    train tiles and evaluated on the other 20% for max(epochs // 5, 1)
+    epochs, without checkpoints; prints each point's best eval loss and
+    the best point (`common.sweep_grid`). Returns (best, best point)."""
+    sub = common.split_loaders(dcfg, loaders["train"].dataset, args.seed)
+    common.check_grad_accum(args, sub["train"])
+
+    def point(pt, plog):
+        (lr,) = pt
+        model = SegFormerModel(lr=lr, train_config=tc, config=cfg,
+                               seed=args.seed, grad_accum=args.grad_accum,
+                               device=device)
+        return best_eval(train_loop(
+            model, sub, dcfg, tc.replace(epochs=max(tc.epochs // 5, 1)),
+            args, plog, args.loss, save_model=False))
+
+    return common.sweep_grid(
+        args, [(float(x),) for x in args.tune_lr.split(",") if x],
+        point, tag_of=lambda p: f"lr{p[0]}",
+        show_of=lambda p: f"lr={p[0]}",
+        objective="best eval loss", empty_hint="check --tune-lr")
+
+
 def main(argv: Optional[List[str]] = None):
     p = common.base_parser(__doc__.split("\n\n")[0])
     p.add_argument("--loss", default="dice",
@@ -226,14 +265,13 @@ def main(argv: Optional[List[str]] = None):
                    help="write the _last checkpoint on a background "
                         "thread (not ported)")
     p.add_argument("--tune-lr",
-                   help="comma-separated lrs for a grid search (not "
-                        "ported)")
+                   help="comma-separated lrs for a grid search on an 80/20 "
+                        "split")
     args = p.parse_args(argv)
     common.refuse_unported(args, (
         ("--loss bce", args.loss == "bce"), ("--int8", args.int8),
         ("--fp8", args.fp8), ("--int8-snapshot", bool(args.int8_snapshot)),
         ("--sliding-raster", bool(args.sliding_raster)),
-        ("--tune-lr", bool(args.tune_lr)),
         ("--async-checkpoint", args.async_checkpoint)))
     device = resolve_device(args.device)
     cfg = common.apply_perf_preset(
@@ -244,6 +282,8 @@ def main(argv: Optional[List[str]] = None):
     loaders = common.make_loaders(dcfg, args.seed)
     if not args.predict:
         common.check_grad_accum(args, loaders["train"])
+    if args.tune_lr:
+        return tune_lr(args, cfg, dcfg, tc, loaders, device)
     model = SegFormerModel(pretrain_weight=args.pretrain_weight,
                            train_config=tc, config=cfg,
                            hf_weights=args.hf_weights, seed=args.seed,

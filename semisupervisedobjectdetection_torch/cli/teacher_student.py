@@ -30,8 +30,14 @@ drop-path, classifier dropout and BatchNorm on batch statistics.
 `--pretrain-weight` (a port checkpoint) and `--hf-weights` warm-start both
 models with fresh Adam state at epoch 0.
 
+`--tune` runs the reference's random-order grid (`:274-280`): teacher lr
+5e-7 x student lr 3e-5 x supervise weight {0.8, 0.7} x threshold {0.8,
+0.85, 0.87}, shuffled by --seed, in either loop; each point trains both
+models for max(epochs // 5, 1) epochs, writes no checkpoint and does not
+resume.
+
 It runs on the CUDA card unless `--device cpu` is given. Not ported yet, and
-refused with a message naming ROADMAP.md: `--tune`, `--int8-teacher`,
+refused with a message naming ROADMAP.md: `--int8-teacher`,
 `--async-checkpoint`, `--parallel` other than none, `--profile-dir`,
 `--plot-curves` and `--ffn-impl`.
 """
@@ -58,7 +64,10 @@ from semisupervisedobjectdetection_torch.checkpoint.io import (
     save_last,
 )
 from semisupervisedobjectdetection_torch.cli import common
-from semisupervisedobjectdetection_torch.core.config import MIT_VARIANTS
+from semisupervisedobjectdetection_torch.core.config import (
+    MIT_VARIANTS,
+    product_grid,
+)
 from semisupervisedobjectdetection_torch.data.prefetch import (
     fold_in,
     prefetch_paired_batches,
@@ -85,7 +94,8 @@ def _preempt_exit(args, teacher, student, epoch, best_s, best_t):
     """Mid-epoch preemption: save both `_last` checkpoints and exit 0
     (`--resume` redoes the epoch)."""
     common.preempt_exit(args, [("ts_teacher", teacher, best_t),
-                               ("ts_student", student, best_s)], epoch)
+                               ("ts_student", student, best_s)], epoch,
+                        tuning=args.tune)
 
 
 @torch.no_grad()
@@ -107,7 +117,10 @@ def train_run(args, dcfg, tc, loaders, cfg, logger, device, *, teacher_lr,
     """One teacher-student run from seeded weights, warm-started by
     --hf-weights and --pretrain-weight (weights and BatchNorm statistics
     into both models, fresh Adam, epoch 0), or from its `_last` checkpoints
-    under --resume; returns the per-epoch reports of its loop."""
+    under --resume; returns the per-epoch reports of its loop. A `--tune`
+    grid point writes no checkpoint (the reference's
+    `Hyperparameter_Tuning` passes save_model=False, `:274-290`) and does
+    not resume."""
     model = init_weights(SegFormer(cfg),
                          torch.Generator().manual_seed(args.seed))
     if args.hf_weights or args.pretrain_weight:
@@ -126,7 +139,8 @@ def train_run(args, dcfg, tc, loaders, cfg, logger, device, *, teacher_lr,
                 student=student, sup_w=supervise_weight,
                 threshold=threshold, epochs=epochs, ckpt_s=ckpt_s,
                 ckpt_t=ckpt_t, start_epoch=start_epoch, best_s=best_s,
-                best_t=best_t, save_model=bool(args.checkpoint_dir))
+                best_t=best_t,
+                save_model=bool(args.checkpoint_dir) and not args.tune)
 
 
 def _eval_models(teacher, student, loaders, dcfg, device) -> dict:
@@ -288,7 +302,7 @@ def _grad_train_loop(args, dcfg, tc, loaders, logger, device, *, teacher,
             epoch, t_epoch, (a, b), images[0], ev,
             time.perf_counter() - t0, device, phase_a=a, phase_b=b,
             pseudo_loss=(float(np.mean(p_losses)) if p_losses else None),
-            teacher_reset=reset))
+            teacher_reset=reset, best_student=best_s, best_teacher=best_t))
     return reports
 
 
@@ -352,7 +366,8 @@ def _ema_train_loop(args, dcfg, tc, loaders, logger, device, *, teacher,
                                     save_model)
         _save_lasts(args, teacher, student, epoch, best_s, best_t)
         reports.append(_report(epoch, t_epoch, (phase,), images[0], ev,
-                               time.perf_counter() - t0, device))
+                               time.perf_counter() - t0, device,
+                               best_student=best_s, best_teacher=best_t))
     return reports
 
 
@@ -361,7 +376,7 @@ def _try_resume(args, teacher, student, ckpt_s, ckpt_t):
     set and both exist: returns (start_epoch, best_s, best_t). The
     augmentation and train-mode draws of an epoch come from (--seed,
     epoch), so a resumed epoch repeats them."""
-    if not (args.resume and args.checkpoint_dir and all(
+    if not (args.resume and args.checkpoint_dir and not args.tune and all(
             has_last(args.checkpoint_dir, p)
             for p in ("ts_teacher", "ts_student"))):
         return 0, float("inf"), float("inf")
@@ -376,8 +391,8 @@ def _try_resume(args, teacher, student, ckpt_s, ckpt_t):
 
 def _save_lasts(args, teacher, student, epoch, best_s, best_t):
     """Write both `_last` resume checkpoints (only under --resume: the B5
-    full-state write costs seconds per epoch)."""
-    if not (args.resume and args.checkpoint_dir):
+    full-state write costs seconds per epoch; never for a --tune point)."""
+    if not (args.resume and args.checkpoint_dir and not args.tune):
         return
     save_last(args.checkpoint_dir, "ts_teacher", teacher, epoch, best_t)
     save_last(args.checkpoint_dir, "ts_student", student, epoch, best_s)
@@ -407,23 +422,51 @@ def parse_args(argv: Optional[List[str]] = None):
                    help="int8 teacher forwards (not ported)")
     p.add_argument("--resume", action="store_true",
                    help="write ts_{teacher,student}_last checkpoints every "
-                        "epoch and continue from them when present")
+                        "epoch and continue from them when present (both "
+                        "loops; disabled under --tune)")
     p.add_argument("--async-checkpoint", action="store_true",
                    help="write the _last checkpoints on a background "
                         "thread (not ported)")
     p.add_argument("--tune", action="store_true",
-                   help="grid over supervise_weight x threshold (not "
-                        "ported)")
+                   help="random-order grid over supervise_weight x "
+                        "threshold (reference grid `:274-280`)")
     args = p.parse_args(argv)
     if args.ema_mode and args.ema <= 0:
         args.ema = 0.999          # mean-teacher default decay
     return args
 
 
-def main(argv: Optional[List[str]] = None) -> List[dict]:
+def tune(args, dcfg, tc, loaders, cfg, device):
+    """--tune: the reference's grid (teacher lr, student lr, supervise
+    weight, threshold), shuffled by --seed; each point a `train_run` of
+    max(epochs // 5, 1) epochs in the loop --ema-mode picks, its objective
+    the lower of the student's and the teacher's best eval loss
+    (`common.sweep_grid`). Returns (best, best point)."""
+    grid = product_grid([5e-7], [3e-5], [0.8, 0.7], [0.8, 0.85, 0.87],
+                        shuffle=True, seed=args.seed)
+
+    def point(pt, plog):
+        t_lr, s_lr, w, thr = pt
+        reports = train_run(args, dcfg, tc, loaders, cfg, plog, device,
+                            teacher_lr=t_lr, student_lr=s_lr,
+                            supervise_weight=w, threshold=thr,
+                            epochs=max(tc.epochs // 5, 1))
+        return min(reports[-1]["best_student"], reports[-1]["best_teacher"]) \
+            if reports else float("inf")
+
+    # the tag names every grid axis, the singleton lrs too, so that a
+    # wider grid never gives two points one CSV
+    return common.sweep_grid(
+        args, grid, point,
+        tag_of=lambda p: f"tlr{p[0]}_slr{p[1]}_w{p[2]}_thr{p[3]}",
+        show_of=lambda p: (f"t_lr={p[0]} s_lr={p[1]} w={p[2]} "
+                           f"thr={p[3]}"))
+
+
+def main(argv: Optional[List[str]] = None):
     args = parse_args(argv)
     common.refuse_unported(args, (
-        ("--tune", args.tune), ("--int8-teacher", args.int8_teacher),
+        ("--int8-teacher", args.int8_teacher),
         ("--async-checkpoint", args.async_checkpoint)))
     device = resolve_device(args.device)
     dcfg, tc = common.configs_from_args(args)
@@ -436,6 +479,8 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
     common.check_grad_accum(args, loaders["pseudo"])
     cfg = common.apply_perf_preset(
         MIT_VARIANTS[args.variant](dtype=args.dtype), args)
+    if args.tune:
+        return tune(args, dcfg, tc, loaders, cfg, device)
     logger = MetricLogger(args.metrics_csv)
     try:
         return train_run(args, dcfg, tc, loaders, cfg, logger, device,

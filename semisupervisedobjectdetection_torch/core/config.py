@@ -12,7 +12,7 @@ the port's own choices; `remat` takes the JAX package's "full" and "none".
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 ATTN_IMPLS = ("kernel", "plain")
 REMAT_POLICIES = ("full", "none")
@@ -202,3 +202,20 @@ class TrainConfig:
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
+
+
+def product_grid(*iterables: Sequence, repeat: int = 1, shuffle: bool = False,
+                 seed: int = 0):
+    """The cartesian product of `iterables` as a list of tuples, shuffled
+    by `random.Random(seed)` when `shuffle`: the JAX package's
+    `core/config.py::product_grid`, so a `--tune` sweep visits its points
+    in the same order."""
+    import random
+
+    pools = [tuple(pool) for pool in iterables] * repeat
+    result = [[]]
+    for pool in pools:
+        result = [x + [y] for x in result for y in pool]
+    if shuffle:
+        random.Random(seed).shuffle(result)
+    return [tuple(r) for r in result]

@@ -94,13 +94,28 @@
 //   before its softmax runs (a serial chain of ~12 wgmma groups a tile),
 //   and two consumers overlap only each other. The split sums move
 //   2 * Nk * d floats per split segment through L2.
-//   Lifting Nk <= 288: the main sweep already walks M-tiles and the row
-//   statistics are online over 32-key chunks, so more keys are a longer
-//   loop; what does not grow is where dk and dv live. A later design keeps
-//   K and V per segment for up to 4 M-tiles and walks the keys past them
-//   as a second pass over the segment's query tiles (the row statistics
-//   kept per query row in shared memory or recomputed), each pass with its
-//   own dk/dv registers, dq summed over the passes in a fixed order.
+//   Past 288 keys the K/V of a (batch, head) and the dk/dv registers of
+//   its M-tiles no longer fit: the bf16 streaming kernels below run.
+// bfloat16 past 288 keys: the float32 kernels' row pass / key pass split
+// with bf16 products (sr_attention_bwd_wgmma_rows_kernel,
+// sr_attention_bwd_wgmma_keys_kernel, sr_attention_bwd_wgmma_sum_kernel),
+// over the grids of `bwd_launch_plan` (its "stream" plan):
+//   1. Row pass, the float32 row pass's grid and rounds: 64-key K/V blocks
+//      streamed twice a round by TMA. Sweep 1: s = q k^T and dp = g v^T
+//      (m64n64k16 from shared memory), an online m, l and u per row, then
+//      (m, 1 / l, delta) of each row to a float32 workspace. Sweep 2: the
+//      same products, p and ds, ds rounded to bf16 as the register A
+//      operand of dq += ds k (K read MN-major); dq stored in bf16.
+//   2. Key pass: a CTA holds one 64-key M-tile of K and V per consumer and
+//      walks a split range of the pair's 64-row query tiles (q, g and the
+//      rows' statistics streamed through a ring); per tile the on-chip
+//      kernel's main sweep (main_tile) without its ds^T staging: dv, dk of
+//      the M-tile in registers across the range.
+//   3. Split sum, where the key pass splits: the splits' float32 dk and dv
+//      summed in split order and cast to bf16. No atomics: two launches
+//      give the same bits.
+//   Products: the five the function needs plus s and dp once more in the
+//   row pass (nine in all, as the float32 design).
 // float32: three kernels on the TF32 tensor cores, every product split
 // three ways (3xTF32, sr_attention_wgmma.cuh: x = hi + lo, a b summed as
 // a_lo b_hi + a_hi b_lo + a_hi b_hi in float32; the dropped a_lo b_lo is
@@ -311,8 +326,10 @@ __device__ __forceinline__ void stats_chunk(const Consumer<D>& cs,
 // each block's dv, then its dk, is formed in it and added by `fold(0)`
 // (dk) and `fold(1)` (dv) to the M-tile's shared-memory sums; its blocks
 // are 16 rows (H), which keeps that path within the registers the two
-// register M-tiles leave.
-template <int D, bool Tail, typename Fold, int H = Tail ? 16 : kHalf>
+// register M-tiles leave. Without `StoreDst` (the streaming key pass,
+// whose dq the row pass forms) ds^T is not staged.
+template <int D, bool Tail, typename Fold, int H = Tail ? 16 : kHalf,
+          bool StoreDst = true>
 __device__ __forceinline__ void main_tile(const Consumer<D>& cs, uint32_t qt,
                                           uint32_t gt, int key0,
                                           float (&ak)[D / 2],
@@ -358,15 +375,18 @@ __device__ __forceinline__ void main_tile(const Consumer<D>& cs, uint32_t qt,
     pack_a<kN>(s, pa);
     pack_a<kN>(dp, da);
     // ds^T (rows: keys, 128 bytes of query rows each) for dq = ds k
+    if constexpr (StoreDst) {
 #pragma unroll
-    for (int q4 = 0; q4 < H / 8; ++q4)
+      for (int q4 = 0; q4 < H / 8; ++q4)
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const uint32_t key = key0 + 16 * cs.warp + cs.g8 + 8 * r;
-        const uint32_t row = hf * H + 8 * q4 + 2 * cs.t4;
-        *reinterpret_cast<uint32_t*>(cs.dst + swizzled<kRowTile>(key, row)) =
-            da[2 * q4 + r];
-      }
+        for (int r = 0; r < 2; ++r) {
+          const uint32_t key = key0 + 16 * cs.warp + cs.g8 + 8 * r;
+          const uint32_t row = hf * H + 8 * q4 + 2 * cs.t4;
+          *reinterpret_cast<uint32_t*>(cs.dst +
+                                       swizzled<kRowTile>(key, row)) =
+              da[2 * q4 + r];
+        }
+    }
     if constexpr (Tail) {
       // dv, then dk, of this block through ak
 #pragma unroll
@@ -771,6 +791,504 @@ int dispatch_bwd_wgmma(const void* q, const void* k, const void* v,
                                   heads, grid, stream, launched);
   return launch_bwd_wgmma<D, kMaxMTiles>(q, k, v, g, dq, dk, dv, part, b, nq,
                                          nk, heads, grid, stream, launched);
+}
+
+
+// ---- bfloat16 past kMaxNkBf16 keys: a row pass, a key pass, a split sum
+
+constexpr int kSBlk = 64;           // keys of a row-pass K/V block
+constexpr int kSStages = 3;         // blocks or tiles in flight
+constexpr int kSProducerRegs = 56;  // setmaxnreg: 128 * 56 + 256 * 224
+constexpr int kSConsumerRegs = 224;
+
+// Row-pass shared memory, in bytes from a 1024-aligned base:
+//   q, g [kCons][64][D]       each consumer's q and g tiles
+//   per stage st: k [64][D], v [64][D]
+//   barriers: qg_full, qg_empty [kCons]; full, empty [kSStages]
+struct RowStreamLayout {
+  size_t tile, qg, stage, bar, total;
+  __host__ __device__ explicit RowStreamLayout(int d) {
+    tile = size_t(kRowTile) * d * sizeof(bf16);
+    qg = 0;
+    stage = qg + 2 * kCons * tile;
+    bar = stage + kSStages * 2 * tile;
+    total = bar + (2 * kCons + 2 * kSStages) * 8 + 1024;
+  }
+};
+
+// Key-pass shared memory, in bytes from a 1024-aligned base:
+//   k, v [kCons][64][D]       each consumer's M-tile of K and V
+//   per stage st: q [64][D], g [64][D], stats [64] float4 (m, 1 / l,
+//   delta, 0) of the tile's query rows
+//   barriers: kv_full [kCons]; full, empty [kSStages]
+struct KeyStreamLayout {
+  size_t tile, kv, stage, stage_bytes, bar, total;
+  __host__ __device__ explicit KeyStreamLayout(int d) {
+    tile = size_t(kRowTile) * d * sizeof(bf16);
+    kv = 0;
+    stage = kv + 2 * kCons * tile;
+    stage_bytes = 2 * tile + kRowTile * sizeof(float4);
+    bar = stage + kSStages * stage_bytes;
+    total = bar + (kCons + 2 * kSStages) * 8 + 1024;
+  }
+};
+
+// Row pass: the float32 row pass's grid and rounds (CTA x serves (batch,
+// head) x / ctas_per_pair and a run of its 64-row query tiles, two at a
+// time over the two consumers), with the pair's K/V blocks of 64 keys
+// streamed twice a round. Sweep 1: s = q k^T and dp = g v^T (m64n64k16,
+// all operands K-major from shared memory), an online max m, sum l and
+// u = sum 2^(s c - m) dp per row; then (m, 1 / l, delta = u / l) of each
+// row to `stats` ([B * heads][Nq] float4). Sweep 2: the same products,
+// p = 2^(s c - m) / l, ds = p (dp - delta) scale rounded to bf16 as the
+// register A operand of dq += ds k (m64n{d}k16, K MN-major); dq stored
+// from registers in bf16.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+sr_attention_bwd_wgmma_rows_kernel(const __grid_constant__ CUtensorMap tq,
+                                   const __grid_constant__ CUtensorMap tk,
+                                   const __grid_constant__ CUtensorMap tv,
+                                   const __grid_constant__ CUtensorMap tg,
+                                   bf16* __restrict__ dq,
+                                   float4* __restrict__ stats, int nq, int nk,
+                                   int heads, int tiles_per_bh,
+                                   int ctas_per_pair, float scale,
+                                   float scale_log2) {
+  constexpr uint32_t kRow = D * sizeof(bf16);
+  constexpr uint32_t kTile = kRowTile * kRow;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const RowStreamLayout lay(D);
+  const uint32_t base = smem_u32(smem);
+  // q of consumer c at qg_tile(c, 0), g at qg_tile(c, 1)
+  auto qg_tile = [&](int c, int i) {
+    return base + uint32_t(lay.qg) + (2 * c + i) * kTile;
+  };
+  auto kv_blk = [&](int st, int i) {
+    return base + uint32_t(lay.stage) + (2 * st + i) * kTile;
+  };
+  const uint32_t bars = base + uint32_t(lay.bar);
+  auto qg_full = [&](int c) { return bars + 8 * c; };
+  auto qg_empty = [&](int c) { return bars + 8 * (kCons + c); };
+  auto full = [&](int st) { return bars + 8 * (2 * kCons + st); };
+  auto empty = [&](int st) {
+    return bars + 8 * (2 * kCons + kSStages + st);
+  };
+
+  const int tid = int(threadIdx.x);
+  if (tid == 0) {
+    for (int c = 0; c < kCons; ++c) {
+      mbar_init(qg_full(c), 1);
+      mbar_init(qg_empty(c), kWgThreads / 32);
+    }
+    for (int st = 0; st < kSStages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), kCons * kWgThreads / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int pair = int(blockIdx.x) / ctas_per_pair;
+  const int chunk = int(blockIdx.x) - pair * ctas_per_pair;
+  const int b = pair / heads, h = pair - b * heads;
+  const int t0 = int(int64_t(chunk) * tiles_per_bh / ctas_per_pair);
+  const int ntiles =
+      int(int64_t(chunk + 1) * tiles_per_bh / ctas_per_pair) - t0;
+  const int rounds = (ntiles + 1) / 2;
+  const int nb = (nk + kSBlk - 1) / kSBlk;
+
+  const int wg = __shfl_sync(0xffffffffu, tid / kWgThreads, 0);
+  if (wg == kCons) {
+    // ---- producer: q and g tiles, then the K/V blocks twice a round
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kSProducerRegs));
+    if (tid != kCons * kWgThreads) return;
+    uint32_t kv = 0;
+    for (int r = 0; r < rounds; ++r) {
+      for (int c = 0; c < kCons && 2 * r + c < ntiles; ++c) {
+        const int row0 = (t0 + 2 * r + c) * kRowTile;
+        mbar_wait(qg_empty(c), (r & 1) ^ 1);
+        mbar_expect_tx(qg_full(c), 2 * kTile);
+        tma_load(qg_tile(c, 0), &tq, qg_full(c), h * D, row0, b);
+        tma_load(qg_tile(c, 1), &tg, qg_full(c), h * D, row0, b);
+      }
+      for (int j = 0; j < 2 * nb; ++j, ++kv) {
+        const int st = int(kv % kSStages);
+        const int key0 = (j % nb) * kSBlk;
+        mbar_wait(empty(st), ((kv / kSStages) & 1) ^ 1);
+        mbar_expect_tx(full(st), 2 * kTile);
+        tma_load(kv_blk(st, 0), &tk, full(st), h * D, key0, b);
+        tma_load(kv_blk(st, 1), &tv, full(st), h * D, key0, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kSConsumerRegs));
+  const int ct = tid - wg * kWgThreads;
+  const int warp = ct >> 5, lane = ct & 31, g8 = lane >> 2, t4 = lane & 3;
+  const int c = heads * D;
+  constexpr int kN = kSBlk / 2;  // accumulator floats a thread
+  uint32_t kv = 0;
+  for (int r = 0; r < rounds; ++r) {
+    const int tile = 2 * r + wg;
+    const bool mine = tile < ntiles;
+    const uint32_t qt = qg_tile(wg, 0), gt = qg_tile(wg, 1);
+    if (mine) mbar_wait(qg_full(wg), r & 1);
+    // s = q k^T and dp = g v^T of the block at stage st
+    auto products = [&](int st, float (&s)[kN], float (&dp)[kN]) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss<kSBlk, 0, 0>(s, smem_desc<D>(qt) + 2 * kk,
+                              smem_desc<D>(kv_blk(st, 0)) + 2 * kk, kk);
+        wgmma_ss<kSBlk, 0, 0>(dp, smem_desc<D>(gt) + 2 * kk,
+                              smem_desc<D>(kv_blk(st, 1)) + 2 * kk, kk);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<kN>(s);
+      fence_regs<kN>(dp);
+    };
+    // sweep 1: the online row statistics
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f},
+          u[2] = {0.f, 0.f};
+    for (int j = 0; j < nb; ++j, ++kv) {
+      const int st = int(kv % kSStages);
+      mbar_wait(full(st), (kv / kSStages) & 1);
+      if (mine) {
+        float s[kN], dp[kN];
+        products(st, s, dp);
+        if ((j + 1) * kSBlk > nk) {
+#pragma unroll
+          for (int i = 0; i < kN; ++i) {
+            const int key = j * kSBlk + 8 * (i >> 2) + 2 * t4 + (i & 1);
+            s[i] = key < nk ? s[i] : -INFINITY;
+          }
+        }
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int i = 0; i < kN; ++i)
+          mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+          mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+          // the block holds a valid key, so the new max is finite
+          const float mn = fmaxf(m[rr], mx[rr] * scale_log2);
+          const float f = exp2_approx(m[rr] - mn);
+          l[rr] *= f;
+          u[rr] *= f;
+          m[rr] = mn;
+        }
+#pragma unroll
+        for (int i = 0; i < kN; ++i) {
+          const int rr = (i >> 1) & 1;
+          const float e = exp2_approx(fmaf(s[i], scale_log2, -m[rr]));
+          l[rr] += e;
+          u[rr] += e * dp[i];
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(st));  // one per warp
+    }
+    float4 rs[2];  // this thread's rows: (m, 1 / l, delta, 0)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+      l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
+      u[rr] += __shfl_xor_sync(0xffffffffu, u[rr], 1);
+      u[rr] += __shfl_xor_sync(0xffffffffu, u[rr], 2);
+      const float inv_l = 1.f / l[rr];
+      rs[rr] = make_float4(m[rr], inv_l, u[rr] * inv_l, 0.f);
+    }
+    const int row0 = (t0 + tile) * kRowTile + 16 * warp + g8;
+    if (mine && t4 == 0)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+        if (row0 + 8 * rr < nq)
+          stats[size_t(pair) * nq + row0 + 8 * rr] = rs[rr];
+    // sweep 2: p, ds and dq += ds k
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int j = 0; j < nb; ++j, ++kv) {
+      const int st = int(kv % kSStages);
+      mbar_wait(full(st), (kv / kSStages) & 1);
+      if (mine) {
+        float s[kN], dp[kN];
+        products(st, s, dp);
+#pragma unroll
+        for (int i = 0; i < kN; ++i) {
+          const int key = j * kSBlk + 8 * (i >> 2) + 2 * t4 + (i & 1);
+          const float4 st4 = rs[(i >> 1) & 1];
+          float p = exp2_approx(fmaf(s[i], scale_log2, -st4.x)) * st4.y;
+          p = key < nk ? p : 0.f;
+          dp[i] = p * (dp[i] - st4.z) * scale;
+        }
+        uint32_t da[kN / 2];
+        pack_a<kN>(dp, da);
+        fence_regs<kN / 2>(da);
+        fence_regs<D / 2>(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kSBlk / 16; ++kk)
+          wgmma_rs<D>(acc, da + 4 * kk,
+                      smem_desc<D>(kv_blk(st, 0) + kk * 16 * kRow), 1);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs<D / 2>(acc);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(st));
+    }
+    if (mine) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(qg_empty(wg));  // q, g read by both sweeps
+      bf16* out = dq + size_t(b) * nq * c + h * D;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int row = row0 + 8 * rr;
+        if (row < nq)
+#pragma unroll
+          for (int jj = 0; jj < D / 8; ++jj)
+            *reinterpret_cast<uint32_t*>(out + size_t(row) * c + 8 * jj +
+                                         2 * t4) =
+                pack(acc[4 * jj + 2 * rr], acc[4 * jj + 2 * rr + 1]);
+      }
+    }
+  }
+}
+
+// Key pass: CTA x serves (batch, head) x / (key_groups * splits), key group
+// (x / splits) % key_groups (M-tiles 2 grp and 2 grp + 1 of 64 keys, one per
+// consumer, K and V held in shared memory) and split x % splits: the
+// pair's 64-row query tiles [s T / S, (s + 1) T / S) (T = ceil(Nq / 64),
+// S = splits), streamed through a ring with their rows' statistics from
+// the row pass. Per tile a consumer runs the on-chip kernel's main sweep
+// (main_tile: s^T = k q^T, dp^T = v g^T, p and ds from the statistics,
+// dv += p^T g, dk += ds^T q in registers) without its ds^T staging. With
+// splits > 1 it writes its float32 dk and dv to part[s] (dk, then dv,
+// each B * Nk * C), else bf16 to dk and dv.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+sr_attention_bwd_wgmma_keys_kernel(const __grid_constant__ CUtensorMap tq,
+                                   const __grid_constant__ CUtensorMap tk,
+                                   const __grid_constant__ CUtensorMap tv,
+                                   const __grid_constant__ CUtensorMap tg,
+                                   const float4* __restrict__ stats,
+                                   bf16* __restrict__ dk,
+                                   bf16* __restrict__ dv,
+                                   float* __restrict__ part, int b_total,
+                                   int nq, int nk, int heads, int key_groups,
+                                   int splits, float scale,
+                                   float scale_log2) {
+  constexpr uint32_t kRow = D * sizeof(bf16);
+  constexpr uint32_t kTile = kRowTile * kRow;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const KeyStreamLayout lay(D);
+  const uint32_t base = smem_u32(smem);
+  // K of consumer c at kv_tile(c, 0), V at kv_tile(c, 1)
+  auto kv_tile = [&](int c, int i) {
+    return uint32_t(lay.kv) + (2 * c + i) * kTile;
+  };
+  // stage st: q (i = 0), g (1), statistics (2)
+  auto st_tile = [&](int st, int i) {
+    return uint32_t(lay.stage + st * lay.stage_bytes) + i * kTile;
+  };
+  const uint32_t bars = base + uint32_t(lay.bar);
+  auto kv_full = [&](int c) { return bars + 8 * c; };
+  auto full = [&](int st) { return bars + 8 * (kCons + st); };
+  auto empty = [&](int st) { return bars + 8 * (kCons + kSStages + st); };
+
+  const int tid = int(threadIdx.x);
+  if (tid == 0) {
+    for (int c = 0; c < kCons; ++c) mbar_init(kv_full(c), 1);
+    for (int st = 0; st < kSStages; ++st) {
+      // the TMA's expect_tx and one arrival per producer warp (statistics)
+      mbar_init(full(st), 1 + kWgThreads / 32);
+      mbar_init(empty(st), kCons * kWgThreads / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int x = int(blockIdx.x);
+  const int split = x % splits, grp = (x / splits) % key_groups;
+  const int pair = x / (splits * key_groups);
+  const int b = pair / heads, h = pair - b * heads;
+  const int q_tiles = (nq + kRowTile - 1) / kRowTile;
+  const int s0 = int(int64_t(split) * q_tiles / splits);
+  const int nt = int(int64_t(split + 1) * q_tiles / splits) - s0;
+  const int nmt = (nk + kKeyTile - 1) / kKeyTile;
+
+  const int wg = __shfl_sync(0xffffffffu, tid / kWgThreads, 0);
+  if (wg == kCons) {
+    // ---- producer: both consumers' K and V, then q, g and the
+    // statistics of each query tile
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kSProducerRegs));
+    const int pt = tid - kCons * kWgThreads;
+    if (pt == 0)
+      for (int c = 0; c < kCons && 2 * grp + c < nmt; ++c) {
+        const int key0 = (2 * grp + c) * kKeyTile;
+        mbar_expect_tx(kv_full(c), 2 * kTile);
+        tma_load(base + kv_tile(c, 0), &tk, kv_full(c), h * D, key0, b);
+        tma_load(base + kv_tile(c, 1), &tv, kv_full(c), h * D, key0, b);
+      }
+    for (int i = 0; i < nt; ++i) {
+      const int st = i % kSStages;
+      const int row0 = (s0 + i) * kRowTile;
+      mbar_wait(empty(st), ((i / kSStages) & 1) ^ 1);
+      if (pt == 0) {
+        mbar_expect_tx(full(st), 2 * kTile);
+        tma_load(base + st_tile(st, 0), &tq, full(st), h * D, row0, b);
+        tma_load(base + st_tile(st, 1), &tg, full(st), h * D, row0, b);
+      }
+      if (pt < kRowTile) {
+        const int row = row0 + pt;
+        reinterpret_cast<float4*>(smem + st_tile(st, 2))[pt] =
+            row < nq ? stats[size_t(pair) * nq + row]
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      __syncwarp();
+      if ((pt & 31) == 0) mbar_arrive(full(st));
+    }
+    return;
+  }
+
+  // ---- consumers: dk, dv of M-tile 2 grp + wg over the range
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kSConsumerRegs));
+  const int ct = tid - wg * kWgThreads;
+  const int lane = ct & 31;
+  const int mt = 2 * grp + wg;
+  const bool active = mt < nmt;
+  Consumer<D> cs;
+  cs.k_s = base + kv_tile(wg, 0);
+  cs.v_s = base + kv_tile(wg, 1);
+  cs.dst_s = 0;
+  cs.dst = nullptr;
+  cs.nk = nk - mt * kKeyTile;  // keys of this M-tile and past it
+  cs.warp = ct >> 5;
+  cs.g8 = lane >> 2;
+  cs.t4 = lane & 3;
+  cs.scale = scale;
+  cs.scale_log2 = scale_log2;
+  if (active) mbar_wait(kv_full(wg), 0);
+  float ak[D / 2], av[D / 2];
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) ak[j] = av[j] = 0.f;
+  auto none = [](int) {};
+  for (int i = 0; i < nt; ++i) {
+    const int st = i % kSStages;
+    mbar_wait(full(st), (i / kSStages) & 1);
+    if (active) {
+      cs.stats = reinterpret_cast<float4*>(smem + st_tile(st, 2));
+      main_tile<D, false, decltype(none), kHalf, false>(
+          cs, base + st_tile(st, 0), base + st_tile(st, 1), 0, ak, av, none);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));  // one per warp
+  }
+  if (!active) return;
+  const int c = heads * D;
+  const size_t n_out = size_t(b_total) * nk * c;
+  const size_t at0 = (size_t(b) * nk + size_t(mt) * kKeyTile) * c + h * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = 16 * cs.warp + cs.g8 + 8 * r;  // in the M-tile
+    if (key >= cs.nk) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int i = 4 * j + 2 * r;
+      const size_t at = at0 + size_t(key) * c + 8 * j + 2 * cs.t4;
+      if (part == nullptr) {
+        *reinterpret_cast<uint32_t*>(dk + at) = pack(ak[i], ak[i + 1]);
+        *reinterpret_cast<uint32_t*>(dv + at) = pack(av[i], av[i + 1]);
+      } else {
+        float* slot = part + 2 * n_out * split;
+        *reinterpret_cast<float2*>(slot + at) = make_float2(ak[i], ak[i + 1]);
+        *reinterpret_cast<float2*>(slot + n_out + at) =
+            make_float2(av[i], av[i + 1]);
+      }
+    }
+  }
+}
+
+// dk, dv = the key pass's float32 split slots summed in split order and
+// cast to bf16 (n4 groups of four elements each).
+__global__ void __launch_bounds__(kThreads)
+sr_attention_bwd_wgmma_sum_kernel(const float4* __restrict__ part,
+                                  uint2* __restrict__ dk,
+                                  uint2* __restrict__ dv, size_t n4,
+                                  int splits) {
+  for (size_t i = size_t(blockIdx.x) * kThreads + threadIdx.x; i < n4;
+       i += size_t(gridDim.x) * kThreads) {
+    float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+    for (int sp = 0; sp < splits; ++sp) {
+      const float4 a = __ldcg(part + 2 * n4 * sp + i);
+      const float4 o = __ldcg(part + 2 * n4 * sp + n4 + i);
+      sk.x += a.x; sk.y += a.y; sk.z += a.z; sk.w += a.w;
+      sv.x += o.x; sv.y += o.y; sv.z += o.z; sv.w += o.w;
+    }
+    dk[i] = make_uint2(pack(sk.x, sk.y), pack(sk.z, sk.w));
+    dv[i] = make_uint2(pack(sv.x, sv.y), pack(sv.z, sv.w));
+  }
+}
+
+template <int D>
+int launch_bwd_stream(const void* q, const void* k, const void* v,
+                      const void* g, void* dq, void* dk, void* dv,
+                      void* stats, void* part, int b, int nq, int nk,
+                      int heads, int row_ctas_per_pair, int key_groups,
+                      int splits, cudaStream_t stream, int* launched) {
+  auto rows = sr_attention_bwd_wgmma_rows_kernel<D>;
+  auto keys = sr_attention_bwd_wgmma_keys_kernel<D>;
+  static std::atomic<uint32_t> opted_rows{0}, opted_keys{0};
+  cudaError_t err = opt_in_smem(rows, opted_rows);
+  if (err == cudaSuccess) err = opt_in_smem(keys, opted_keys);
+  if (err != cudaSuccess) return int(err);
+  const int c = heads * D;
+  const int64_t pairs = int64_t(b) * heads;
+  const int tiles = (nq + kRowTile - 1) / kRowTile;
+  const int nmt = (nk + kKeyTile - 1) / kKeyTile;
+  const int64_t row_grid = pairs * row_ctas_per_pair;
+  const int64_t key_grid = pairs * key_groups * splits;
+  if (row_ctas_per_pair < 1 || row_ctas_per_pair > tiles ||
+      key_groups != (nmt + 1) / 2 || splits < 1 || splits > tiles ||
+      row_grid > INT_MAX || key_grid > INT_MAX ||
+      (splits > 1) != (part != nullptr))
+    return int(cudaErrorInvalidValue);
+  CUtensorMap m[4];
+  if (!encode_map<D>(&m[0], q, b, nq, c, kRowTile) ||
+      !encode_map<D>(&m[1], k, b, nk, c, kKeyTile) ||
+      !encode_map<D>(&m[2], v, b, nk, c, kKeyTile) ||
+      !encode_map<D>(&m[3], g, b, nq, c, kRowTile))
+    return int(cudaErrorInvalidValue);
+  const float scale = 1.0f / sqrtf(float(D));
+  rows<<<int(row_grid), kBwdThreads, RowStreamLayout(D).total, stream>>>(
+      m[0], m[1], m[2], m[3], static_cast<bf16*>(dq),
+      static_cast<float4*>(stats), nq, nk, heads, tiles, row_ctas_per_pair,
+      scale, 1.4426950408889634f * scale);
+  if (const int e = launched_ok(launched)) return e;
+  keys<<<int(key_grid), kBwdThreads, KeyStreamLayout(D).total, stream>>>(
+      m[0], m[1], m[2], m[3], static_cast<const float4*>(stats),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      static_cast<float*>(part), b, nq, nk, heads, key_groups, splits, scale,
+      1.4426950408889634f * scale);
+  if (const int e = launched_ok(launched); e || splits == 1) return e;
+  const size_t n4 = size_t(b) * nk * c / 4;
+  const size_t need = (n4 + kThreads - 1) / kThreads;
+  sr_attention_bwd_wgmma_sum_kernel<<<int(need < 1056 ? need : 1056),
+                                      kThreads, 0, stream>>>(
+      static_cast<const float4*>(part), static_cast<uint2*>(dk),
+      static_cast<uint2*>(dv), n4, splits);
+  return launched_ok(launched);
 }
 
 
@@ -1424,16 +1942,21 @@ int launch_bwd_f32(const void* q, const void* k, const void* v,
 extern "C" {
 
 // Bytes of dynamic shared memory one CTA needs (elem: 4 float32, the larger
-// of the row and key passes, any Nk; 2 bf16, the wgmma kernel).
+// of the row and key passes; 2 bf16, the wgmma kernel up to kMaxNkBf16
+// keys, past them the larger of its row and key passes). Every kernel
+// takes any Nk within them.
 size_t sr_attention_bwd_smem_bytes(int nk, int d, int elem) {
-  if (elem == 2) return BwdLayout(d, bwd_mtiles(nk)).total;
-  const size_t r = F32RowLayout(d).total, k = F32KeyLayout(d).total;
+  size_t r, k;
+  if (elem == 2 && nk <= kMaxNkBf16) return BwdLayout(d, bwd_mtiles(nk)).total;
+  if (elem == 2) {
+    r = RowStreamLayout(d).total;
+    k = KeyStreamLayout(d).total;
+  } else {
+    r = F32RowLayout(d).total;
+    k = F32KeyLayout(d).total;
+  }
   return r > k ? r : k;
 }
-
-// The most keys the kernels for `elem`-byte inputs take; 0: no limit (the
-// float32 kernels stream K and V).
-int sr_attention_bwd_max_nk(int elem) { return elem == 4 ? 0 : kMaxNkBf16; }
 
 // float32 (the 3xTF32 row pass, key pass and split sum) over the grids of
 // ops/sr_attention.py's `bwd_f32_plan`: row_ctas_per_pair CTAs per
@@ -1463,6 +1986,34 @@ int sr_attention_bwd(const void* q, const void* k, const void* v,
     return launch_bwd_f32<64>(q, k, v, g, dq, dk, dv, stats, part, b, nq, nk,
                               heads, row_ctas_per_pair, key_groups, splits, s,
                               launched);
+  return int(cudaErrorInvalidValue);
+}
+
+// bfloat16 past kMaxNkBf16 keys (the row pass, key pass and split sum)
+// over the grids of ops/sr_attention.py's `bwd_launch_plan`, as
+// sr_attention_bwd takes them (key_groups = ceil(ceil(nk / 64) / 2), the
+// splits over 64-row query tiles); stats a float32 workspace of
+// 4 * b * heads * nq values, part (splits > 1, else null) one of
+// splits * 2 * b * nk * c. *launched as there.
+int sr_attention_bwd_wgmma_stream(const void* q, const void* k,
+                                  const void* v, const void* g, void* dq,
+                                  void* dk, void* dv, void* stats, void* part,
+                                  int b, int nq, int nk, int c, int heads,
+                                  int row_ctas_per_pair, int key_groups,
+                                  int splits, int* launched, void* stream) {
+  const int d = c / heads;
+  *launched = 0;
+  if (b < 1 || nq < 1 || nk < 1 || d * heads != c)
+    return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 32)
+    return launch_bwd_stream<32>(q, k, v, g, dq, dk, dv, stats, part, b, nq,
+                                 nk, heads, row_ctas_per_pair, key_groups,
+                                 splits, s, launched);
+  if (d == 64)
+    return launch_bwd_stream<64>(q, k, v, g, dq, dk, dv, stats, part, b, nq,
+                                 nk, heads, row_ctas_per_pair, key_groups,
+                                 splits, s, launched);
   return int(cudaErrorInvalidValue);
 }
 

@@ -5,11 +5,13 @@
 // Replaces the Pallas TPU kernel semisupervisedobjectdetection_tpu/ops/
 // sr_attention.py::_attn_kernel and computes the same function: scores and
 // softmax in float32, the normalised probabilities rounded to v's type
-// before P.V, float32 accumulation, output in q's type. One kernel per
-// dtype, both on wgmma with tiles brought in by TMA:
+// before P.V, float32 accumulation, output in q's type. Every kernel runs
+// its products on wgmma with tiles brought in by TMA, and every dtype takes
+// any Nk:
 //
 // bfloat16: sr_attention_fwd_wgmma_kernel, one full-row softmax over all of
-// a (batch, head)'s keys held on chip (Nk <= 288).
+// a (batch, head)'s keys held on chip (Nk <= 288); past 288 keys
+// sr_attention_fwd_wgmma_stream_kernel (below) streams K and V.
 //   Bound. At MiT-B5 512x512 shapes the function is bound by the bytes it
 //   must move (q in, out back: 2*B*Nq*C elements) on the bf16 tensor-core
 //   peak: 4*B*Nq*Nk*C flops over 2*B*(Nq+Nk)*C*2 bytes is ~250 flops a byte
@@ -95,6 +97,21 @@
 //   Resources per CTA at d = 64: 2 x 16 KB of q tiles and 3 x 40 KB of K/V
 //   stages (K hi and lo, V^T hi and lo, V), 152 KB; 384 threads, the
 //   producer at 56 registers and the consumers at 224 (setmaxnreg).
+//
+// bfloat16 past 288 keys: sr_attention_fwd_wgmma_stream_kernel. The
+// on-chip kernel's score row (144 floats a thread at 288 keys) and K/V
+// (72 KB at d = 64) grow with Nk; this one streams K and V through a ring
+// of 64-key blocks and keeps the float32 kernel's grid and rounds. The
+// plain version and the TPU kernel round the normalised p = e / l to bf16
+// before P.V; an online softmax that rescales o would round an
+// unnormalised p instead. So a round takes two sweeps over the blocks:
+// sweep 1 forms s = q k^T with an online row max m and sum l; sweep 2 forms
+// s again, p = 2^(s c - m) / l rounded to bf16 as the register A operand
+// (the plain version's rounding point, as the on-chip kernel), and
+// o += p v. One q k^T more than the function needs: 6 B Nq Nk C flops
+// where it needs 4, paid only past 288 keys. Resources per CTA at d = 64:
+// 2 x 8 KB of q tiles and 4 x 16 KB of K/V stages, 80 KB; the producer at
+// 56 registers, the consumers at 224 (ptxas: 168 a thread, no spills).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -109,7 +126,9 @@
 
 namespace {
 
-constexpr int kMaxNkBf16 = 288;  // the bf16 kernel's K/V and score row
+// The most keys the bf16 kernel holds on chip (its K/V and score row);
+// past them the bf16 streaming kernel runs.
+constexpr int kMaxNkBf16 = 288;
 
 // ---- bfloat16: the wgmma + TMA kernel ----
 
@@ -504,6 +523,275 @@ int dispatch_wgmma(const void* q, const void* k, const void* v, void* out,
                                        stream);
 }
 
+// ---- bfloat16 past kMaxNkBf16 keys: K and V streamed, two sweeps ----
+
+constexpr int kStreamKeys = 64;        // keys of a streamed K/V block
+constexpr int kStreamStages = 4;       // K/V blocks in flight
+constexpr int kStreamProducerRegs = 56;
+constexpr int kStreamConsumerRegs = 224;
+
+// Shared memory of the streaming kernel, in bytes from a 1024-aligned base:
+//   q  [kConsumers][64][D]                  each consumer's query tile
+//   per stage st < kStreamStages: k [64][D], v [64][D]
+//   barriers: q_full, q_empty [kConsumers]; full, empty [kStreamStages]
+struct StreamLayout {
+  size_t tile, blk, q, stage, bar, total;
+  __host__ __device__ explicit StreamLayout(int d) {
+    tile = size_t(kTileQ) * d * sizeof(bf16);
+    blk = size_t(kStreamKeys) * d * sizeof(bf16);
+    q = 0;
+    stage = q + kConsumers * tile;
+    bar = stage + kStreamStages * 2 * blk;
+    total = bar + (2 * kConsumers + 2 * kStreamStages) * 8 + 1024;
+  }
+};
+
+// The row max of a 64-key block's scores s (the accumulator of a 64 x 64
+// product: thread rows g and g + 8, keys 8 (i / 4) + 2 t4 + (i & 1) of the
+// block), keys from key0 past nk masked to -inf in place; the max is the
+// same in the 4 lanes of a quad.
+__device__ __forceinline__ void block_max(float (&s)[kStreamKeys / 2],
+                                          int key0, int nk, int t4,
+                                          float (&mx)[2]) {
+  if (key0 + kStreamKeys > nk) {
+#pragma unroll
+    for (int i = 0; i < kStreamKeys / 2; ++i) {
+      const int key = key0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+      s[i] = key < nk ? s[i] : -INFINITY;
+    }
+  }
+  mx[0] = mx[1] = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < kStreamKeys / 2; ++i)
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+  }
+}
+
+// Nk > kMaxNkBf16 in bfloat16. The grid and the rounds are the float32
+// kernel's: CTA x serves (batch, head) x / ctas_per_pair and a contiguous
+// run of its 64-row query tiles, two at a time over the two consumers.
+// Each round streams the pair's K/V blocks (64 keys, TMA, a ring of
+// kStreamStages) twice: sweep 1 brings K alone, and each consumer forms
+// s = q k^T (wgmma m64n64k16 from shared memory) with an online row max m
+// and sum l; sweep 2 brings K and V, forms s again and p = 2^(s c - m) / l
+// rounded to bf16 in registers, the plain version's rounding point, then
+// o += p v (m64n{d}k16, V MN-major). o is stored from registers. One
+// q k^T more than the function needs, paid only past kMaxNkBf16 keys.
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+sr_attention_fwd_wgmma_stream_kernel(const __grid_constant__ CUtensorMap tq,
+                                     const __grid_constant__ CUtensorMap tk,
+                                     const __grid_constant__ CUtensorMap tv,
+                                     bf16* __restrict__ out, int nq, int nk,
+                                     int heads, int tiles_per_bh,
+                                     int ctas_per_pair, float scale_log2) {
+  constexpr uint32_t kRow = D * sizeof(bf16);
+  constexpr uint32_t kQBytes = kTileQ * kRow;
+  constexpr uint32_t kBlkBytes = kStreamKeys * kRow;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const StreamLayout lay(D);
+  const uint32_t base = smem_u32(smem);
+  auto q_tile = [&](int c) { return base + uint32_t(lay.q) + c * kQBytes; };
+  auto k_blk = [&](int st) {
+    return base + uint32_t(lay.stage) + 2 * st * kBlkBytes;
+  };
+  auto v_blk = [&](int st) { return k_blk(st) + kBlkBytes; };
+  const uint32_t bars = base + uint32_t(lay.bar);
+  auto q_full = [&](int c) { return bars + 8 * c; };
+  auto q_empty = [&](int c) { return bars + 8 * (kConsumers + c); };
+  auto full = [&](int st) { return bars + 8 * (2 * kConsumers + st); };
+  auto empty = [&](int st) {
+    return bars + 8 * (2 * kConsumers + kStreamStages + st);
+  };
+
+  const int tid = int(threadIdx.x);
+  if (tid == 0) {
+    for (int c = 0; c < kConsumers; ++c) {
+      mbar_init(q_full(c), 1);
+      mbar_init(q_empty(c), kConsumerThreads / 32);
+    }
+    for (int st = 0; st < kStreamStages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), kConsumers * kConsumerThreads / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int pair = int(blockIdx.x) / ctas_per_pair;
+  const int chunk = int(blockIdx.x) - pair * ctas_per_pair;
+  const int b = pair / heads, h = pair - b * heads;
+  const int t0 = int(int64_t(chunk) * tiles_per_bh / ctas_per_pair);
+  const int ntiles =
+      int(int64_t(chunk + 1) * tiles_per_bh / ctas_per_pair) - t0;
+  const int rounds = (ntiles + 1) / 2;
+  const int nb = (nk + kStreamKeys - 1) / kStreamKeys;
+
+  const int wg = __shfl_sync(0xffffffffu, tid / kConsumerThreads, 0);
+  if (wg == kConsumers) {
+    // ---- producer: q tiles, then K blocks (sweep 1), K and V (sweep 2)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kStreamProducerRegs));
+    if (tid != kConsumers * kConsumerThreads) return;
+    uint32_t kv = 0;  // K/V blocks so far
+    for (int r = 0; r < rounds; ++r) {
+      for (int c = 0; c < kConsumers && 2 * r + c < ntiles; ++c) {
+        mbar_wait(q_empty(c), (r & 1) ^ 1);
+        mbar_expect_tx(q_full(c), kQBytes);
+        tma_load(q_tile(c), &tq, q_full(c), h * D,
+                 (t0 + 2 * r + c) * kTileQ, b);
+      }
+      for (int sweep = 0; sweep < 2; ++sweep)
+        for (int j = 0; j < nb; ++j, ++kv) {
+          const int st = int(kv % kStreamStages);
+          mbar_wait(empty(st), ((kv / kStreamStages) & 1) ^ 1);
+          mbar_expect_tx(full(st), (sweep + 1) * kBlkBytes);
+          tma_load(k_blk(st), &tk, full(st), h * D, j * kStreamKeys, b);
+          if (sweep)
+            tma_load(v_blk(st), &tv, full(st), h * D, j * kStreamKeys, b);
+        }
+    }
+    return;
+  }
+
+  // ---- consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      kStreamConsumerRegs));
+  const int ct = tid - wg * kConsumerThreads;
+  const int warp = ct >> 5, lane = ct & 31, g = lane >> 2, t4 = lane & 3;
+  const int c = heads * D;
+  uint32_t kv = 0;
+  for (int r = 0; r < rounds; ++r) {
+    const int tile = 2 * r + wg;
+    const bool mine = tile < ntiles;
+    const uint32_t qt = q_tile(wg);
+    if (mine) mbar_wait(q_full(wg), r & 1);
+    // the s = q k^T of a block at stage st, keys past nk masked; its max
+    auto scores = [&](int st, int key0, float (&s)[kStreamKeys / 2],
+                      float (&mx)[2]) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<kStreamKeys, 0, 0>(s, smem_desc<D>(qt) + 2 * kk,
+                                    smem_desc<D>(k_blk(st)) + 2 * kk, kk);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<kStreamKeys / 2>(s);
+      block_max(s, key0, nk, t4, mx);
+    };
+    // sweep 1: the online row max and sum
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    for (int j = 0; j < nb; ++j, ++kv) {
+      const int st = int(kv % kStreamStages);
+      mbar_wait(full(st), (kv / kStreamStages) & 1);
+      if (mine) {
+        float s[kStreamKeys / 2], mx[2];
+        scores(st, j * kStreamKeys, s, mx);
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          // the block holds a valid key, so the new max is finite
+          const float mn = fmaxf(m[rr], mx[rr] * scale_log2);
+          l[rr] *= exp2_approx(m[rr] - mn);
+          m[rr] = mn;
+        }
+#pragma unroll
+        for (int i = 0; i < kStreamKeys / 2; ++i)
+          l[(i >> 1) & 1] +=
+              exp2_approx(fmaf(s[i], scale_log2, -m[(i >> 1) & 1]));
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(st));  // one per warp
+    }
+    float inv_l[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+      l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
+      inv_l[rr] = 1.f / l[rr];
+    }
+    // sweep 2: p = 2^(s c - m) / l in bf16, o += p v
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int j = 0; j < nb; ++j, ++kv) {
+      const int st = int(kv % kStreamStages);
+      mbar_wait(full(st), (kv / kStreamStages) & 1);
+      if (mine) {
+        float s[kStreamKeys / 2], mx[2];
+        scores(st, j * kStreamKeys, s, mx);
+        uint32_t p[kStreamKeys / 4];
+#pragma unroll
+        for (int i = 0; i < kStreamKeys / 4; ++i) {
+          const int rr = i & 1;
+          p[i] = sr_wgmma::pack(
+              exp2_approx(fmaf(s[2 * i], scale_log2, -m[rr])) * inv_l[rr],
+              exp2_approx(fmaf(s[2 * i + 1], scale_log2, -m[rr])) *
+                  inv_l[rr]);
+        }
+        fence_regs<kStreamKeys / 4>(p);
+        fence_regs<D / 2>(o);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kStreamKeys / 16; ++kk)
+          wgmma_rs<D>(o, p + 4 * kk,
+                      smem_desc<D>(v_blk(st) + kk * 16 * kRow), 1);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs<D / 2>(o);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(st));
+    }
+    if (mine) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(q_empty(wg));  // q read by both sweeps
+      const int row0 = (t0 + tile) * kTileQ + 16 * warp + g;
+      bf16* ob = out + size_t(b) * nq * c + h * D;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = row0 + 8 * hf;
+        if (row < nq) {
+#pragma unroll
+          for (int jj = 0; jj < D / 8; ++jj)
+            *reinterpret_cast<uint32_t*>(ob + size_t(row) * c + 8 * jj +
+                                         2 * t4) =
+                sr_wgmma::pack(o[4 * jj + 2 * hf], o[4 * jj + 2 * hf + 1]);
+        }
+      }
+    }
+  }
+}
+
+template <int D>
+int launch_stream(const void* q, const void* k, const void* v, void* out,
+                  int b, int nq, int nk, int heads, int ctas_per_pair,
+                  cudaStream_t stream) {
+  auto kernel = sr_attention_fwd_wgmma_stream_kernel<D>;
+  static std::atomic<uint32_t> opted{0};
+  cudaError_t err = opt_in_smem(kernel, opted);
+  if (err != cudaSuccess) return int(err);
+  const int tiles = (nq + kTileQ - 1) / kTileQ;
+  const int64_t grid = int64_t(b) * heads * ctas_per_pair;
+  if (ctas_per_pair < 1 || ctas_per_pair > tiles || grid > INT_MAX)
+    return int(cudaErrorInvalidValue);
+  const int c = heads * D;
+  CUtensorMap maps[3];
+  if (!encode_map<D>(&maps[0], q, b, nq, c, kTileQ) ||
+      !encode_map<D>(&maps[1], k, b, nk, c, kStreamKeys) ||
+      !encode_map<D>(&maps[2], v, b, nk, c, kStreamKeys))
+    return int(cudaErrorInvalidValue);
+  kernel<<<int(grid), kWgThreads, StreamLayout(D).total, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<bf16*>(out), nq, nk, heads,
+      tiles, ctas_per_pair, 1.4426950408889634f / sqrtf(float(D)));
+  return int(cudaGetLastError());
+}
+
 
 // ---- float32: the 3xTF32 wgmma + TMA kernel ----
 
@@ -808,15 +1096,13 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int b,
 extern "C" {
 
 // Bytes of dynamic shared memory one CTA needs (elem: 4 the float32
-// kernel, any Nk; 2 the bfloat16 one).
+// kernel; 2 the bfloat16 one, streaming past kMaxNkBf16 keys). Every
+// kernel takes any Nk within them.
 size_t sr_attention_fwd_smem_bytes(int nk, int d, int elem) {
-  return elem == 4 ? F32Layout(d).total
-                   : WgLayout(d, nk <= 16 * 16 ? 16 : kMaxKeyTiles).total;
+  if (elem == 4) return F32Layout(d).total;
+  if (nk > kMaxNkBf16) return StreamLayout(d).total;
+  return WgLayout(d, nk <= 16 * 16 ? 16 : kMaxKeyTiles).total;
 }
-
-// The most keys the kernel for `elem`-byte inputs takes; 0: no limit (the
-// float32 kernel streams K and V).
-int sr_attention_fwd_max_nk(int elem) { return elem == 4 ? 0 : kMaxNkBf16; }
 
 // How many CTAs of the bfloat16 kernel for (nk, d) fit an SM of the current
 // device; a negative cudaError_t if the query fails.
@@ -833,22 +1119,28 @@ int sr_attention_fwd_wgmma_ctas_per_sm(int nk, int d) {
 }
 
 // dtype: 0 float32 (the 3xTF32 kernel over b * heads * ctas_per_pair CTAs,
-// as ops/sr_attention.py's launch plan sets it), 1 bfloat16 (the bf16
-// kernel, one CTA an SM; ctas_per_pair unused). q, k, v and out are
-// 16-byte aligned. Returns a cudaError_t (0 on success); 1
-// (cudaErrorInvalidValue) for a shape or type the kernel does not take.
+// as ops/sr_attention.py's launch plan sets it), 1 bfloat16 (up to
+// kMaxNkBf16 keys the bf16 kernel, one CTA an SM, ctas_per_pair unused;
+// past them the streaming kernel over b * heads * ctas_per_pair CTAs). q,
+// k, v and out are 16-byte aligned. Returns a cudaError_t (0 on success);
+// 1 (cudaErrorInvalidValue) for a shape or type the kernels do not take.
 int sr_attention_fwd(const void* q, const void* k, const void* v, void* out,
                      int b, int nq, int nk, int c, int heads, int dtype,
                      int ctas_per_pair, void* stream) {
   const int d = c / heads;
-  if (b < 1 || nq < 1 || nk < 1 || d * heads != c ||
-      (dtype == 1 && nk > kMaxNkBf16))
+  if (b < 1 || nq < 1 || nk < 1 || d * heads != c)
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && d == 32)
     return launch_f32<32>(q, k, v, out, b, nq, nk, heads, ctas_per_pair, s);
   if (dtype == 0 && d == 64)
     return launch_f32<64>(q, k, v, out, b, nq, nk, heads, ctas_per_pair, s);
+  if (dtype == 1 && nk > kMaxNkBf16 && d == 32)
+    return launch_stream<32>(q, k, v, out, b, nq, nk, heads, ctas_per_pair,
+                             s);
+  if (dtype == 1 && nk > kMaxNkBf16 && d == 64)
+    return launch_stream<64>(q, k, v, out, b, nq, nk, heads, ctas_per_pair,
+                             s);
   if (dtype == 1 && d == 32)
     return dispatch_wgmma<32>(q, k, v, out, b, nq, nk, heads, s);
   if (dtype == 1 && d == 64)

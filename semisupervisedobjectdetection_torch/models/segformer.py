@@ -52,8 +52,6 @@ from torch.utils.checkpoint import checkpoint
 from semisupervisedobjectdetection_torch.core.config import MiTConfig
 from semisupervisedobjectdetection_torch.ops.sr_attention import (
     HEAD_DIMS,
-    MAX_NK,
-    max_nk,
     sr_attention,
     sr_attention_reference,
 )
@@ -154,21 +152,12 @@ def check_attention_kernels(cfg: MiTConfig, h: int, w: int,
                             device: torch.device) -> None:
     """Raise ValueError, before a model is built, when `cfg` at h x w would
     send the SR-attention kernels shapes they refuse on `device` (a CUDA
-    device with `attn_impl="kernel"`): a head width outside `HEAD_DIMS`, or
-    in bfloat16 Nk above `MAX_NK` (the float32 kernels take any Nk).
-    Nothing falls back to the plain attention."""
+    device with `attn_impl="kernel"`): a head width outside `HEAD_DIMS`.
+    The kernels of both dtypes take any Nk. Nothing falls back to the plain
+    attention."""
     if torch.device(device).type != "cuda" or cfg.attn_impl != "kernel":
         return
-    limit = max_nk(compute_dtype(cfg))
-    for i, (_, nk, d) in enumerate(attention_shapes(cfg, h, w)):
-        if limit is not None and nk > limit:
-            prompt, cls = cfg.prompt_tokens[i], cfg.cls_tokens[i]
-            raise ValueError(
-                f"stage {i}: SR-attention over Nk={nk} keys "
-                f"({nk - prompt - cls} reduced tokens + {prompt} prompt + "
-                f"{cls} CLS) at {h}x{w}; the kernels take Nk <= {MAX_NK} "
-                "(a K/V loop that lifts the limit is ROADMAP.md Queue 2 "
-                "work)")
+    for i, (_, _, d) in enumerate(attention_shapes(cfg, h, w)):
         if d not in HEAD_DIMS:
             raise ValueError(f"stage {i}: head width {d}; the SR-attention "
                              f"kernels take {HEAD_DIMS}")

@@ -26,11 +26,13 @@ _SOURCE = "sr_attention_fwd.cu"
 _BWD_SOURCE = "sr_attention_bwd.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64)
-# The most keys the bfloat16 kernels take (`kMaxNkBf16` in both sources):
-# one (batch, head)'s K and V sit on chip and the score row of a query tile
-# sits in registers (the forward's 64-row tile: 18 tiles of 16 keys). The
-# float32 kernels stream K and V in blocks and take any Nk (`max_nk`).
-MAX_NK = 288
+# The most keys the on-chip bfloat16 kernels hold (`kMaxNkBf16` in both
+# sources): one (batch, head)'s K and V sit on chip and the score row of a
+# query tile sits in registers (the forward's 64-row tile: 18 tiles of 16
+# keys). Past them the bfloat16 streaming kernels run, which, like the
+# float32 kernels, stream K and V in blocks: every kernel family takes any
+# Nk.
+BF16_ON_CHIP_NK = 288
 # The bfloat16 backward (the wgmma kernel) walks 64-row query tiles, one
 # CTA an SM; the H100's SM count is the CPU's stand-in for the card's.
 BWD_WGMMA_ROW_TILE = 64
@@ -43,16 +45,18 @@ F32_KEY_BLOCK = 64
 F32_KEY_PASS_ROWS = 32
 # Opt-in shared memory a block may use on Hopper (227 KB).
 MAX_SMEM_BYTES = 232448
-# The kernel a forward call of each dtype launches (`csrc/sr_attention_fwd.cu`):
-# the kernel follows the dtype alone.
+# The kernel a forward call of each dtype launches (`csrc/sr_attention_fwd.cu`)
+# up to `BF16_ON_CHIP_NK` keys; past them bfloat16 launches
+# `FWD_STREAM_KERNEL`.
 FWD_KERNELS = {torch.bfloat16: "sr_attention_fwd_wgmma_kernel",
                torch.float32: "sr_attention_fwd_f32_kernel"}
+FWD_STREAM_KERNEL = "sr_attention_fwd_wgmma_stream_kernel"
 
 
-def max_nk(dtype: torch.dtype):
-    """The most keys the kernels for `dtype` take: `MAX_NK` for bfloat16,
-    None (no limit) for float32."""
-    return MAX_NK if dtype == torch.bfloat16 else None
+def streams_bf16(dtype: torch.dtype, nk: int) -> bool:
+    """Whether a bfloat16 call at `nk` keys runs the streaming kernels (the
+    forward's two sweeps, the backward's row and key passes)."""
+    return dtype == torch.bfloat16 and nk > BF16_ON_CHIP_NK
 
 
 def _split(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -123,8 +127,6 @@ def declare_fwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sr_attention_fwd.restype = ctypes.c_int
     lib.sr_attention_fwd_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.sr_attention_fwd_smem_bytes.restype = ctypes.c_size_t
-    lib.sr_attention_fwd_max_nk.argtypes = [ctypes.c_int]
-    lib.sr_attention_fwd_max_nk.restype = ctypes.c_int
     lib.sr_attention_fwd_wgmma_ctas_per_sm.argtypes = [ctypes.c_int] * 2
     lib.sr_attention_fwd_wgmma_ctas_per_sm.restype = ctypes.c_int
     lib.sr_attention_fwd_error_string.argtypes = [ctypes.c_int]
@@ -150,31 +152,29 @@ def declare_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
         + [launched, ctypes.c_void_p])
     lib.sr_attention_bwd_wgmma.restype = ctypes.c_int
+    if hasattr(lib, "sr_attention_bwd_wgmma_stream"):  # absent before it
+        lib.sr_attention_bwd_wgmma_stream.argtypes = \
+            lib.sr_attention_bwd.argtypes
+        lib.sr_attention_bwd_wgmma_stream.restype = ctypes.c_int
     lib.sr_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.sr_attention_bwd_smem_bytes.restype = ctypes.c_size_t
-    lib.sr_attention_bwd_max_nk.argtypes = [ctypes.c_int]
-    lib.sr_attention_bwd_max_nk.restype = ctypes.c_int
     lib.sr_attention_bwd_error_string.argtypes = [ctypes.c_int]
     lib.sr_attention_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def _fwd_limits(nk: int, d: int, elem: int):
-    """(shared-memory bytes per block, largest Nk or None) of the forward
-    kernel for `elem`-byte inputs."""
-    lib = _lib()
-    return (lib.sr_attention_fwd_smem_bytes(nk, d, elem),
-            lib.sr_attention_fwd_max_nk(elem) or None)
+def _fwd_limits(nk: int, d: int, elem: int) -> int:
+    """Shared-memory bytes per block of the forward kernel for `elem`-byte
+    inputs at `nk` keys."""
+    return _lib().sr_attention_fwd_smem_bytes(nk, d, elem)
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_limits(nk: int, d: int, elem: int):
-    """(shared-memory bytes per block, largest Nk or None) of the backward
-    kernels for `elem`-byte inputs."""
-    lib = _bwd_lib()
-    return (lib.sr_attention_bwd_smem_bytes(nk, d, elem),
-            lib.sr_attention_bwd_max_nk(elem) or None)
+def _bwd_limits(nk: int, d: int, elem: int) -> int:
+    """Shared-memory bytes per block of the backward kernels for
+    `elem`-byte inputs at `nk` keys."""
+    return _bwd_lib().sr_attention_bwd_smem_bytes(nk, d, elem)
 
 
 def _launch(fn, device: torch.device, *args) -> int:
@@ -200,10 +200,11 @@ def _check(q, k, v, num_heads: int) -> None:
         raise ValueError("sr_attention needs at least one key")
 
 
-def _check_kernel_inputs(name: str, tensors, num_heads: int, smem: int,
-                         max_keys) -> None:
+def _check_kernel_inputs(name: str, tensors, num_heads: int,
+                         smem: int) -> None:
     """Raise for what a kernel does not take: the dtype, the head width,
-    the device, the layout, and Nk beyond the shared memory of a block."""
+    the device, the layout, and a block's shared memory beyond the card's
+    (no kernel's grows with Nk)."""
     q = tensors[0][1]
     nk = tensors[1][1].shape[1]
     d = q.shape[2] // num_heads
@@ -221,11 +222,11 @@ def _check_kernel_inputs(name: str, tensors, num_heads: int, smem: int,
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{tname} must be contiguous and 16-byte "
                              "aligned")
-    if (max_keys is not None and nk > max_keys) or smem > MAX_SMEM_BYTES:
+    if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"{name} kernel: Nk={nk} keys at head width {d} ({q.dtype}) "
-            f"need {smem} bytes of shared memory per block; the kernel "
-            f"takes Nk <= {max_keys} within {MAX_SMEM_BYTES} bytes")
+            f"need {smem} bytes of shared memory per block, more than "
+            f"{MAX_SMEM_BYTES}")
 
 
 def f32_ctas_per_pair(b: int, nq: int, num_heads: int,
@@ -238,23 +239,20 @@ def f32_ctas_per_pair(b: int, nq: int, num_heads: int,
     return max(1, min(tiles, sms // (b * num_heads)))
 
 
-@functools.lru_cache(maxsize=None)
-def bwd_f32_plan(b: int, nq: int, nk: int, c: int, num_heads: int,
-                 sms: int = H100_SMS) -> dict:
-    """The float32 backward's launch (`sr_attention_bwd` in
-    `csrc/sr_attention_bwd.cu`), which takes it as given: the row pass's
-    CTAs per (batch, head) (`f32_ctas_per_pair`); the key pass's grid of
-    (batch, head) x key group (two 64-key blocks, one per consumer) x
-    split (a contiguous range of the pair's 32-row query tiles), with as
+def _pass_plan(b: int, nq: int, nk: int, c: int, num_heads: int, sms: int,
+               key_rows: int, kernels: tuple) -> dict:
+    """A row pass / key pass / split sum launch: the row pass's CTAs per
+    (batch, head) (`f32_ctas_per_pair`); the key pass's grid of (batch,
+    head) x key group (two 64-key blocks, one per consumer) x split (a
+    contiguous range of the pair's `key_rows`-row query tiles), with as
     many splits as fill the SMs once (at least one, at most one per tile);
     the float32 workspaces (row statistics; the splits' dk and dv slots,
     summed in split order by a third kernel where splits > 1) and the
-    kernels one call launches. Cached per shape; callers do not modify the
-    dict."""
+    kernels one call launches (`kernels`: row pass, key pass, sum)."""
     pairs = b * num_heads
     key_blocks = -(-nk // F32_KEY_BLOCK)
     groups = -(-key_blocks // 2)
-    q_tiles = -(-nq // F32_KEY_PASS_ROWS)
+    q_tiles = -(-nq // key_rows)
     splits = max(1, min(q_tiles, sms // (pairs * groups)))
     cpp = f32_ctas_per_pair(b, nq, num_heads, sms)
     return {"row_ctas_per_pair": cpp, "row_grid": pairs * cpp,
@@ -263,9 +261,20 @@ def bwd_f32_plan(b: int, nq: int, nk: int, c: int, num_heads: int,
             "key_grid": pairs * groups * splits,
             "stats_floats": pairs * nq * 4,
             "workspace_floats": splits * 2 * b * nk * c if splits > 1 else 0,
-            "kernels": ("sr_attention_bwd_f32_rows_kernel",
-                        "sr_attention_bwd_f32_keys_kernel")
-            + (("sr_attention_bwd_f32_sum_kernel",) if splits > 1 else ())}
+            "kernels": kernels[:2] + (kernels[2:] if splits > 1 else ())}
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_f32_plan(b: int, nq: int, nk: int, c: int, num_heads: int,
+                 sms: int = H100_SMS) -> dict:
+    """The float32 backward's launch (`sr_attention_bwd` in
+    `csrc/sr_attention_bwd.cu`), which takes it as given: `_pass_plan` over
+    32-row key-pass query tiles. Cached per shape; callers do not modify
+    the dict."""
+    return _pass_plan(b, nq, nk, c, num_heads, sms, F32_KEY_PASS_ROWS,
+                      ("sr_attention_bwd_f32_rows_kernel",
+                       "sr_attention_bwd_f32_keys_kernel",
+                       "sr_attention_bwd_f32_sum_kernel"))
 
 
 def bwd_f32_key_work(plan: dict, pairs: int):
@@ -308,7 +317,18 @@ def bwd_launch_plan(b: int, nq: int, nk: int, c: int, num_heads: int,
     dv. The launcher takes the plan's grid and launches that second kernel
     where the plan gives it a workspace: this function is the one place
     that decides both. Cached per shape (a training step asks for the same
-    few shapes every step); callers do not modify the dict."""
+    few shapes every step); callers do not modify the dict.
+
+    Past `BF16_ON_CHIP_NK` keys (`"stream": True`) the call runs the
+    streaming kernels (`sr_attention_bwd_wgmma_stream`): `_pass_plan` over
+    64-row key-pass query tiles, the float32 plan's layout."""
+    if nk > BF16_ON_CHIP_NK:
+        return dict(_pass_plan(b, nq, nk, c, num_heads, sms,
+                               BWD_WGMMA_ROW_TILE,
+                               ("sr_attention_bwd_wgmma_rows_kernel",
+                                "sr_attention_bwd_wgmma_keys_kernel",
+                                "sr_attention_bwd_wgmma_sum_kernel")),
+                    stream=True)
     tiles = -(-nq // BWD_WGMMA_ROW_TILE)
     pairs = b * num_heads
     total = pairs * tiles
@@ -317,7 +337,8 @@ def bwd_launch_plan(b: int, nq: int, nk: int, c: int, num_heads: int,
         grid = pairs
     bounds = [x * total // grid for x in range(grid + 1)]
     split = any(x % tiles for x in bounds[1:-1])
-    return {"grid": grid, "tiles_per_pair": tiles, "tiles": total,
+    return {"stream": False, "grid": grid, "tiles_per_pair": tiles,
+            "tiles": total,
             "cta_tiles": [e - s for s, e in zip(bounds, bounds[1:])],
             "split": split,
             "workspace_floats": grid * 2 * 2 * nk * (c // num_heads)
@@ -340,7 +361,7 @@ def _device_of(q: torch.Tensor) -> str:
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              num_heads: int) -> torch.Tensor:
     """The forward: the plain version on a CPU tensor, else one launch of
-    `csrc/sr_attention_fwd.cu`'s kernel for q's dtype (counted in
+    `csrc/sr_attention_fwd.cu`'s kernel for q's dtype and Nk (counted in
     `sr_attention.launches`, the bfloat16 kernel's also in
     `sr_attention.mma_launches`)."""
     if _device_of(q) == "cpu":
@@ -350,10 +371,11 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _lib()
     _check_kernel_inputs(
         "sr_attention", (("q", q), ("k", k), ("v", v)), num_heads,
-        *_fwd_limits(nk, c // num_heads, q.element_size()))
+        _fwd_limits(nk, c // num_heads, q.element_size()))
     bf16 = q.dtype == torch.bfloat16
-    cpp = 0 if bf16 else f32_ctas_per_pair(b, nq, num_heads,
-                                          _sm_count(q.device.index))
+    on_chip = bf16 and not streams_bf16(q.dtype, nk)
+    cpp = 0 if on_chip else f32_ctas_per_pair(b, nq, num_heads,
+                                              _sm_count(q.device.index))
     out = torch.empty_like(q)
     err = _launch(lib.sr_attention_fwd, q.device, q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), out.data_ptr(), b, nq, nk, c, num_heads,
@@ -366,6 +388,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"{q.dtype})")
     sr_attention.launches += 1
     sr_attention.mma_launches += bf16
+    sr_attention.stream_launches += bf16 and not on_chip
     return out
 
 
@@ -378,18 +401,21 @@ def sr_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Replaces the Pallas TPU kernel
     `semisupervisedobjectdetection_tpu/ops/sr_attention.py::_bwd_kernel`.
     On a CUDA tensor it launches `csrc/sr_attention_bwd.cu`'s kernels for
-    q's dtype (float32 or bfloat16, head width 32 or 64; bfloat16 up to
-    `MAX_NK` keys, float32 any Nk) or raises; on a CPU tensor it computes
-    `sr_attention_backward_reference`.
+    q's dtype and Nk (float32 or bfloat16, head width 32 or 64, any Nk) or
+    raises; on a CPU tensor it computes `sr_attention_backward_reference`.
 
     What bounds it on the H100: 10*B*Nq*Nk*C flops (five products) against
     q, g, dq (B*Nq*C each) and k, v, dk, dv (B*Nk*C each) moved once puts it
     under the flops line at MiT-B5 stages 1-3. Every product runs on wgmma
-    with tiles brought in by TMA. bfloat16 runs one kernel: the row
-    statistics on chip, dk and dv in registers across each CTA's run of
-    query tiles, over the grid of `bwd_launch_plan`; where that grid splits
-    a (batch, head) over CTAs, a second kernel sums their float32 parts in
-    CTA order. float32 splits each product three ways on the TF32 tensor
+    with tiles brought in by TMA. bfloat16 up to `BF16_ON_CHIP_NK` keys
+    runs one kernel: the row statistics on chip, dk and dv in registers
+    across each CTA's run of query tiles, over the grid of
+    `bwd_launch_plan`; where that grid splits a (batch, head) over CTAs, a
+    second kernel sums their float32 parts in CTA order. Past them it
+    streams K and V through a row pass (row statistics to a float32
+    workspace, dq) and a key pass (dk and dv per 64-key M-tile over split
+    ranges of query tiles), with the split sum, as float32 does. float32
+    splits each product three ways on the TF32 tensor
     cores (3xTF32: hi = tf32(x), lo = tf32(x - hi), a b = a_lo b_hi +
     a_hi b_lo + a_hi b_hi, within ~1e-6 of float64; at most 495 / 3 = 165
     TFLOP/s) and streams K and V in blocks, over the grids of
@@ -399,8 +425,9 @@ def sr_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     result is the same every run.
 
     `sr_attention_bwd.launches` counts calls that launched the kernels (not
-    CPU calls); `sr_attention_bwd.last_launches` is the number of kernels
-    the last such call launched, as its C launcher counted them.
+    CPU calls), `sr_attention_bwd.stream_launches` those of the bfloat16
+    streaming kernels; `sr_attention_bwd.last_launches` is the number of
+    kernels the last such call launched, as its C launcher counted them.
     """
     _check(q, k, v, num_heads)
     if g.shape != q.shape:
@@ -413,12 +440,12 @@ def sr_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _bwd_lib()
     _check_kernel_inputs(
         "sr_attention_bwd", (("q", q), ("k", k), ("v", v), ("g", g)),
-        num_heads, *_bwd_limits(nk, c // num_heads, q.element_size()))
+        num_heads, _bwd_limits(nk, c // num_heads, q.element_size()))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
     launched = ctypes.c_int(0)
     sms = _sm_count(q.device.index)
-    if q.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16 and not streams_bf16(q.dtype, nk):
         plan = bwd_launch_plan(b, nq, nk, c, num_heads, sms)
         part = torch.empty(plan["workspace_floats"], dtype=torch.float32,
                            device=q.device)
@@ -428,12 +455,17 @@ def sr_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       part.data_ptr() if plan["split"] else None, b, nq, nk,
                       c, num_heads, plan["grid"], ctypes.byref(launched))
     else:
-        plan = bwd_f32_plan(b, nq, nk, c, num_heads, sms)
+        if q.dtype == torch.bfloat16:
+            plan = bwd_launch_plan(b, nq, nk, c, num_heads, sms)
+            fn = lib.sr_attention_bwd_wgmma_stream
+        else:
+            plan = bwd_f32_plan(b, nq, nk, c, num_heads, sms)
+            fn = lib.sr_attention_bwd
         stats = torch.empty(plan["stats_floats"], dtype=torch.float32,
                             device=q.device)
         part = torch.empty(plan["workspace_floats"], dtype=torch.float32,
                            device=q.device)
-        err = _launch(lib.sr_attention_bwd, q.device, q.data_ptr(),
+        err = _launch(fn, q.device, q.data_ptr(),
                       k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(),
                       dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
                       part.data_ptr() if plan["splits"] > 1 else None, b, nq,
@@ -447,11 +479,13 @@ def sr_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"(B={b}, Nq={nq}, Nk={nk}, C={c}, heads={num_heads}, "
             f"{q.dtype})")
     sr_attention_bwd.launches += 1
+    sr_attention_bwd.stream_launches += streams_bf16(q.dtype, nk)
     sr_attention_bwd.last_launches = launched.value
     return dq, dk, dv
 
 
 sr_attention_bwd.launches = 0
+sr_attention_bwd.stream_launches = 0
 sr_attention_bwd.last_launches = 0
 
 
@@ -490,8 +524,11 @@ def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     TMA, and sum in the tensor cores' order:
 
     - bfloat16: all of a (batch, head)'s K and V on chip and one full-row
-      softmax (Nk up to `MAX_NK`); a small share of its outputs differ from
-      the plain version's by an ulp or two. The function moves
+      softmax up to `BF16_ON_CHIP_NK` keys; past them K and V stream in
+      64-key blocks in two sweeps (the row max and sum, then the normalised
+      p rounded to bf16, the plain version's rounding point, and o += p v).
+      A small share of its outputs differ from the plain version's by an
+      ulp or two. The function moves
       2*B*(Nq+Nk)*C elements and does 4*B*Nq*Nk*C flops, ~250 flops a byte
       at Nk 256 and head width 64 against the card's ~295 for bf16, so at
       MiT-B5 512x512 it sits just under the bytes line.
@@ -501,11 +538,12 @@ def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       within ~1e-6 of float64, far inside the float32 tolerance). Three
       TF32 products per float32 product bound it at 495 / 3 = 165 TFLOP/s,
       which puts MiT-B5's float32 shapes above the bytes line. K and V
-      stream through shared memory in 64-key blocks with an online softmax,
+      stream through shared memory in 32-key blocks with an online softmax,
       so it takes any Nk.
 
     `sr_attention.launches` counts forward kernel launches (not CPU calls),
-    `sr_attention.mma_launches` those of the bfloat16 kernel.
+    `sr_attention.mma_launches` those of the bfloat16 kernels and
+    `sr_attention.stream_launches` those of the bfloat16 streaming kernel.
     """
     _check(q, k, v, num_heads)
     return SRAttention.apply(q, k, v, num_heads)
@@ -513,3 +551,4 @@ def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 sr_attention.launches = 0
 sr_attention.mma_launches = 0
+sr_attention.stream_launches = 0

@@ -168,7 +168,7 @@ def test_best_checkpointer_gate(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--tune"], ["--int8-teacher"], ["--async-checkpoint"],
+    ["--int8-teacher"], ["--async-checkpoint"],
     ["--parallel", "dp"], ["--parallel", "pp"],
     ["--profile-dir", "p"], ["--plot-curves"], ["--ffn-impl", "xla"],
 ], ids=lambda f: " ".join(f))

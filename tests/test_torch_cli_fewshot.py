@@ -181,14 +181,6 @@ def test_grad_accum_refusals_match_jax_cli(flags):
     assert "few-shot" in str(err.value) or "microbatches" in str(err.value)
 
 
-@pytest.mark.parametrize("flags", [["--tune"], ["--tune-lrs", "1e-4"],
-                                   ["--tune-max", "2"]],
-                         ids=["tune", "tune_lrs", "tune_max"])
-def test_tune_is_refused(flags):
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        fewshot.main(CPU + ["--synthetic"] + flags)
-
-
 def test_default_device_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

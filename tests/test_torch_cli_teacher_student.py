@@ -198,7 +198,7 @@ def test_warm_start_of_both_models(tmp_path, monkeypatch, flag, loop):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--tune"], ["--int8-teacher"], ["--async-checkpoint"]],
+    ["--int8-teacher"], ["--async-checkpoint"]],
     ids=lambda f: " ".join(f))
 def test_unported_flags_are_refused_in_the_gradient_loop(flags):
     with pytest.raises(SystemExit, match="ROADMAP"):

@@ -3,8 +3,9 @@ bfloat16 wgmma + TMA kernel, also at every main-path shape, and its float32
 3xTF32 kernel) and `sr_attention_bwd` (its bfloat16 wgmma + TMA kernel,
 also at its edge shapes, and its float32 3xTF32 row pass, key pass and
 split sum), each launching only its design's kernels, against their plain
-versions on the card (also at the few-shot step's shapes, and in float32
-past the bfloat16 limit up to Nk 1024, bit-identical on a rerun),
+versions on the card (also at the few-shot step's shapes, in float32 up
+to Nk 1024, and in bfloat16 past the 288 keys its on-chip kernels hold,
+where its streaming kernels run, up to Nk 1024; bit-identical on a rerun),
 gradients
 through `sr_attention` on CUDA, the launch counts of a small EMA step, a
 train-mode gradient through the kernels, and the augmentation on the card
@@ -20,6 +21,7 @@ import torch
 
 from semisupervisedobjectdetection_torch.ops.sr_attention import (
     FWD_KERNELS,
+    FWD_STREAM_KERNEL,
     bwd_f32_plan,
     bwd_launch_plan,
     sr_attention,
@@ -165,12 +167,15 @@ def test_hopper_forward_at_main_path_shapes(cuda, b, nq, nk, c, h):
 
 
 def test_hopper_forward_refuses_what_it_cannot_run(cuda):
-    """Nk 289 (one key past the cap) and a non-contiguous input raise
-    before any launch."""
+    """A non-contiguous input raises before any launch; Nk 289 (one key
+    past the on-chip kernel's 288) is no longer refused: it launches the
+    streaming kernel, once."""
     before = sr_attention.launches, sr_attention.mma_launches
     q, k, v = _qkv(cuda, 1, 64, 289, 64, torch.bfloat16)
-    with pytest.raises(ValueError, match="shared memory"):
-        sr_attention(q, k, v, 1)
+    _, ran = kernels_launched(lambda: sr_attention(q, k, v, 1),
+                              "sr_attention_fwd")
+    assert ran == [FWD_STREAM_KERNEL]
+    before = before[0] + 1, before[1] + 1
     q, k, v = _qkv(cuda, 1, 64, 96, 128, torch.bfloat16)
     with pytest.raises(ValueError, match="contiguous"):
         sr_attention(q[..., :64], k[..., :64], v[..., :64], 1)
@@ -183,9 +188,6 @@ def test_kernel_rejects_what_it_cannot_run(cuda):
     q, k, v = _qkv(cuda, 1, 16, 8, 48, torch.float32)
     with pytest.raises(ValueError, match="head width"):
         sr_attention(q, k, v, 1)                      # d = 48
-    q, k, v = _qkv(cuda, 1, 16, 300, 64, torch.bfloat16)
-    with pytest.raises(ValueError, match="Nk <= 288"):
-        sr_attention(q, k, v, 1)                      # bf16 nk = 300
     q, k, v = _qkv(cuda, 1, 16, 8, 64, torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         sr_attention(q, k, v, 1)
@@ -339,12 +341,60 @@ def test_bwd_kernel_rejects_what_it_cannot_run(cuda):
     q, k, v = _qkv(cuda, 1, 16, 8, 48, torch.float32)
     with pytest.raises(ValueError, match="head width"):
         sr_attention_bwd(q, k, v, q, 1)               # d = 48
-    q, k, v = _qkv(cuda, 1, 16, 300, 64, torch.bfloat16)
-    with pytest.raises(ValueError, match="Nk <= 288"):
-        sr_attention_bwd(q, k, v, q, 1)               # bf16 nk = 300
     q, k, v = _qkv(cuda, 1, 16, 8, 64, torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         sr_attention_bwd(q, k, v, q, 1)
+
+
+# bfloat16 past the 288 keys its on-chip kernels hold (the streaming
+# forward; the backward's row pass, key pass and split sum): Nk 289 (one
+# key past), 300, 356 (100 prompt tokens at 512x512), 512 and 1024 (stage
+# 1 at 1024x1024), each at head width 64 and 32, Nq off the 64-row tile.
+STREAM_SHAPES = [
+    (2, 1000, 289, 64, 1), (1, 333, 289, 32, 1),
+    (2, 150, 300, 64, 1), (3, 77, 300, 64, 2),
+    (2, 1124, 356, 320, 5), (2, 4196, 356, 128, 4),
+    (1, 1000, 512, 64, 1), (3, 129, 512, 64, 2),
+    (1, 4096, 1024, 64, 1), (2, 100, 1024, 256, 8),
+]
+
+
+@pytest.mark.parametrize("b,nq,nk,c,h", STREAM_SHAPES)
+def test_bf16_streaming_kernels_past_288_keys(cuda, b, nq, nk, c, h):
+    """The bfloat16 forward and backward past 288 keys against their plain
+    versions (KERNEL_TOL bf16 1e-2; KERNEL_BWD_TOL bf16 2e-2 of the largest
+    gradient), bit-identical on a rerun, each call counted once in its
+    counters, launching the kernels of its plan as the profiler saw them
+    run on the card (their number the C launcher's count)."""
+    q, k, v = _qkv(cuda, b, nq, nk, c, torch.bfloat16)
+    g = _qkv(cuda, b, nq, nk, c, torch.bfloat16, seed=1)[0]
+    before = (sr_attention.launches, sr_attention.stream_launches,
+              sr_attention_bwd.launches, sr_attention_bwd.stream_launches)
+    out = sr_attention(q, k, v, h)
+    again, ran = kernels_launched(lambda: sr_attention(q, k, v, h),
+                                  "sr_attention_fwd")
+    assert ran == [FWD_STREAM_KERNEL]
+    got = sr_attention_bwd(q, k, v, g, h)
+    again_bwd, ran = kernels_launched(
+        lambda: sr_attention_bwd(q, k, v, g, h), "sr_attention_bwd")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = bwd_launch_plan(b, nq, nk, c, h, sms)
+    assert plan["stream"] and tuple(ran) == plan["kernels"]
+    assert sr_attention_bwd.last_launches == len(ran)
+    assert (sr_attention.launches, sr_attention.stream_launches,
+            sr_attention_bwd.launches, sr_attention_bwd.stream_launches) \
+        == tuple(n + 2 for n in before)
+    assert torch.equal(out, again)
+    ref = sr_attention_reference(q, k, v, h)
+    assert (out.float() - ref.float()).abs().max().item() <= \
+        TOL[torch.bfloat16]
+    for a, a2, r, x in zip(got, again_bwd,
+                           sr_attention_backward_reference(q, k, v, g, h),
+                           (q, k, v)):
+        assert a.dtype == torch.bfloat16 and a.shape == x.shape
+        assert bool(torch.isfinite(a).all())
+        assert torch.equal(a, a2)
+        assert _rel_err(a, r) <= BWD_TOL[torch.bfloat16]
 
 
 # The float32 kernels (3xTF32, K/V streamed) past the bfloat16 limit and at

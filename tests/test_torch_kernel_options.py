@@ -2,7 +2,8 @@
 `ops/_build.py` follows the headers a source includes; the forward's kernel
 follows the dtype of the tensors a model sends it (training and serving
 models, in bfloat16 and float32); the kernel-shape refusals follow the
-config's dtype (bfloat16 refuses Nk > 288, float32 takes any Nk);
+config's head width alone (both dtypes take any Nk: bfloat16 streams K/V
+past 288 keys); the bfloat16 forward's kernel follows Nk;
 `utils/serve_gate.py` reads the serving paths on the CPU.
 No JAX: these run in well under a second each."""
 
@@ -16,10 +17,14 @@ from semisupervisedobjectdetection_torch.core.config import MiTConfig, mit_b5
 from semisupervisedobjectdetection_torch.models.segformer import (
     EfficientSelfAttention,
     SegFormer,
+    attention_shapes,
     check_attention_kernels,
 )
 from semisupervisedobjectdetection_torch.ops import _build
 from semisupervisedobjectdetection_torch.ops import sr_attention as sra
+from semisupervisedobjectdetection_torch.ops.sr_attention import (
+    bwd_launch_plan,
+)
 from semisupervisedobjectdetection_torch.train.common import forward_masks
 from semisupervisedobjectdetection_torch.utils import serve_gate
 
@@ -110,18 +115,50 @@ def test_serving_model_takes_the_hopper_forward_in_bf16(dtype, monkeypatch):
 def test_kernel_refusals_follow_the_dtype(dtype, size, tokens):
     """`check_attention_kernels` on a CUDA device (it reads only the device
     type): MiT-B5 with 100 prompt tokens per stage at 512x512 (Nk 356) and
-    at 1024x1024 (Nk 1024 at stage 1) passes in float32, whose kernels take
-    any Nk, and is refused in bfloat16 with the bf16 limit's message."""
+    at 1024x1024 (Nk 1024 at stage 1) passes in both dtypes: float32
+    streams K/V in blocks, and so does bfloat16 past 288 keys."""
     cfg = mit_b5(dtype=dtype, prompt_tokens=(tokens,) * 4)
-    device = torch.device("cuda")
-    if dtype == "float32":
-        check_attention_kernels(cfg, size, size, device)
-        return
     nk = 256 + tokens if size == 512 else 1024
-    with pytest.raises(ValueError,
-                       match=f"stage 0: SR-attention over Nk={nk} keys .*"
-                             f"the kernels take Nk <= {sra.MAX_NK}"):
-        check_attention_kernels(cfg, size, size, device)
+    assert attention_shapes(cfg, size, size)[0][1] == nk
+    check_attention_kernels(cfg, size, size, torch.device("cuda"))
+
+
+@pytest.mark.parametrize("tokens", [40, 100, 768])
+def test_bf16_check_takes_any_nk_on_cuda(tokens):
+    """bfloat16 at Nk 296, 356 and 1024 (40, 100 and 768 prompt tokens per
+    stage at 512x512): the check that refused Nk > 288 takes them all."""
+    cfg = mit_b5(dtype="bfloat16", prompt_tokens=(tokens,) * 4)
+    assert {nk for _, nk, _ in attention_shapes(cfg, 512, 512)} == {
+        256 + tokens}
+    check_attention_kernels(cfg, 512, 512, torch.device("cuda"))
+
+
+def test_check_still_refuses_a_head_width_outside_head_dims():
+    """A head width the kernels do not take (48) is refused on the card,
+    at any Nk, and taken on the CPU and by the plain attention."""
+    cfg = mit_b5(dtype="bfloat16", prompt_tokens=(100,) * 4).replace(
+        hidden_sizes=(48, 128, 320, 512))
+    assert attention_shapes(cfg, 512, 512)[0][2] == 48 not in sra.HEAD_DIMS
+    with pytest.raises(ValueError, match=r"stage 0: head width 48; the "
+                                         r"SR-attention kernels take \(32, "
+                                         r"64\)"):
+        check_attention_kernels(cfg, 512, 512, torch.device("cuda"))
+    check_attention_kernels(cfg, 512, 512, torch.device("cpu"))
+    check_attention_kernels(cfg.replace(attn_impl="plain"), 512, 512,
+                            torch.device("cuda"))
+
+
+@pytest.mark.parametrize("nk,streams", [(1, False), (288, False),
+                                        (289, True), (1024, True)])
+def test_bf16_forward_kernel_follows_nk(nk, streams):
+    """bfloat16 keeps K/V on chip up to `BF16_ON_CHIP_NK` (288) keys and
+    streams them past it, in both directions (the backward's launch plan
+    says so too); float32 has one design at every Nk."""
+    assert sra.BF16_ON_CHIP_NK == 288
+    assert sra.streams_bf16(torch.bfloat16, nk) == streams
+    assert bwd_launch_plan(2, 100, nk, 64, 1)["stream"] == streams
+    assert not sra.streams_bf16(torch.float32, nk)
+    assert sra.FWD_STREAM_KERNEL == "sr_attention_fwd_wgmma_stream_kernel"
 
 
 def test_serve_gate_readings_on_cpu():

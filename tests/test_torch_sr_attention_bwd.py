@@ -218,3 +218,45 @@ def test_wgmma_launch_plan_fills_the_card(b, nq, nk, c, h, grid, split):
     # a pair is cut exactly where some CTA boundary falls inside it
     bounds = np.cumsum([0] + cta)
     assert split == bool(np.any(bounds[1:-1] % tiles))
+
+
+@pytest.mark.parametrize("b,nq,nk,c,h,splits", [
+    (2, 16428, 300, 64, 1, 22),    # stage 1, a 44-token prefix: Nk 300
+    (16, 16484, 356, 64, 1, 2),    # stage 1 with 100 prompt tokens
+    (16, 1124, 356, 320, 5, 1),    # stage 3 with 100 prompt tokens
+    (1, 65536, 1024, 64, 1, 16),   # stage 1 at 1024x1024 (Nk 1024)
+    (3, 129, 289, 64, 2, 3),       # one key past the on-chip kernel's
+])
+def test_bf16_plan_past_288_keys_streams(b, nq, nk, c, h, splits):
+    """bfloat16 past 288 keys (`bwd_launch_plan` with `"stream": True`):
+    the row pass, the key pass over 64-row query tiles split into as many
+    contiguous ranges as fill the SMs once, and the split sum where there
+    are splits; every (query tile, 64-key M-tile) pair of every (batch,
+    head) covered exactly once, in split order; the workspaces follow the
+    split count. Up to 288 keys the on-chip kernel's plan stays."""
+    plan = bwd_launch_plan(b, nq, nk, c, h)
+    pairs, tiles = b * h, -(-nq // BWD_WGMMA_ROW_TILE)
+    blocks = -(-nk // F32_KEY_BLOCK)
+    assert plan["stream"] and plan["splits"] == splits
+    assert plan["q_tiles"] == tiles and plan["key_blocks"] == blocks
+    assert plan["key_grid"] == pairs * plan["key_groups"] * splits
+    assert plan["key_grid"] <= H100_SMS or splits == 1
+    assert splits == tiles or (pairs * plan["key_groups"] * (splits + 1)
+                               > H100_SMS)
+    seen = {}
+    for pair, kb, first, last in bwd_f32_key_work(plan, pairs):
+        seen.setdefault((pair, kb), []).append((first, last))
+    assert sorted(seen) == [(p, kb) for p in range(pairs)
+                            for kb in range(blocks)]
+    for ranges in seen.values():
+        assert ranges[0][0] == 0 and ranges[-1][1] == tiles - 1
+        assert all(r[1] + 1 == n[0] for r, n in zip(ranges, ranges[1:]))
+    assert plan["stats_floats"] == pairs * nq * 4
+    assert plan["workspace_floats"] == (splits * 2 * b * nk * c
+                                        if splits > 1 else 0)
+    assert plan["kernels"] == ("sr_attention_bwd_wgmma_rows_kernel",
+                               "sr_attention_bwd_wgmma_keys_kernel") + (
+        ("sr_attention_bwd_wgmma_sum_kernel",) if splits > 1 else ())
+    assert not bwd_launch_plan(b, nq, 288, c, h)["stream"]
+    assert bwd_launch_plan(b, nq, 288, c, h)["kernels"][0] == \
+        "sr_attention_bwd_wgmma_kernel"

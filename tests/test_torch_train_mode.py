@@ -11,8 +11,13 @@ the same weights and the same numpy inputs on both sides:
   `remat="full"` recomputes each layer with the masks its forward drew;
 - a 3-step float32 `ema_semi_step(train_mode=True)` at rates 0 follows the
   JAX step at accum 1 and 2: losses, kept counts, and both models' final
-  parameters and BatchNorm statistics.
+  parameters and BatchNorm statistics (the JAX side in a fresh interpreter,
+  tests/_train_mode_ema_main.py).
 """
+
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -36,9 +41,11 @@ from semisupervisedobjectdetection_tpu.train.state import (
 from semisupervisedobjectdetection_torch import losses
 from semisupervisedobjectdetection_torch.checkpoint.convert import (
     state_dict_from_flax,
-    train_state_from_flax,
 )
-from semisupervisedobjectdetection_torch.core.config import MiTConfig
+from semisupervisedobjectdetection_torch.core.config import (
+    MiTConfig,
+    TrainConfig,
+)
 from semisupervisedobjectdetection_torch.models.segformer import (
     SegFormer,
     TrainDraws,
@@ -50,6 +57,7 @@ from semisupervisedobjectdetection_torch.train.common import (
     grads_of,
 )
 from semisupervisedobjectdetection_torch.train.ema import ema_semi_step
+from semisupervisedobjectdetection_torch.train.state import TrainState
 from test_torch_segformer import (  # noqa: F401 (autouse fixture)
     CASES,
     SIZE,
@@ -217,8 +225,54 @@ EMA_TINY = dict(depths=(1, 1, 1, 1), hidden_sizes=(8, 16, 32, 64),
                 num_heads=(1, 2, 4, 8), decoder_hidden=32, **NO_RANDOM)
 
 
+def _ema_inputs(rng):
+    """One step's unlabeled and labeled images and labels."""
+    unl, imgs = (rng.uniform(size=(2, SIZE, SIZE, 3)).astype(np.float32)
+                 for _ in "ui")
+    gt = (rng.uniform(size=(2, SIZE, SIZE)) > 0.6).astype(np.float32)
+    return unl, imgs, gt
+
+
+def jax_ema_trajectory(accum: int) -> dict:
+    """The JAX side of `test_train_mode_ema_trajectory_matches_jax`, run by
+    tests/_train_mode_ema_main.py in a fresh interpreter (the jit of the
+    step is a large new executable, which the XLA:CPU compile cache can
+    abort on in a long-lived worker): the initial weights as the port's
+    state dict, then per step the outputs the test compares, then both
+    models' final parameters and BatchNorm statistics, as numpy arrays."""
+    jcfg = JCfg(**EMA_TINY)
+    cfg = MiTConfig(**EMA_TINY)
+    v = jax_variables(jcfg, seed=12)
+    v["params"]["decode_head"]["classifier"]["bias"][:] = 2.0
+    out = {f"init/{n}": t.numpy() for n, t in state_dict_from_flax(
+        cfg, v["params"], v["batch_stats"]).items()}
+    tc = JTrainConfig()
+    jt = JTrainState.create(v, tc, lr=5e-7)
+    js = JTrainState.create(v, tc, lr=3e-5)
+    rng = np.random.default_rng(13)
+    for step in range(3):
+        unl, imgs, gt = _ema_inputs(rng)
+        jout = jema.ema_semi_step(jt, js, jnp.asarray(unl),
+                                  jnp.asarray(imgs), jnp.asarray(gt),
+                                  jnp.asarray(0.8), jnp.asarray(0.999),
+                                  jcfg, train_mode=True,
+                                  rng=jax.random.PRNGKey(step), accum=accum)
+        jt, js = jout.teacher_state, jout.student_state
+        for i, a in enumerate(jout[2:6]):
+            out[f"step{step}/{i}"] = np.asarray(a, np.float32)
+        out[f"step{step}/kept"] = np.asarray(jout.n_kept, np.float32)
+    out["moved_running_mean"] = np.asarray(
+        _jax_bn(js.batch_stats)[BN + "running_mean"])
+    for name, theirs in (("student", js), ("teacher", jt)):
+        for n, t in state_dict_from_flax(
+                cfg, jax.tree.map(np.asarray, theirs.params),
+                jax.tree.map(np.asarray, theirs.batch_stats)).items():
+            out[f"{name}/{n}"] = t.numpy()
+    return out
+
+
 @pytest.mark.parametrize("accum", [1, 2])
-def test_train_mode_ema_trajectory_matches_jax(accum):
+def test_train_mode_ema_trajectory_matches_jax(accum, tmp_path):
     """3 float32 train-mode steps of `ema_semi_step` at rates 0 against the
     JAX step: the student normalises with batch statistics and keeps their
     running averages (threaded through the microbatches), the teacher
@@ -231,46 +285,43 @@ def test_train_mode_ema_trajectory_matches_jax(accum):
     sides, which Adam scales to a move of about lr per step in either
     direction; they agree to 3 lr (the student's lr is 3e-5). Their
     difference reaches the BatchNorm input's mean through the fuse, so the
-    running means agree to 1e-5."""
-    jcfg = JCfg(**EMA_TINY)
+    running means agree to 1e-5. The JAX side (`jax_ema_trajectory`) runs
+    in a fresh interpreter and hands its arrays over in a file."""
+    path = tmp_path / "jax_trajectory.npz"
+    script = os.path.join(os.path.dirname(__file__),
+                          "_train_mode_ema_main.py")
+    proc = subprocess.run([sys.executable, script, str(accum), str(path)],
+                          capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0 and "train-mode-ema-jax-ok" in proc.stdout, (
+        f"the JAX side failed:\n{proc.stdout[-3000:]}\n"
+        f"{proc.stderr[-3000:]}")
+    ref = dict(np.load(path))
     cfg = MiTConfig(**EMA_TINY)
-    v = jax_variables(jcfg, seed=12)
-    v["params"]["decode_head"]["classifier"]["bias"][:] = 2.0
-    tc = JTrainConfig()
-    jt = JTrainState.create(v, tc, lr=5e-7)
-    js = JTrainState.create(v, tc, lr=3e-5)
-    teacher = train_state_from_flax(cfg, jt)
-    student = train_state_from_flax(cfg, js)
+    init = {n[len("init/"):]: torch.from_numpy(a) for n, a in ref.items()
+            if n.startswith("init/")}
+    states = []
+    for lr in (5e-7, 3e-5):
+        model = SegFormer(cfg)
+        model.load_state_dict(init, strict=True)
+        states.append(TrainState.create(model, TrainConfig(), lr=lr))
+    teacher, student = states
     rng = np.random.default_rng(13)
     for step in range(3):
-        unl, imgs = (rng.uniform(size=(2, SIZE, SIZE, 3)).astype(np.float32)
-                     for _ in "ui")
-        gt = (rng.uniform(size=(2, SIZE, SIZE)) > 0.6).astype(np.float32)
-        jout = jema.ema_semi_step(jt, js, jnp.asarray(unl),
-                                  jnp.asarray(imgs), jnp.asarray(gt),
-                                  jnp.asarray(0.8), jnp.asarray(0.999),
-                                  jcfg, train_mode=True,
-                                  rng=jax.random.PRNGKey(step), accum=accum)
-        jt, js = jout.teacher_state, jout.student_state
+        unl, imgs, gt = _ema_inputs(rng)
         out = ema_semi_step(teacher, student, _t(unl), _t(imgs), _t(gt),
                             0.8, 0.999, train_mode=True, accum=accum,
                             generator=torch.Generator().manual_seed(step))
-        for a, b in zip(out[2:6], jout[2:6]):
-            _close(a, b, atol=2e-6, rtol=1e-5)
-        assert float(out.n_kept) == float(jout.n_kept) == 2.0
-    moved = _jax_bn(js.batch_stats)
-    assert not np.allclose(moved[BN + "running_mean"],
-                           v["batch_stats"]["decode_head"]["batch_norm"]
-                           ["mean"])
+        for i, a in enumerate(out[2:6]):
+            _close(a, ref[f"step{step}/{i}"], atol=2e-6, rtol=1e-5)
+        assert float(out.n_kept) == float(ref[f"step{step}/kept"]) == 2.0
+    assert not np.allclose(ref["moved_running_mean"],
+                           init[BN + "running_mean"].numpy())
     shift_only = {f"decode_head.linear_c.{i}.proj.bias" for i in range(4)}
-    for ours, theirs, atol in ((student, js, 2e-6), (teacher, jt, 1e-8)):
-        ref = state_dict_from_flax(cfg, jax.tree.map(np.asarray,
-                                                     theirs.params),
-                                   jax.tree.map(np.asarray,
-                                                theirs.batch_stats))
+    for ours, name, atol in ((student, "student", 2e-6),
+                             (teacher, "teacher", 1e-8)):
         for n, p in ours.params.items():
             tol = 3 * 3e-5 * (atol / 2e-6) if n in shift_only else atol
-            _close(p, ref[n], atol=tol, rtol=1e-6, err_msg=n)
+            _close(p, ref[f"{name}/{n}"], atol=tol, rtol=1e-6, err_msg=n)
         for n, b in ours.batch_stats.items():
-            _close(b, ref[n], atol=1e-5, rtol=1e-5, err_msg=n)
+            _close(b, ref[f"{name}/{n}"], atol=1e-5, rtol=1e-5, err_msg=n)
     assert int(student.count) == 3
