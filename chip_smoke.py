@@ -12,14 +12,18 @@ non-zero before the final line:
                 spills (from `-Xptxas -v`) and its count of tensor-core
                 instructions (HMMA, HGMMA) in the SASS of the built library
                 (`cuobjdump --dump-sass`), ptxas's warnings, each design's
-                shared memory (none grows with Nk: every kernel takes any
-                Nk) and K1's bf16 CTAs per SM. Every tensor-core kernel
-                must show HGMMA and no HMMA, and neither a stack frame nor
-                spills: K1's and K2's bf16 wgmma kernels (four
-                instantiations each), the bf16 streaming kernels past 288
-                keys (K1's, K2's row and key passes: two each, d 32/64),
-                K1's float32 3xTF32 kernel and K2's float32 row and key
-                passes (two each).
+                shared memory (every design within a block's 227 KB at any
+                Nk, none growing with Nk past 576 keys, where K1's split
+                kernel, which holds K/V whole, hands over to its two-sweep
+                kernel) and K1's bf16 CTAs per SM. Every
+                tensor-core kernel must show HGMMA and no HMMA, and neither
+                a stack frame nor spills: K1's and K2's bf16 wgmma kernels
+                (four instantiations each), the bf16 kernels past 288 keys
+                (K1's split kernel, d 32/64 by 12 or 18 key tiles a
+                consumer, and its two-sweep kernel; K2's split and
+                two-sweep row passes and its key pass; d 32/64 each),
+                K1's float32 3xTF32 kernel and K2's
+                float32 row and key passes (two each).
 3. kernel     - `sr_attention_fwd` (K1) against its plain PyTorch version:
                 the bf16 kernel at the four MiT-B5 512x512 stage shapes at
                 batch 8 (serving), 16 (student) and 32 (teacher), at two
@@ -31,9 +35,12 @@ non-zero before the final line:
                 shapes at batch 2, and past the bf16 limit at batch 2 at the
                 four Nk-356 shapes (100 prompt tokens per stage) and at Nk
                 300, and at Nk 1024 (stage 1 at 1024x1024) at batch 1; the
-                bf16 streaming kernel past 288 keys at Nk 300 (batch 2), the
-                Nk-356 shapes (batch 16, the transfer grid's 100-token
-                point) and Nk 1024 (batch 1): max
+                bf16 kernels past 288 keys (the split kernel up to 576, the
+                two-sweep kernel past it) at Nk 300 (batch 2), the Nk-356
+                shapes (batch 16, the transfer grid's 100-token point), Nk
+                1024 (batch 1) and, at batch 2, the most keys the split
+                kernels hold and one more (576 and 577 at head width 64
+                and 32, 384 and 385 at 64): max
                 abs error against a stated tolerance, bit-equal reruns, the
                 error against float64, and CUDA-event device times (queued
                 behind a sleep kernel, so not paced by the host) of the
@@ -51,8 +58,9 @@ non-zero before the final line:
                 and in float32 at batch 2 at the transfer shapes, the Nk-356
                 shapes and Nk 300, and at Nk 1024 at batch 1, and in bf16
                 past 288 keys (the streaming row pass, key pass and split
-                sum) at Nk 300 (batch 2), the Nk-356 shapes (batch 16) and
-                Nk 1024 (batch 1): max error
+                sum) at Nk 300 (batch 2), the Nk-356 shapes (batch 16), Nk
+                1024 (batch 1) and the six split-boundary rows: max
+                error
                 against a stated tolerance (float32 also against float64),
                 bit-equality of two launches, the kernels one call launched
                 as the profiler saw them against its launch plan's (bf16:
@@ -367,6 +375,12 @@ NK356_SHAPES = tuple((nq + t, nk + t, c, h) for (nq, nk, c, h), t
 # stage 1 (Nk 300), and stage 1 of a 1024x1024 input (Nq 65536, Nk 1024).
 NK300_SHAPE = (16384 + 44, 300, 64, 1)
 NK1024_SHAPE = (65536, 1024, 64, 1)
+# The split kernels hold a score row over both consumers up to 576 keys
+# (K1) and 384 (K2's row pass); past them two sweeps stream K/V: the last
+# Nk of each and the next, at head width 64 and 32, at batch 2.
+SPLIT_EDGE_SHAPES = ((1000, 576, 64, 1), (1000, 577, 64, 1),
+                     (500, 576, 64, 2), (500, 577, 64, 2),
+                     (1000, 384, 64, 1), (1000, 385, 64, 1))
 FROZEN_PREFIXES = tuple(f"segformer.encoder.block.{i}."
                         for i in TRANSFER_FROZEN)
 # The gradient teacher-student steps at the flagship point (ts_step): a
@@ -634,7 +648,8 @@ def _demangle(symbols):
     if len(out) != len(symbols):
         return dict(zip(symbols, symbols))
     return {sym: re.sub(r"^void |\(anonymous namespace\)::|<unnamed>::|"
-                        r"\(int\)", "", name).split("(")[0]
+                        r"\(int\)", "", name.replace("(bool)0", "false")
+                        .replace("(bool)1", "true")).split("(")[0]
             for sym, name in zip(symbols, out)}
 
 
@@ -644,7 +659,7 @@ def _design(sym: str) -> str:
     wgmma too), or a split sum."""
     if "_wgmma_kernel" in sym:
         return "wgmma"
-    if re.search(r"_wgmma_(stream|rows|keys)_kernel", sym):
+    if re.search(r"_wgmma_(stream|split|split_rows|rows|keys)_kernel", sym):
         return "wgmma_stream"
     if "_f32_" in sym and "_sum_" not in sym:
         return "3xtf32"
@@ -666,16 +681,19 @@ def phase_build():
         lib, bwd = [f.result() for f in [pool.submit(_lib),
                                          pool.submit(_bwd_lib)]]
     seconds = time.perf_counter() - t0
-    # every kernel takes any Nk: no design's shared memory grows with it
-    # (bf16 holds K/V on chip up to 288 keys and streams them past)
-    smem_nk = {(i, d, elem): {fn(nk, d, elem) for nk in (289, 356, 1024,
-                                                         65536)}
+    # every kernel takes any Nk within a block's shared memory, and past
+    # the keys the split kernels hold whole (K1 576, K2's row pass 384) no
+    # design's grows with Nk
+    smem_nk = {(i, d, elem): [fn(nk, d, elem) for nk in (289, 356, 576,
+                                                         577, 1024, 65536)]
                for i, fn in enumerate((lib.sr_attention_fwd_smem_bytes,
                                        bwd.sr_attention_bwd_smem_bytes))
                for d in (32, 64) for elem in (2, 4)}
-    if any(len(v) != 1 or max(v) > MAX_SMEM_BYTES
-           for v in smem_nk.values()):
-        raise AssertionError(f"shared memory grows with Nk: {smem_nk}")
+    if any(max(v) > MAX_SMEM_BYTES or len(set(v[3:])) != 1
+           or elem == 4 and len(set(v)) != 1
+           for (i, _, elem), v in smem_nk.items()):
+        raise AssertionError(f"shared memory beyond a block's or growing "
+                             f"with Nk: {smem_nk}")
     rows = []
     for source in (_SOURCE, _BWD_SOURCE):
         info = _build.BUILD_INFO[source]
@@ -686,8 +704,9 @@ def phase_build():
                     lib.sr_attention_fwd_smem_bytes(nk, 64, elem)
                     for nk in (256, 266) for name, elem in (
                         ("bf16_wgmma", 2), ("f32_3xtf32", 4))}
-            smem["nk356_d64_bf16_wgmma_stream"] = \
-                lib.sr_attention_fwd_smem_bytes(356, 64, 2)
+            smem.update({f"nk{nk}_d64_bf16_wgmma_stream":
+                         lib.sr_attention_fwd_smem_bytes(nk, 64, 2)
+                         for nk in (356, 576, 577)})
             # the wgmma kernel's CTAs per SM (shared memory and its 384
             # threads at 168 registers allow one)
             extra["wgmma_ctas_per_sm"] = {
@@ -720,11 +739,12 @@ def phase_build():
             rows.append(row)
     # every tensor-core kernel on wgmma (HGMMA and no HMMA): K1's and K2's
     # bf16 kernels, four instantiations each (d 32/64 by Nk <= 256/288);
-    # past 288 keys K1's bf16 streaming kernel and K2's streaming row and
-    # key passes, and K1's float32 kernel and K2's float32 row and key
-    # passes, two each (d 32/64)
+    # past 288 keys K1's split kernel (d 32/64 by 12/18 key tiles) and its
+    # two-sweep kernel (d 32/64), K2's split and two-sweep row passes and
+    # its key pass (d 32/64 each); K1's float32 kernel and K2's float32 row
+    # and key passes, two each
     want = {(_SOURCE, "wgmma"): 4, (_BWD_SOURCE, "wgmma"): 4,
-            (_SOURCE, "wgmma_stream"): 2, (_BWD_SOURCE, "wgmma_stream"): 4,
+            (_SOURCE, "wgmma_stream"): 6, (_BWD_SOURCE, "wgmma_stream"): 6,
             (_SOURCE, "3xtf32"): 2, (_BWD_SOURCE, "3xtf32"): 4}
     tensor = [r for r in rows
               if r["design"] in ("wgmma", "wgmma_stream", "3xtf32")]
@@ -756,9 +776,9 @@ def _k1_cases():
     fewshot_grad and transfer_grad run them), and past 288 keys: the
     Nk-356 shapes (100 prompt tokens per stage, transfer_grad_nk356) at
     batch 2, Nk 300 at batch 2 and Nk 1024 (stage 1 at 1024x1024) at
-    batch 1; the bf16 streaming kernel past 288 keys at Nk 300 (batch 2),
-    the Nk-356 shapes at the student batch (tune_cli's 100-token points)
-    and Nk 1024 (batch 1)."""
+    batch 1; the bf16 kernels past 288 keys at Nk 300 (batch 2), the
+    Nk-356 shapes at the student batch (tune_cli's 100-token points), Nk
+    1024 (batch 1) and the split-kernel boundary rows (batch 2)."""
     cases = [(b, s, "bfloat16", "wgmma")
              for b in (BATCH, MICRO, TEACHER_BATCH) for s in STAGE_SHAPES]
     cases += [(BATCH, s, "float32", "3xtf32")
@@ -773,7 +793,8 @@ def _k1_cases():
     cases += [(1, NK1024_SHAPE, "float32", "3xtf32")]
     cases += [(b, s, "bfloat16", "wgmma_stream")
               for b, s in [(FEW_BATCH, NK300_SHAPE)]
-              + [(MICRO, s) for s in NK356_SHAPES] + [(1, NK1024_SHAPE)]]
+              + [(MICRO, s) for s in NK356_SHAPES] + [(1, NK1024_SHAPE)]
+              + [(FEW_BATCH, s) for s in SPLIT_EDGE_SHAPES]]
     return cases
 
 
@@ -782,6 +803,8 @@ def phase_kernel():
     import torch.nn.functional as F
 
     from semisupervisedobjectdetection_torch.ops.sr_attention import (
+        _sm_count,
+        fwd_stream_plan,
         sr_attention,
         sr_attention_reference,
     )
@@ -813,7 +836,11 @@ def phase_kernel():
         bound, by = attention_bound(b, nq, nk, c, dtype_name)
         row = {"phase": "kernel", "name": "sr_attention_fwd",
                "B": b, "Nq": nq, "Nk": nk, "C": c, "heads": h,
-               "dtype": dtype_name, "design": design, "max_abs_err": err,
+               "dtype": dtype_name, "design": design,
+               **({"stream_kernel": fwd_stream_plan(
+                   b, nq, nk, c, h, _sm_count(0))["kernel"]}
+                  if design == "wgmma_stream" else {}),
+               "max_abs_err": err,
                "share_ne_plain": ne_plain, "rerun_bit_equal": rerun_equal,
                "tol": KERNEL_TOL[dtype_name], "ok": ok,
                "max_abs_err_vs_f64": err64,
@@ -847,6 +874,7 @@ def phase_kernel_bwd():
         sr_attention_bwd,
     )
     from semisupervisedobjectdetection_torch.utils.profile_forward import (
+        kernel_times_us,
         kernels_launched,
     )
 
@@ -871,7 +899,8 @@ def phase_kernel_bwd():
     # past 288 keys in bf16 (the streaming passes): Nk 300, the transfer
     # grid's Nk-356 shapes at the student batch, Nk 1024
     cases += [(b, s, "bfloat16") for b, s in [(FEW_BATCH, NK300_SHAPE)]
-              + [(MICRO, s) for s in NK356_SHAPES] + [(1, NK1024_SHAPE)]]
+              + [(MICRO, s) for s in NK356_SHAPES] + [(1, NK1024_SHAPE)]
+              + [(FEW_BATCH, s) for s in SPLIT_EDGE_SHAPES]]
     for b, shape, dtype_name in cases:
         nq, nk, c, h = shape
         dtype = getattr(torch, dtype_name)
@@ -914,9 +943,15 @@ def phase_kernel_bwd():
             plan = bwd_launch_plan(b, nq, nk, c, h, _sm_count(0))
             want = list(plan["kernels"])
             design = {"design": "wgmma_stream",
-                      "row_ctas_per_pair": plan["row_ctas_per_pair"],
+                      "row_grid": plan["row_grid"],
+                      "key_grid": plan["key_grid"],
+                      "key_granule": plan["key_granule"],
                       "key_groups": plan["key_groups"],
                       "key_pass_splits": plan["splits"],
+                      # each pass's device time (row pass, key pass, sum)
+                      "kernel_us": kernel_times_us(
+                          lambda: sr_attention_bwd(q, k, v, g, h),
+                          "sr_attention_bwd"),
                       "host_us_per_call": host_us(
                           lambda: sr_attention_bwd(q, k, v, g, h))}
         else:

@@ -14,7 +14,12 @@ two clocks, on one CUDA card.
 `--other` is a directory holding an earlier commit's two sources and their
 header; both are built with the package's nvcc flags. A build with the
 package's C interface is called through the package's own wrappers, like
-the package's build; a build with the C interface of commit d7bb129
+the package's build, except past 288 keys in bfloat16 where a build without
+`sr_attention_fwd_stream` (c373c4a's streaming kernels) is called as that
+commit's wrappers called it: the forward through `sr_attention_fwd` over
+`f32_ctas_per_pair` CTAs per (batch, head), the backward through
+`sr_attention_bwd_wgmma_stream` over `_pass_plan`'s grids with 64-row
+key-pass tiles; a build with the C interface of commit d7bb129
 (`sr_attention_fwd(q, k, v, out, b, nq, nk, c, heads, dtype, block_q, mma,
 stream)`, whose float32 kernels are scalar, and `sr_attention_bwd(q, k, v,
 g, dq, dk, dv, stats, part, b, nq, nk, c, heads, block_q, splits,
@@ -24,8 +29,11 @@ is called as that commit's wrapper called it.
 At each MiT-B5 512x512 stage shape, each few-shot shape (a CLS query row
 and key per stage, batch 2: Nq = H*W + 1, Nk 257), each transfer-step
 shape (10 prompt tokens per stage, Nk 266) and at Nk 288 (the most keys
-the bf16 kernels hold on chip), in the order other, this, this, other,
-each design is timed by two clocks:
+the bf16 kernels hold on chip), and in bfloat16 past them at Nk 300 (batch
+2), the four Nk-356 stage shapes (100 prompt tokens per stage, batch 16:
+the transfer grid's 100-token point) and Nk 1024 (stage 1 at 1024x1024,
+batch 1), in the order other, this, this, other, each design is timed by
+two clocks:
 
 - `device_ms`: chip_smoke's `cuda_ms`, whose timed calls are queued behind
   a sleep kernel, so that CUDA events see the device run them back to back;
@@ -41,9 +49,12 @@ and `bit_equal` says whether the two designs' outputs (dq, dk and dv with
 of a serve forward (8) for K1 and of a student microbatch (16) for K2. Prints one JSON line per shape, then one
 with the sums per few-shot pass (K1: one float32 forward, 52 launches; K2:
 one few-shot pair loss's backward, 2 x 52 launches) and per stage pass,
-beside chip_smoke's bound, then the card's name and power limit. Exits 2
-without a card, 1 if an output disagrees with the plain version or, with
-`--require-bit-equal`, if the two designs' outputs differ in a bit.
+and in bfloat16 per Nk-356 transfer step (K1: 4 passes at batch 16, K2: 2
+backwards) with each stage's times at Nk 356 beside, all beside
+chip_smoke's bound, then the card's name and power limit. Exits 2 without
+a card, 1 if an output disagrees with the plain version or, with
+`--require-bit-equal`, if the two designs' outputs differ in a bit at a
+row of at most 288 keys (past them the designs sum in other orders).
 """
 
 from __future__ import annotations
@@ -61,6 +72,7 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
 from chip_smoke import (  # noqa: E402
+    ACCUM,
     B5_DEPTHS,
     BATCH,
     FEW_BATCH,
@@ -68,6 +80,9 @@ from chip_smoke import (  # noqa: E402
     KERNEL_BWD_TOL,
     KERNEL_TOL,
     MICRO,
+    NK300_SHAPE,
+    NK356_SHAPES,
+    NK1024_SHAPE,
     SEED,
     STAGE_SHAPES,
     TRANSFER_SHAPES,
@@ -78,6 +93,9 @@ from chip_smoke import (  # noqa: E402
     cuda_ms,
     host_us,
 )
+from semisupervisedobjectdetection_torch.ops.sr_attention import (  # noqa: E402
+    BF16_ON_CHIP_NK,
+)
 
 # d7bb129's float32 backward: a key pass of 32-key blocks over 32-row query
 # tiles, split so that about 528 blocks run; its scalar kernels' query
@@ -86,6 +104,9 @@ D7BB129_KEYS, D7BB129_TILE, D7BB129_BLOCKS, D7BB129_BLOCK_Q = 32, 32, 528, 128
 # Nk at the 288 keys the bf16 kernels hold on chip (their fifth M-tile and
 # 18th key tile), head width 64, ragged Nq
 NK288_CASE = (4, (1000, 288, 128, 2))
+# bf16 past them (the streaming kernels), at the batches chip_smoke runs
+STREAM_CASES = ([(FEW_BATCH, NK300_SHAPE)] + [(MICRO, s) for s in NK356_SHAPES]
+                + [(1, NK1024_SHAPE)])
 
 
 def _same_bits(a, b) -> bool:
@@ -160,16 +181,32 @@ class Other:
         else:
             declare_fwd(self.fwd)
             declare_bwd(self.bwd_lib)
+        # c373c4a's bf16 streaming kernels, called through its C interface
+        self.c373c4a = not hasattr(self.fwd, "sr_attention_fwd_stream")
+        if self.c373c4a and hasattr(self.bwd_lib,
+                                    "sr_attention_bwd_wgmma_stream"):
+            fn = self.bwd_lib.sr_attention_bwd_wgmma_stream
+            fn.argtypes = self.bwd_lib.sr_attention_bwd.argtypes
+            fn.restype = ctypes.c_int
 
     def attention(self, q, k, v, h):
         import torch
 
         from semisupervisedobjectdetection_torch.ops import sr_attention as s
 
+        b, nq, c = q.shape
+        if self.c373c4a and s.streams_bf16(q.dtype, k.shape[1]):
+            out = q.new_empty(q.shape)
+            err = s._launch(self.fwd.sr_attention_fwd, q.device,
+                            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            out.data_ptr(), b, nq, k.shape[1], c, h, 1,
+                            s.f32_ctas_per_pair(b, nq, h, s._sm_count(0)))
+            if err:
+                raise RuntimeError(f"earlier sr_attention_fwd failed: {err}")
+            return out
         if not self.d7bb129:
             with using(self.fwd):
                 return s.sr_attention(q, k, v, h)
-        b, nq, c = q.shape
         out = q.new_empty(q.shape)
         bf16 = int(q.dtype == torch.bfloat16)
         err = s._launch(self.fwd.sr_attention_fwd, q.device, q.data_ptr(),
@@ -184,14 +221,29 @@ class Other:
 
         from semisupervisedobjectdetection_torch.ops import sr_attention as s
 
-        if not self.d7bb129:
-            with using(self.bwd_lib, bwd=True):
-                return s.sr_attention_bwd(q, k, v, g, h)
         b, nq, c = q.shape
         nk = k.shape[1]
+        if not self.d7bb129 and not (self.c373c4a
+                                     and s.streams_bf16(q.dtype, nk)):
+            with using(self.bwd_lib, bwd=True):
+                return s.sr_attention_bwd(q, k, v, g, h)
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
         launched = ctypes.c_int(0)
-        if q.dtype == torch.bfloat16:
+        if not self.d7bb129:
+            plan = s._pass_plan(b, nq, nk, c, h, s._sm_count(0),
+                                s.BWD_WGMMA_ROW_TILE, ("rows", "keys",
+                                                       "sum"))
+            stats = torch.empty(plan["stats_floats"], device=q.device)
+            part = torch.empty(plan["workspace_floats"], device=q.device)
+            err = s._launch(self.bwd_lib.sr_attention_bwd_wgmma_stream,
+                            q.device, q.data_ptr(), k.data_ptr(),
+                            v.data_ptr(), g.data_ptr(), dq.data_ptr(),
+                            dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+                            part.data_ptr() if plan["splits"] > 1 else None,
+                            b, nq, nk, c, h, plan["row_ctas_per_pair"],
+                            plan["key_groups"], plan["splits"],
+                            ctypes.byref(launched))
+        elif q.dtype == torch.bfloat16:
             plan = s.bwd_launch_plan(b, nq, nk, c, h, s._sm_count(0))
             part = torch.empty(plan["workspace_floats"], device=q.device)
             err = s._launch(self.bwd_lib.sr_attention_bwd_wgmma, q.device,
@@ -263,6 +315,8 @@ def _rows(other: Other, name: str, dtype_name: str, bwd: bool):
     stage_b = MICRO if bwd else BATCH
     cases = [(FEW_BATCH, s) for s in FEWSHOT_SHAPES] + \
         [(stage_b, s) for s in STAGE_SHAPES + TRANSFER_SHAPES] + [NK288_CASE]
+    if dtype == torch.bfloat16:
+        cases += STREAM_CASES
     rows, bad = [], []
     for b, (nq, nk, c, h) in cases:
         q, k, v, g = (torch.randn(b, n, c, device="cuda", generator=gen)
@@ -290,6 +344,7 @@ def _rows(other: Other, name: str, dtype_name: str, bwd: bool):
             err_of = lambda got: (got.float() - ref.float()).abs().max().item()  # noqa: E731
             tol = KERNEL_TOL[dtype_name]
         row = {"B": b, "shape": [nq, nk, c, h], "dtype": dtype_name,
+               "k2": bwd,
                name: {"device_ms": [], "host_paced_ms": [], "host_us": []},
                "this": {"device_ms": [], "host_paced_ms": [],
                         "host_us": []}}
@@ -374,10 +429,34 @@ def main(argv=None) -> int:
         sums["k2_per_stage_pass"] = _sums(bwd_rows, ((MICRO, 1),),
                                           STAGE_SHAPES, designs, args.dtype,
                                           True)
-    sums["other_interface"] = "d7bb129" if other.d7bb129 else "package"
-    sums["bit_equal_rows"] = [sum(r["bit_equal"] for r in rows), len(rows)]
+    if args.dtype == "bfloat16":
+        k1 = [r for r in rows if not r["k2"]]
+        per_step = {"k1_per_nk356_transfer_step": (
+                        k1, ((MICRO, 2 * ACCUM),), False),
+                    "k2_per_nk356_transfer_step": (
+                        [r for r in rows if r["k2"]],
+                        ((MICRO, ACCUM),), True)}
+        for key, (rs, passes, bwd) in per_step.items():
+            if bwd and not args.bwd:
+                continue
+            sums[key] = _sums(rs, passes, NK356_SHAPES, designs,
+                              args.dtype, bwd)
+            sums[key]["per_stage_device_ms"] = [
+                {d: r[d]["device_ms_mean"] for d in designs}
+                | {"B": r["B"], "shape": r["shape"]}
+                for s in NK356_SHAPES for r in rs
+                if (r["B"],) + tuple(r["shape"]) == (MICRO,) + s]
+    on_chip = [r for r in rows if r["shape"][1] <= BF16_ON_CHIP_NK]
+    sums["other_interface"] = ("d7bb129" if other.d7bb129 else
+                               "c373c4a streaming" if other.c373c4a
+                               else "package")
+    sums["bit_equal_rows"] = [sum(r["bit_equal"] for r in on_chip),
+                              len(on_chip)]
+    sums["bit_equal_rows_past_288_keys"] = [
+        sum(r["bit_equal"] for r in rows if r not in on_chip),
+        len(rows) - len(on_chip)]
     if args.require_bit_equal:
-        bad += [(r["B"], r["shape"], "not bit-equal") for r in rows
+        bad += [(r["B"], r["shape"], "not bit-equal") for r in on_chip
                 if not r["bit_equal"]]
     sums["card"] = chip_smoke.nvidia_smi_line()
     chip_smoke.emit({"k1_ab": sums})

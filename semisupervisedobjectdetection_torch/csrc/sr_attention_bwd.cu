@@ -96,26 +96,43 @@
 //   2 * Nk * d floats per split segment through L2.
 //   Past 288 keys the K/V of a (batch, head) and the dk/dv registers of
 //   its M-tiles no longer fit: the bf16 streaming kernels below run.
-// bfloat16 past 288 keys: the float32 kernels' row pass / key pass split
-// with bf16 products (sr_attention_bwd_wgmma_rows_kernel,
-// sr_attention_bwd_wgmma_keys_kernel, sr_attention_bwd_wgmma_sum_kernel),
-// over the grids of `bwd_launch_plan` (its "stream" plan):
-//   1. Row pass, the float32 row pass's grid and rounds: 64-key K/V blocks
-//      streamed twice a round by TMA. Sweep 1: s = q k^T and dp = g v^T
-//      (m64n64k16 from shared memory), an online m, l and u per row, then
-//      (m, 1 / l, delta) of each row to a float32 workspace. Sweep 2: the
+// bfloat16 past 288 keys: a row pass and a key pass with bf16 products
+// (sr_attention_bwd_wgmma_split_rows_kernel up to 384 keys, else
+// sr_attention_bwd_wgmma_rows_kernel; sr_attention_bwd_wgmma_keys_kernel)
+// and, where the key pass cuts a key group over CTAs, the wgmma kernel's
+// split sum (sr_attention_bwd_split_sum_kernel), over the grids of
+// `bwd_launch_plan` (its "stream" plan), every grid one persistent CTA an
+// SM over contiguous, equal runs of work:
+//   1. Row pass, K1's streaming grid: CTA x takes a run of the query tiles
+//      of all (batch, head)s, a segment of one (batch, head) at a time.
+//      Up to 384 keys both consumers work on every tile, each holding half
+//      of its score row in registers (K1's split kernel's idea): s once,
+//      one exponential a score, dp = g v^T twice and dq = ds k, the row
+//      statistics met in shared memory. Past 384 keys the tiles alternate
+//      between the consumers and 64-key K/V blocks stream twice a round
+//      through a ring of 8 (holding a (batch, head)'s K/V in shared memory
+//      across its tiles instead ran slower on the H100 at every shape
+//      tried, PERF.md): sweep 1 forms s = q k^T and dp = g v^T (m64n64k16
+//      from shared memory) with an online m, l and u per row; sweep 2 the
 //      same products, p and ds, ds rounded to bf16 as the register A
-//      operand of dq += ds k (K read MN-major); dq stored in bf16.
-//   2. Key pass: a CTA holds one 64-key M-tile of K and V per consumer and
-//      walks a split range of the pair's 64-row query tiles (q, g and the
-//      rows' statistics streamed through a ring); per tile the on-chip
-//      kernel's main sweep (main_tile) without its ds^T staging: dv, dk of
-//      the M-tile in registers across the range.
-//   3. Split sum, where the key pass splits: the splits' float32 dk and dv
-//      summed in split order and cast to bf16. No atomics: two launches
-//      give the same bits.
-//   Products: the five the function needs plus s and dp once more in the
-//   row pass (nine in all, as the float32 design).
+//      operand of dq += ds k (K read MN-major). Either writes (m, 1 / l,
+//      delta) of each row to a float32 workspace and dq in bf16.
+//   2. Key pass: the (batch, head, key group of two 64-key M-tiles, query
+//      tile) units in order, cut into equal runs (whole key groups where
+//      that keeps the longest CTA within 1.1x the mean). Per segment of one
+//      key group each consumer loads its M-tile of K and V (two buffers:
+//      the next segment's loads run under this one) and, per query tile
+//      (q, g and the rows' statistics streamed through a ring), runs the
+//      on-chip kernel's main sweep (main_tile) without its ds^T staging:
+//      dv, dk of the M-tile in registers across the segment, written in
+//      bf16 where the segment holds the whole group, else in float32 to the
+//      CTA's slot.
+//   3. Split sum, where some group spans CTAs: its CTAs' slots summed in
+//      CTA order and cast to bf16. No atomics: two launches give the same
+//      bits.
+//   Products: the five the function needs plus dp once more in the row
+//   pass up to 384 keys (eight in all), and s as well past them (nine, as
+//   the float32 design).
 // float32: three kernels on the TF32 tensor cores, every product split
 // three ways (3xTF32, sr_attention_wgmma.cuh: x = hi + lo, a b summed as
 // a_lo b_hi + a_hi b_lo + a_hi b_hi in float32; the dropped a_lo b_lo is
@@ -688,25 +705,29 @@ sr_attention_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   if (ct == 0) tma_store_wait<false>();
 }
 
-// dk, dv of every (batch, head) whose query tiles were split over CTAs:
-// the float32 slots of its CTAs, first to last, summed and cast. Block
-// (x, y) takes elements [x * Per * kThreads, (x + 1) * Per * kThreads) of
-// (batch, head) y's nk * d, Per a thread (4, or 1 where there are few
-// (batch, head)s); a pair held whole by one CTA was written by the wgmma
-// kernel and is skipped.
+// dk, dv of every unit of work whose query tiles were split over CTAs: the
+// float32 slots of its CTAs, first to last, summed and cast. A unit is a
+// (batch, head) (the wgmma kernel: groups 1, unit_keys nk) or a (batch,
+// head, key group) of unit_keys keys (the streaming key pass), its
+// tiles_per_unit tiles consecutive in the grid's work order; a slot holds
+// dk, then dv, of the unit's keys ([2][unit_keys][d]). Block (x, y) takes
+// elements [x * Per * kThreads, (x + 1) * Per * kThreads) of unit y's
+// unit_keys * d, Per a thread (4, or 1 where there are few units); a unit
+// held whole by one CTA was written by its kernel and is skipped.
 template <int kSumPer>
 __global__ void __launch_bounds__(kThreads)
 sr_attention_bwd_split_sum_kernel(const float* __restrict__ part,
                                   bf16* __restrict__ dk,
                                   bf16* __restrict__ dv, int nk, int heads,
-                                  int d, int tiles_per_bh, int total,
-                                  int grid) {
-  const int bh = int(blockIdx.y);
-  const int64_t first_tile = int64_t(bh) * tiles_per_bh;
+                                  int d, int tiles_per_unit, int total,
+                                  int grid, int groups, int unit_keys) {
+  const int y = int(blockIdx.y);
+  const int64_t first_tile = int64_t(y) * tiles_per_unit;
   const int first = cta_of(first_tile, total, grid);
-  const int last = cta_of(first_tile + tiles_per_bh - 1, total, grid);
+  const int last = cta_of(first_tile + tiles_per_unit - 1, total, grid);
   if (first == last) return;
-  const int per = nk * d;
+  const int bh = y / groups, key0 = (y - bh * groups) * unit_keys;
+  const int per = unit_keys * d;
   const int e0 = int(blockIdx.x) * kSumPer * kThreads + threadIdx.x;
   float sk[kSumPer] = {}, sv[kSumPer] = {};
   for (int x = first; x <= last; ++x) {
@@ -725,8 +746,8 @@ sr_attention_bwd_split_sum_kernel(const float* __restrict__ part,
 #pragma unroll
   for (int j = 0; j < kSumPer; ++j) {
     const int e = e0 + j * kThreads;
-    if (e < per) {
-      const int key = e / d, col = e - key * d;
+    const int key = key0 + e / d, col = e - (e / d) * d;
+    if (e < per && key < nk) {
       const size_t at = (size_t(b) * nk + key) * heads * d + h * d + col;
       dk[at] = __float2bfloat16(sk[j]);
       dv[at] = __float2bfloat16(sv[j]);
@@ -777,7 +798,7 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v,
                   : sr_attention_bwd_split_sum_kernel<1>;
   sum<<<sum_grid, kThreads, 0, stream>>>(
       static_cast<const float*>(part), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), nk, heads, D, tiles, int(total), grid);
+      static_cast<bf16*>(dv), nk, heads, D, tiles, int(total), grid, 1, nk);
   return launched_ok(launched);
 }
 
@@ -797,52 +818,79 @@ int dispatch_bwd_wgmma(const void* q, const void* k, const void* v,
 // ---- bfloat16 past kMaxNkBf16 keys: a row pass, a key pass, a split sum
 
 constexpr int kSBlk = 64;           // keys of a row-pass K/V block
-constexpr int kSStages = 3;         // blocks or tiles in flight
-constexpr int kSProducerRegs = 56;  // setmaxnreg: 128 * 56 + 256 * 224
+constexpr int kSStages = 8;         // row pass: streamed K/V blocks in flight
+constexpr int kKStages = 3;         // key pass: q/g tiles in flight
+constexpr int kKBufs = 2;           // key pass: M-tile buffers per consumer
+constexpr int kUnitKeys = kCons * kKeyTile;  // keys of a key group
+constexpr int kSProducerRegs = 56;  // key pass: 128 * 56 + 256 * 224
 constexpr int kSConsumerRegs = 224;
-
-// Row-pass shared memory, in bytes from a 1024-aligned base:
-//   q, g [kCons][64][D]       each consumer's q and g tiles
-//   per stage st: k [64][D], v [64][D]
-//   barriers: qg_full, qg_empty [kCons]; full, empty [kSStages]
-struct RowStreamLayout {
-  size_t tile, qg, stage, bar, total;
-  __host__ __device__ explicit RowStreamLayout(int d) {
-    tile = size_t(kRowTile) * d * sizeof(bf16);
-    qg = 0;
-    stage = qg + 2 * kCons * tile;
-    bar = stage + kSStages * 2 * tile;
-    total = bar + (2 * kCons + 2 * kSStages) * 8 + 1024;
-  }
-};
+constexpr int kRowsProducerRegs = 40;   // row pass: 128 * 40 + 256 * 232
+constexpr int kRowsConsumerRegs = 232;
+static_assert(2 * kCons == kStreamTiles, "the row pass's q and g tiles");
+static_assert(2 * kCons + 2 * kSStages <= kStreamBars,
+              "the row pass's barriers");
+static_assert(kSBlk == kRowTile, "a K/V block is a tile's bytes");
 
 // Key-pass shared memory, in bytes from a 1024-aligned base:
-//   k, v [kCons][64][D]       each consumer's M-tile of K and V
-//   per stage st: q [64][D], g [64][D], stats [64] float4 (m, 1 / l,
-//   delta, 0) of the tile's query rows
-//   barriers: kv_full [kCons]; full, empty [kSStages]
+//   k, v [kKBufs][kCons][64][D]  each consumer's M-tile of K and V, two
+//                                segments' worth (the next one's loads
+//                                while this one runs)
+//   per stage st < kKStages: q [64][D], g [64][D], stats [64] float4 (m,
+//   1 / l, delta, 0) of the tile's query rows
+//   barriers: kv_full, kv_empty [kKBufs][kCons]; full, empty [kKStages]
 struct KeyStreamLayout {
   size_t tile, kv, stage, stage_bytes, bar, total;
   __host__ __device__ explicit KeyStreamLayout(int d) {
     tile = size_t(kRowTile) * d * sizeof(bf16);
     kv = 0;
-    stage = kv + 2 * kCons * tile;
+    stage = kv + size_t(kKBufs) * kCons * 2 * tile;
     stage_bytes = 2 * tile + kRowTile * sizeof(float4);
-    bar = stage + kSStages * stage_bytes;
-    total = bar + (kCons + 2 * kSStages) * 8 + 1024;
+    bar = stage + kKStages * stage_bytes;
+    total = bar + (2 * kKBufs * kCons + 2 * kKStages) * 8 + 1024;
   }
 };
 
-// Row pass: the float32 row pass's grid and rounds (CTA x serves (batch,
-// head) x / ctas_per_pair and a run of its 64-row query tiles, two at a
-// time over the two consumers), with the pair's K/V blocks of 64 keys
-// streamed twice a round. Sweep 1: s = q k^T and dp = g v^T (m64n64k16,
-// all operands K-major from shared memory), an online max m, sum l and
+// The split row pass (up to kSplitRowsNk keys): a consumer's 16-key tiles
+// and the q/g tiles in flight.
+constexpr int kSplitKT = 12;
+constexpr int kSplitRowsNk = 2 * kSplitKT * 16;
+constexpr int kSRing = 2;
+
+// Shared memory of the split row pass, in bytes from a 1024-aligned base:
+//   k, v [kSplitRowsNk][D]        K and V, keys past Nk zero (TMA fill)
+//   q, g [kSRing][64][D] each     the query ring, read by both consumers
+//   part [D / 2][128] float       consumer 1's dq, one column a thread
+//   red  [3][kCons][64] float     each consumer's row max, sum and u
+//   barriers                      qg_full, qg_empty [kSRing], k_full,
+//                                 v_full, kv_empty
+struct SplitRowsLayout {
+  size_t k, v, q, g, part, red, bar, total;
+  __host__ __device__ explicit SplitRowsLayout(int d) {
+    const size_t row = size_t(d) * sizeof(bf16);
+    k = 0;
+    v = k + size_t(kSplitRowsNk) * row;
+    q = v + size_t(kSplitRowsNk) * row;
+    g = q + size_t(kSRing) * kRowTile * row;
+    part = g + size_t(kSRing) * kRowTile * row;
+    red = part + size_t(d / 2) * kWgThreads * sizeof(float);
+    bar = red + 3 * kCons * kRowTile * sizeof(float);
+    total = bar + (2 * kSRing + 3) * 8 + 1024;
+  }
+};
+
+// Row pass: the streaming forward's grid, segments and rounds (CTA x of G
+// takes the global 64-row query tiles [x T / G, (x + 1) T / G); a segment's
+// tiles alternate between the consumers), K and V streamed twice per
+// round in 64-key blocks.
+// Per tile, two sweeps over the blocks, each block's products waited on
+// before its fold (issuing the next block's first ran slower on the H100
+// at every shape tried, PERF.md). Sweep 1: s = q k^T and dp = g v^T (m64n64k16, all
+// operands K-major from shared memory), an online max m, sum l and
 // u = sum 2^(s c - m) dp per row; then (m, 1 / l, delta = u / l) of each
 // row to `stats` ([B * heads][Nq] float4). Sweep 2: the same products,
 // p = 2^(s c - m) / l, ds = p (dp - delta) scale rounded to bf16 as the
-// register A operand of dq += ds k (m64n{d}k16, K MN-major); dq stored
-// from registers in bf16.
+// register A operand of dq += ds k (m64n{d}k16, K MN-major); dq stored from
+// registers in bf16.
 template <int D>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 sr_attention_bwd_wgmma_rows_kernel(const __grid_constant__ CUtensorMap tq,
@@ -851,22 +899,21 @@ sr_attention_bwd_wgmma_rows_kernel(const __grid_constant__ CUtensorMap tq,
                                    const __grid_constant__ CUtensorMap tg,
                                    bf16* __restrict__ dq,
                                    float4* __restrict__ stats, int nq, int nk,
-                                   int heads, int tiles_per_bh,
-                                   int ctas_per_pair, float scale,
-                                   float scale_log2) {
+                                   int heads, int tiles_per_bh, int total,
+                                   float scale, float scale_log2) {
   constexpr uint32_t kRow = D * sizeof(bf16);
   constexpr uint32_t kTile = kRowTile * kRow;
+  constexpr int kN = kSBlk / 2;  // accumulator floats a thread
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  const RowStreamLayout lay(D);
+  const int nb = (nk + kSBlk - 1) / kSBlk;
+  const KVStreamLayout lay(D, kSStages * kSBlk);
   const uint32_t base = smem_u32(smem);
+  const uint32_t k_s = base + uint32_t(lay.k), v_s = base + uint32_t(lay.v);
   // q of consumer c at qg_tile(c, 0), g at qg_tile(c, 1)
   auto qg_tile = [&](int c, int i) {
-    return base + uint32_t(lay.qg) + (2 * c + i) * kTile;
-  };
-  auto kv_blk = [&](int st, int i) {
-    return base + uint32_t(lay.stage) + (2 * st + i) * kTile;
+    return base + uint32_t(lay.tiles) + (2 * c + i) * kTile;
   };
   const uint32_t bars = base + uint32_t(lay.bar);
   auto qg_full = [&](int c) { return bars + 8 * c; };
@@ -890,78 +937,105 @@ sr_attention_bwd_wgmma_rows_kernel(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
 
-  const int pair = int(blockIdx.x) / ctas_per_pair;
-  const int chunk = int(blockIdx.x) - pair * ctas_per_pair;
-  const int b = pair / heads, h = pair - b * heads;
-  const int t0 = int(int64_t(chunk) * tiles_per_bh / ctas_per_pair);
-  const int ntiles =
-      int(int64_t(chunk + 1) * tiles_per_bh / ctas_per_pair) - t0;
-  const int rounds = (ntiles + 1) / 2;
-  const int nb = (nk + kSBlk - 1) / kSBlk;
+  const int begin = range_begin(blockIdx.x, total, gridDim.x);
+  const int end = range_begin(blockIdx.x + 1, total, gridDim.x);
 
   const int wg = __shfl_sync(0xffffffffu, tid / kWgThreads, 0);
   if (wg == kCons) {
-    // ---- producer: q and g tiles, then the K/V blocks twice a round
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
-        kSProducerRegs));
+    // ---- producer: per round each consumer's q and g tiles, then the
+    // K/V blocks of both sweeps
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRowsProducerRegs));
     if (tid != kCons * kWgThreads) return;
-    uint32_t kv = 0;
-    for (int r = 0; r < rounds; ++r) {
-      for (int c = 0; c < kCons && 2 * r + c < ntiles; ++c) {
-        const int row0 = (t0 + 2 * r + c) * kRowTile;
-        mbar_wait(qg_empty(c), (r & 1) ^ 1);
+    uint32_t kv = 0;     // blocks so far
+    int n0 = 0, n1 = 0;  // each consumer's tiles so far
+    for (int u = begin; u < end;) {
+      const int bh = u / tiles_per_bh, b = bh / heads, h = bh - b * heads;
+      const int seg_end = min(end, (bh + 1) * tiles_per_bh);
+      const int ns = seg_end - u, t0 = u - bh * tiles_per_bh;
+      auto load_qg = [&](int t) {
+        const int c = t & 1, nc = c ? n1 : n0, row0 = (t0 + t) * kRowTile;
+        mbar_wait(qg_empty(c), (nc & 1) ^ 1);
         mbar_expect_tx(qg_full(c), 2 * kTile);
         tma_load(qg_tile(c, 0), &tq, qg_full(c), h * D, row0, b);
         tma_load(qg_tile(c, 1), &tg, qg_full(c), h * D, row0, b);
+        if (c)
+          ++n1;
+        else
+          ++n0;
+      };
+      for (int t = 0; t < ns; t += 2) {
+        load_qg(t);
+        if (t + 1 < ns) load_qg(t + 1);
+        for (int x = 0; x < 2 * nb; ++x, ++kv) {
+          const int st = int(kv % kSStages), key0 = (x % nb) * kSBlk;
+          mbar_wait(empty(st), ((kv / kSStages) & 1) ^ 1);
+          mbar_expect_tx(full(st), 2 * kTile);
+          tma_load(k_s + st * kTile, &tk, full(st), h * D, key0, b);
+          tma_load(v_s + st * kTile, &tv, full(st), h * D, key0, b);
+        }
       }
-      for (int j = 0; j < 2 * nb; ++j, ++kv) {
-        const int st = int(kv % kSStages);
-        const int key0 = (j % nb) * kSBlk;
-        mbar_wait(empty(st), ((kv / kSStages) & 1) ^ 1);
-        mbar_expect_tx(full(st), 2 * kTile);
-        tma_load(kv_blk(st, 0), &tk, full(st), h * D, key0, b);
-        tma_load(kv_blk(st, 1), &tv, full(st), h * D, key0, b);
-      }
+      u = seg_end;
     }
     return;
   }
 
   // ---- consumers
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kSConsumerRegs));
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRowsConsumerRegs));
   const int ct = tid - wg * kWgThreads;
   const int warp = ct >> 5, lane = ct & 31, g8 = lane >> 2, t4 = lane & 3;
   const int c = heads * D;
-  constexpr int kN = kSBlk / 2;  // accumulator floats a thread
-  uint32_t kv = 0;
-  for (int r = 0; r < rounds; ++r) {
-    const int tile = 2 * r + wg;
-    const bool mine = tile < ntiles;
-    const uint32_t qt = qg_tile(wg, 0), gt = qg_tile(wg, 1);
-    if (mine) mbar_wait(qg_full(wg), r & 1);
-    // s = q k^T and dp = g v^T of the block at stage st
-    auto products = [&](int st, float (&s)[kN], float (&dp)[kN]) {
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wgmma_ss<kSBlk, 0, 0>(s, smem_desc<D>(qt) + 2 * kk,
-                              smem_desc<D>(kv_blk(st, 0)) + 2 * kk, kk);
-        wgmma_ss<kSBlk, 0, 0>(dp, smem_desc<D>(gt) + 2 * kk,
-                              smem_desc<D>(kv_blk(st, 1)) + 2 * kk, kk);
+  uint32_t kv = 0;  // blocks so far
+  int n = 0;        // this consumer's tiles so far
+  // block x of a tile's two sweeps (key block x % nb) at stage
+  // (kv + x) % kSStages: its byte offset in the K and V regions; waiting
+  // for it and releasing it
+  auto blk = [&](int x) -> uint32_t {
+    return ((kv + x) % kSStages) * kTile;
+  };
+  auto acquire = [&](int x) {
+    mbar_wait(full((kv + x) % kSStages), ((kv + x) / kSStages) & 1);
+  };
+  auto release = [&](int x) {  // one arrival per warp
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty((kv + x) % kSStages));
+  };
+  for (int u = begin; u < end;) {
+    const int bh = u / tiles_per_bh, b = bh / heads, h = bh - b * heads;
+    const int seg_end = min(end, (bh + 1) * tiles_per_bh);
+    const int ns = seg_end - u, t0 = u - bh * tiles_per_bh;
+    const int pair = bh;
+    for (int t = wg; t - wg < ns; t += 2) {
+      if (t >= ns) {
+        // no tile of this round: pass its blocks on
+        for (int x = 0; x < 2 * nb; ++x) {
+          acquire(x);
+          release(x);
+        }
+        kv += 2 * nb;
+        break;
       }
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs<kN>(s);
-      fence_regs<kN>(dp);
-    };
-    // sweep 1: the online row statistics
-    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f},
-          u[2] = {0.f, 0.f};
-    for (int j = 0; j < nb; ++j, ++kv) {
-      const int st = int(kv % kSStages);
-      mbar_wait(full(st), (kv / kSStages) & 1);
-      if (mine) {
-        float s[kN], dp[kN];
-        products(st, s, dp);
+      mbar_wait(qg_full(wg), n & 1);
+      const uint32_t qt = qg_tile(wg, 0), gt = qg_tile(wg, 1);
+      // s = q k^T and dp = g v^T of block x, one wgmma group
+      auto issue = [&](float (&s)[kN], float (&dp)[kN], int x) {
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          wgmma_ss<kSBlk, 0, 0>(s, smem_desc<D>(qt) + 2 * kk,
+                                smem_desc<D>(k_s + blk(x)) + 2 * kk, kk);
+          wgmma_ss<kSBlk, 0, 0>(dp, smem_desc<D>(gt) + 2 * kk,
+                                smem_desc<D>(v_s + blk(x)) + 2 * kk, kk);
+        }
+        wgmma_commit();
+      };
+      float s[kN], dp[kN];
+
+      // sweep 1: the online row statistics
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f},
+            us[2] = {0.f, 0.f};
+      auto fold1 = [&](float (&s)[kN], float (&dp)[kN], int j) {
+        fence_regs<kN>(s);
+        fence_regs<kN>(dp);
         if ((j + 1) * kSBlk > nk) {
 #pragma unroll
           for (int i = 0; i < kN; ++i) {
@@ -981,7 +1055,7 @@ sr_attention_bwd_wgmma_rows_kernel(const __grid_constant__ CUtensorMap tq,
           const float mn = fmaxf(m[rr], mx[rr] * scale_log2);
           const float f = exp2_approx(m[rr] - mn);
           l[rr] *= f;
-          u[rr] *= f;
+          us[rr] *= f;
           m[rr] = mn;
         }
 #pragma unroll
@@ -989,38 +1063,41 @@ sr_attention_bwd_wgmma_rows_kernel(const __grid_constant__ CUtensorMap tq,
           const int rr = (i >> 1) & 1;
           const float e = exp2_approx(fmaf(s[i], scale_log2, -m[rr]));
           l[rr] += e;
-          u[rr] += e * dp[i];
+          us[rr] += e * dp[i];
         }
+        release(j);
+      };
+      for (int j = 0; j < nb; ++j) {
+        acquire(j);
+        issue(s, dp, j);
+        wgmma_wait_all();
+        fold1(s, dp, j);
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty(st));  // one per warp
-    }
-    float4 rs[2];  // this thread's rows: (m, 1 / l, delta, 0)
+      float4 rs[2];  // this thread's rows: (m, 1 / l, delta, 0)
 #pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
-      l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
-      u[rr] += __shfl_xor_sync(0xffffffffu, u[rr], 1);
-      u[rr] += __shfl_xor_sync(0xffffffffu, u[rr], 2);
-      const float inv_l = 1.f / l[rr];
-      rs[rr] = make_float4(m[rr], inv_l, u[rr] * inv_l, 0.f);
-    }
-    const int row0 = (t0 + tile) * kRowTile + 16 * warp + g8;
-    if (mine && t4 == 0)
+      for (int rr = 0; rr < 2; ++rr) {
+        l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+        l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
+        us[rr] += __shfl_xor_sync(0xffffffffu, us[rr], 1);
+        us[rr] += __shfl_xor_sync(0xffffffffu, us[rr], 2);
+        const float inv_l = 1.f / l[rr];
+        rs[rr] = make_float4(m[rr], inv_l, us[rr] * inv_l, 0.f);
+      }
+      const int row0 = (t0 + t) * kRowTile + 16 * warp + g8;
+      if (t4 == 0)
 #pragma unroll
-      for (int rr = 0; rr < 2; ++rr)
-        if (row0 + 8 * rr < nq)
-          stats[size_t(pair) * nq + row0 + 8 * rr] = rs[rr];
-    // sweep 2: p, ds and dq += ds k
-    float acc[D / 2];
+        for (int rr = 0; rr < 2; ++rr)
+          if (row0 + 8 * rr < nq)
+            stats[size_t(pair) * nq + row0 + 8 * rr] = rs[rr];
+
+      // sweep 2: p, ds and dq += ds k
+      float acc[D / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-    for (int j = 0; j < nb; ++j, ++kv) {
-      const int st = int(kv % kSStages);
-      mbar_wait(full(st), (kv / kSStages) & 1);
-      if (mine) {
-        float s[kN], dp[kN];
-        products(st, s, dp);
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      uint32_t da[kN / 2];
+      auto fold2 = [&](float (&s)[kN], float (&dp)[kN], int j) {
+        fence_regs<kN>(s);
+        fence_regs<kN>(dp);
 #pragma unroll
         for (int i = 0; i < kN; ++i) {
           const int key = j * kSBlk + 8 * (i >> 2) + 2 * t4 + (i & 1);
@@ -1029,7 +1106,6 @@ sr_attention_bwd_wgmma_rows_kernel(const __grid_constant__ CUtensorMap tq,
           p = key < nk ? p : 0.f;
           dp[i] = p * (dp[i] - st4.z) * scale;
         }
-        uint32_t da[kN / 2];
         pack_a<kN>(dp, da);
         fence_regs<kN / 2>(da);
         fence_regs<D / 2>(acc);
@@ -1037,17 +1113,23 @@ sr_attention_bwd_wgmma_rows_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int kk = 0; kk < kSBlk / 16; ++kk)
           wgmma_rs<D>(acc, da + 4 * kk,
-                      smem_desc<D>(kv_blk(st, 0) + kk * 16 * kRow), 1);
+                      smem_desc<D>(k_s + blk(nb + j) + kk * 16 * kRow), 1);
         wgmma_commit();
         wgmma_wait_all();
         fence_regs<D / 2>(acc);
+        release(nb + j);
+      };
+      for (int j = 0; j < nb; ++j) {
+        acquire(nb + j);
+        issue(s, dp, nb + j);
+        wgmma_wait_all();
+        fold2(s, dp, j);
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty(st));
-    }
-    if (mine) {
+      kv += 2 * nb;
+
       __syncwarp();
       if (lane == 0) mbar_arrive(qg_empty(wg));  // q, g read by both sweeps
+      ++n;
       bf16* out = dq + size_t(b) * nq * c + h * D;
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
@@ -1060,19 +1142,283 @@ sr_attention_bwd_wgmma_rows_kernel(const __grid_constant__ CUtensorMap tq,
                 pack(acc[4 * jj + 2 * rr], acc[4 * jj + 2 * rr + 1]);
       }
     }
+    u = seg_end;
   }
 }
 
-// Key pass: CTA x serves (batch, head) x / (key_groups * splits), key group
-// (x / splits) % key_groups (M-tiles 2 grp and 2 grp + 1 of 64 keys, one per
-// consumer, K and V held in shared memory) and split x % splits: the
-// pair's 64-row query tiles [s T / S, (s + 1) T / S) (T = ceil(Nq / 64),
-// S = splits), streamed through a ring with their rows' statistics from
-// the row pass. Per tile a consumer runs the on-chip kernel's main sweep
-// (main_tile: s^T = k q^T, dp^T = v g^T, p and ds from the statistics,
-// dv += p^T g, dk += ds^T q in registers) without its ds^T staging. With
-// splits > 1 it writes its float32 dk and dv to part[s] (dk, then dv,
-// each B * Nk * C), else bf16 to dk and dv.
+// Row pass up to 2 * kSplitKT * 16 = 384 keys in one sweep, the score row
+// split over the two consumers, as K1's split kernel splits it. The grid
+// and segments are the two-sweep row pass's, K and V of a segment's
+// (batch, head) loaded once, whole; both consumers work on every tile,
+// consumer w holding keys [w 192, (w + 1) 192). Per tile each forms
+// s = q k^T for its keys (one m64n192k16 per k-step) in registers, its row
+// max m_w, e = 2^(s c - m_w) in place and l_w = sum e, then dp = g v^T per
+// 64-key block (m64n64k16) folded into u_w = sum e dp. The two meet in
+// shared memory: m = max(m_0, m_1), f_w = 2^(m_w - m), l = l_0 f_0 +
+// l_1 f_1, delta = (u_0 f_0 + u_1 f_1) / l (the same order in both);
+// consumer 0 writes (m, 1 / l, delta) of each row for the key pass. Each
+// then forms p = e f_w / l in place and, per 64-key block, dp = g v^T
+// again, ds = p (dp - delta) scale rounded to bf16 as the register A
+// operand of dq_w += ds k (K MN-major); dq = dq_0 + dq_1 through shared
+// memory, stored by consumer 0. One exponential a score and four products
+// (s once, dp twice, dq) where the two-sweep row pass takes two and five.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+sr_attention_bwd_wgmma_split_rows_kernel(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tg, bf16* __restrict__ dq,
+    float4* __restrict__ stats, int nq, int nk, int heads, int tiles_per_bh,
+    int total, float scale, float scale_log2) {
+  constexpr uint32_t kRow = D * sizeof(bf16);
+  constexpr uint32_t kTile = kRowTile * kRow;
+  constexpr uint32_t kKVBytes = kSplitRowsNk * kRow;
+  constexpr int kKeys = kSplitKT * 16;  // keys a consumer holds
+  constexpr int kS = kSplitKT * 8;      // score floats a thread
+  constexpr int kN = kKeyTile / 2;      // floats of a 64-key block
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const SplitRowsLayout lay(D);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t k_s = base + uint32_t(lay.k), v_s = base + uint32_t(lay.v);
+  const uint32_t q_s = base + uint32_t(lay.q), g_s = base + uint32_t(lay.g);
+  float* part = reinterpret_cast<float*>(smem + lay.part);
+  float* red = reinterpret_cast<float*>(smem + lay.red);
+  const uint32_t bars = base + uint32_t(lay.bar);
+  auto qg_full = [&](int st) { return bars + 8 * st; };
+  auto qg_empty = [&](int st) { return bars + 8 * (kSRing + st); };
+  const uint32_t k_full = bars + 16 * kSRing, v_full = k_full + 8,
+                 kv_empty = k_full + 16;
+
+  const int tid = int(threadIdx.x);
+  if (tid == 0) {
+    for (int st = 0; st < kSRing; ++st) {
+      mbar_init(qg_full(st), 1);
+      mbar_init(qg_empty(st), kCons * kWgThreads / 32);
+    }
+    mbar_init(k_full, 1);
+    mbar_init(v_full, 1);
+    mbar_init(kv_empty, kCons * kWgThreads / 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int begin = range_begin(blockIdx.x, total, gridDim.x);
+  const int end = range_begin(blockIdx.x + 1, total, gridDim.x);
+
+  const int wg = __shfl_sync(0xffffffffu, tid / kWgThreads, 0);
+  if (wg == kCons) {
+    // ---- producer: K and V per segment, q and g tiles into the ring
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid == kCons * kWgThreads) {
+      uint32_t gen = 0;
+      for (int u = begin; u < end; ++gen) {
+        const int bh = u / tiles_per_bh, b = bh / heads, h = bh - b * heads;
+        const int seg_end = min(end, (bh + 1) * tiles_per_bh);
+        // both consumers are done with the previous segment's K and V
+        if (gen) mbar_wait(kv_empty, (gen - 1) & 1);
+        mbar_expect_tx(k_full, kKVBytes);
+        for (int j = 0; j < kSplitRowsNk / kKeyTile; ++j)
+          tma_load(k_s + j * kKeyTile * kRow, &tk, k_full, h * D,
+                   j * kKeyTile, b);
+        mbar_expect_tx(v_full, kKVBytes);
+        for (int j = 0; j < kSplitRowsNk / kKeyTile; ++j)
+          tma_load(v_s + j * kKeyTile * kRow, &tv, v_full, h * D,
+                   j * kKeyTile, b);
+        for (; u < seg_end; ++u) {
+          const int i = u - begin, st = i % kSRing;
+          const int row0 = (u - bh * tiles_per_bh) * kRowTile;
+          mbar_wait(qg_empty(st), ((i / kSRing) & 1) ^ 1);
+          mbar_expect_tx(qg_full(st), 2 * kTile);
+          tma_load(q_s + st * kTile, &tq, qg_full(st), h * D, row0, b);
+          tma_load(g_s + st * kTile, &tg, qg_full(st), h * D, row0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: keys [wg 192, (wg + 1) 192) of every tile
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int ct = tid - wg * kWgThreads;
+  const int warp = ct >> 5, lane = ct & 31, g8 = lane >> 2, t4 = lane & 3;
+  const int key0 = wg * kKeys, nk_own = nk - key0;
+  const int c = heads * D;
+  // red[kind][consumer][row]: kind 0 the row max, 1 the row sum, 2 u
+  auto red_at = [&](int kind, int w, int r) {
+    return red + (kind * kCons + w) * kRowTile + 16 * warp + g8 + 8 * r;
+  };
+  // dp = g v^T of the 64-key block jb of this consumer's keys
+  auto dp_block = [&](uint32_t gt, int jb, float (&dp)[kN]) {
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<kKeyTile, 0, 0>(
+          dp, smem_desc<D>(gt) + 2 * kk,
+          smem_desc<D>(v_s + (key0 + jb * kKeyTile) * kRow) + 2 * kk, kk);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs<kN>(dp);
+  };
+  uint32_t gen = 0;
+  for (int u = begin; u < end; ++gen) {
+    const int bh = u / tiles_per_bh, b = bh / heads, h = bh - b * heads;
+    const int seg_end = min(end, (bh + 1) * tiles_per_bh);
+    mbar_wait(k_full, gen & 1);
+    mbar_wait(v_full, gen & 1);
+    for (; u < seg_end; ++u) {
+      const int i = u - begin, st = i % kSRing;
+      mbar_wait(qg_full(st), (i / kSRing) & 1);
+      const uint32_t qt = q_s + st * kTile, gt = g_s + st * kTile;
+
+      float s[kS];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n192(s, smem_desc<D>(qt) + 2 * kk,
+                      smem_desc<D>(k_s + key0 * kRow) + 2 * kk, kk);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<kS>(s);
+      // keys past nk to -inf (only consumer 1 holds any); the row max
+      if (nk_own < kKeys) {
+#pragma unroll
+        for (int e = 0; e < kS; ++e) {
+          const int key = 8 * (e >> 2) + 2 * t4 + (e & 1);
+          s[e] = key < nk_own ? s[e] : -INFINITY;
+        }
+      }
+      float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int e = 0; e < kS; ++e)
+        m[(e >> 1) & 1] = fmaxf(m[(e >> 1) & 1], s[e]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+        m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
+        m[r] *= scale_log2;
+      }
+      // e = 2^(s c - m_w) in place, l_w; u_w = sum e dp
+      float l[2] = {0.f, 0.f}, us[2] = {0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < kS; ++e) {
+        s[e] = exp2_approx(fmaf(s[e], scale_log2, -m[(e >> 1) & 1]));
+        l[(e >> 1) & 1] += s[e];
+      }
+#pragma unroll
+      for (int jb = 0; jb < kSplitKT / 4; ++jb) {
+        float dp[kN];
+        dp_block(gt, jb, dp);
+#pragma unroll
+        for (int e = 0; e < kN; ++e)
+          us[(e >> 1) & 1] += s[jb * kN + e] * dp[e];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        us[r] += __shfl_xor_sync(0xffffffffu, us[r], 1);
+        us[r] += __shfl_xor_sync(0xffffffffu, us[r], 2);
+      }
+      if (t4 == 0)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          *red_at(0, wg, r) = m[r];
+          *red_at(1, wg, r) = l[r];
+          *red_at(2, wg, r) = us[r];
+        }
+      consumers_sync();
+      float f[2], delta[2];
+      const int row0 = (u - bh * tiles_per_bh) * kRowTile + 16 * warp + g8;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m0 = *red_at(0, 0, r), m1 = *red_at(0, 1, r);
+        const float mm = fmaxf(m0, m1);
+        const float f0 = exp2_approx(m0 - mm), f1 = exp2_approx(m1 - mm);
+        const float inv_l =
+            1.f / (*red_at(1, 0, r) * f0 + *red_at(1, 1, r) * f1);
+        delta[r] = (*red_at(2, 0, r) * f0 + *red_at(2, 1, r) * f1) * inv_l;
+        f[r] = (wg ? f1 : f0) * inv_l;
+        if (wg == 0 && t4 == 0 && row0 + 8 * r < nq)
+          stats[size_t(bh) * nq + row0 + 8 * r] =
+              make_float4(mm, inv_l, delta[r], 0.f);
+      }
+      // p = e f_w / l in place; dq_w += ds k per 64-key block
+#pragma unroll
+      for (int e = 0; e < kS; ++e) s[e] *= f[(e >> 1) & 1];
+      float acc[D / 2];
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
+#pragma unroll
+      for (int jb = 0; jb < kSplitKT / 4; ++jb) {
+        float dp[kN];
+        dp_block(gt, jb, dp);
+#pragma unroll
+        for (int e = 0; e < kN; ++e) {
+          const int r = (e >> 1) & 1;
+          dp[e] = s[jb * kN + e] * (dp[e] - delta[r]) * scale;
+        }
+        uint32_t da[kN / 2];
+        pack_a<kN>(dp, da);
+        fence_regs<kN / 2>(da);
+        fence_regs<D / 2>(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kKeyTile / 16; ++kk)
+          wgmma_rs<D>(acc, da + 4 * kk,
+                      smem_desc<D>(k_s + (key0 + jb * kKeyTile + 16 * kk) *
+                                             kRow),
+                      1);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs<D / 2>(acc);
+      }
+      // q and g of this stage are read (one arrival per warp)
+      __syncwarp();
+      if (lane == 0) mbar_arrive(qg_empty(st));
+      // dq = consumer 0's + consumer 1's, stored by consumer 0
+      if (wg == 1)
+#pragma unroll
+        for (int j = 0; j < D / 2; ++j) part[j * kWgThreads + ct] = acc[j];
+      consumers_sync();
+      if (wg == 0) {
+        bf16* out = dq + size_t(b) * nq * c + h * D;
+#pragma unroll
+        for (int j = 0; j < D / 2; ++j) acc[j] += part[j * kWgThreads + ct];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = row0 + 8 * r;
+          if (row < nq)
+#pragma unroll
+            for (int jj = 0; jj < D / 8; ++jj)
+              *reinterpret_cast<uint32_t*>(out + size_t(row) * c + 8 * jj +
+                                           2 * t4) =
+                  pack(acc[4 * jj + 2 * r], acc[4 * jj + 2 * r + 1]);
+        }
+      }
+    }
+    // done with this segment's K and V (one arrival per warp)
+    if (seg_end < end && lane == 0) mbar_arrive(kv_empty);
+  }
+}
+
+// Key pass: the work is the units (batch, head) x key group (M-tiles
+// 2 grp and 2 grp + 1 of 64 keys, one per consumer) x 64-row query tile,
+// W of them in that order; CTA x of G takes [x W / G, (x + 1) W / G)
+// counted in granules of `granule` units (1, or a key group's query tiles
+// where the plan keeps groups whole; G = min(W, SMs): every SM works). A run of one (batch, head, key group) is a segment: each
+// consumer loads its M-tile of K and V once for it (two buffers, so the
+// next segment's loads run under this one) and holds dk and dv of the
+// M-tile in registers across it, while q, g and the rows' statistics from
+// the row pass stream through a ring. Per tile a consumer runs the on-chip
+// kernel's main sweep (main_tile: s^T = k q^T, dp^T = v g^T, p and ds from
+// the statistics, dv += p^T g, dk += ds^T q) without its ds^T staging. A
+// segment that holds its whole key group's query tiles writes dk and dv in
+// bf16; one cut by a CTA boundary writes float32 to its CTA's slot (the
+// CTA's first or last segment: part [G][2][2][128][D], dk then dv of the
+// group's 128 keys) and the split sum adds a group's slots in CTA order.
 template <int D>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 sr_attention_bwd_wgmma_keys_kernel(const __grid_constant__ CUtensorMap tq,
@@ -1082,9 +1428,9 @@ sr_attention_bwd_wgmma_keys_kernel(const __grid_constant__ CUtensorMap tq,
                                    const float4* __restrict__ stats,
                                    bf16* __restrict__ dk,
                                    bf16* __restrict__ dv,
-                                   float* __restrict__ part, int b_total,
-                                   int nq, int nk, int heads, int key_groups,
-                                   int splits, float scale,
+                                   float* __restrict__ part, int nq, int nk,
+                                   int heads, int key_groups, int total,
+                                   int granule, float scale,
                                    float scale_log2) {
   constexpr uint32_t kRow = D * sizeof(bf16);
   constexpr uint32_t kTile = kRowTile * kRow;
@@ -1093,23 +1439,32 @@ sr_attention_bwd_wgmma_keys_kernel(const __grid_constant__ CUtensorMap tq,
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const KeyStreamLayout lay(D);
   const uint32_t base = smem_u32(smem);
-  // K of consumer c at kv_tile(c, 0), V at kv_tile(c, 1)
-  auto kv_tile = [&](int c, int i) {
-    return uint32_t(lay.kv) + (2 * c + i) * kTile;
+  // buffer bf of consumer c: K at kv_tile(bf, c, 0), V at kv_tile(bf, c, 1)
+  auto kv_tile = [&](int bf, int c, int i) {
+    return uint32_t(lay.kv) + ((bf * kCons + c) * 2 + i) * kTile;
   };
   // stage st: q (i = 0), g (1), statistics (2)
   auto st_tile = [&](int st, int i) {
     return uint32_t(lay.stage + st * lay.stage_bytes) + i * kTile;
   };
   const uint32_t bars = base + uint32_t(lay.bar);
-  auto kv_full = [&](int c) { return bars + 8 * c; };
-  auto full = [&](int st) { return bars + 8 * (kCons + st); };
-  auto empty = [&](int st) { return bars + 8 * (kCons + kSStages + st); };
+  auto kv_full = [&](int bf, int c) { return bars + 8 * (bf * kCons + c); };
+  auto kv_empty = [&](int bf, int c) {
+    return bars + 8 * ((kKBufs + bf) * kCons + c);
+  };
+  auto full = [&](int st) { return bars + 8 * (2 * kKBufs * kCons + st); };
+  auto empty = [&](int st) {
+    return bars + 8 * (2 * kKBufs * kCons + kKStages + st);
+  };
 
   const int tid = int(threadIdx.x);
   if (tid == 0) {
-    for (int c = 0; c < kCons; ++c) mbar_init(kv_full(c), 1);
-    for (int st = 0; st < kSStages; ++st) {
+    for (int bf = 0; bf < kKBufs; ++bf)
+      for (int c = 0; c < kCons; ++c) {
+        mbar_init(kv_full(bf, c), 1);
+        mbar_init(kv_empty(bf, c), kWgThreads / 32);
+      }
+    for (int st = 0; st < kKStages; ++st) {
       // the TMA's expect_tx and one arrival per producer warp (statistics)
       mbar_init(full(st), 1 + kWgThreads / 32);
       mbar_init(empty(st), kCons * kWgThreads / 32);
@@ -1118,151 +1473,176 @@ sr_attention_bwd_wgmma_keys_kernel(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
 
-  const int x = int(blockIdx.x);
-  const int split = x % splits, grp = (x / splits) % key_groups;
-  const int pair = x / (splits * key_groups);
-  const int b = pair / heads, h = pair - b * heads;
   const int q_tiles = (nq + kRowTile - 1) / kRowTile;
-  const int s0 = int(int64_t(split) * q_tiles / splits);
-  const int nt = int(int64_t(split + 1) * q_tiles / splits) - s0;
   const int nmt = (nk + kKeyTile - 1) / kKeyTile;
+  const int begin =
+      range_begin(blockIdx.x, total / granule, gridDim.x) * granule;
+  const int end =
+      range_begin(blockIdx.x + 1, total / granule, gridDim.x) * granule;
 
   const int wg = __shfl_sync(0xffffffffu, tid / kWgThreads, 0);
   if (wg == kCons) {
-    // ---- producer: both consumers' K and V, then q, g and the
-    // statistics of each query tile
+    // ---- producer: per segment each consumer's M-tile of K and V; q, g
+    // and the statistics of each query tile
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
         kSProducerRegs));
     const int pt = tid - kCons * kWgThreads;
-    if (pt == 0)
-      for (int c = 0; c < kCons && 2 * grp + c < nmt; ++c) {
-        const int key0 = (2 * grp + c) * kKeyTile;
-        mbar_expect_tx(kv_full(c), 2 * kTile);
-        tma_load(base + kv_tile(c, 0), &tk, kv_full(c), h * D, key0, b);
-        tma_load(base + kv_tile(c, 1), &tv, kv_full(c), h * D, key0, b);
+    int nseg[kCons] = {0, 0};  // each consumer's segments so far
+    int i = 0;                 // the CTA's tiles so far
+    for (int u = begin; u < end;) {
+      const int unit = u / q_tiles, pair = unit / key_groups;
+      const int grp = unit - pair * key_groups;
+      const int b = pair / heads, h = pair - b * heads;
+      const int seg_end = min(end, (unit + 1) * q_tiles);
+      for (int c = 0; c < kCons; ++c) {
+        if (2 * grp + c >= nmt) continue;
+        const int bf = nseg[c] % kKBufs;
+        if (pt == 0) {
+          // consumer c is done with this buffer's previous segment
+          if (nseg[c] >= kKBufs)
+            mbar_wait(kv_empty(bf, c), (nseg[c] / kKBufs - 1) & 1);
+          const int key0 = (2 * grp + c) * kKeyTile;
+          mbar_expect_tx(kv_full(bf, c), 2 * kTile);
+          tma_load(base + kv_tile(bf, c, 0), &tk, kv_full(bf, c), h * D,
+                   key0, b);
+          tma_load(base + kv_tile(bf, c, 1), &tv, kv_full(bf, c), h * D,
+                   key0, b);
+        }
+        ++nseg[c];
       }
-    for (int i = 0; i < nt; ++i) {
-      const int st = i % kSStages;
-      const int row0 = (s0 + i) * kRowTile;
-      mbar_wait(empty(st), ((i / kSStages) & 1) ^ 1);
-      if (pt == 0) {
-        mbar_expect_tx(full(st), 2 * kTile);
-        tma_load(base + st_tile(st, 0), &tq, full(st), h * D, row0, b);
-        tma_load(base + st_tile(st, 1), &tg, full(st), h * D, row0, b);
+      for (; u < seg_end; ++u, ++i) {
+        const int st = i % kKStages;
+        const int row0 = (u - unit * q_tiles) * kRowTile;
+        mbar_wait(empty(st), ((i / kKStages) & 1) ^ 1);
+        if (pt == 0) {
+          mbar_expect_tx(full(st), 2 * kTile);
+          tma_load(base + st_tile(st, 0), &tq, full(st), h * D, row0, b);
+          tma_load(base + st_tile(st, 1), &tg, full(st), h * D, row0, b);
+        }
+        if (pt < kRowTile) {
+          const int row = row0 + pt;
+          reinterpret_cast<float4*>(smem + st_tile(st, 2))[pt] =
+              row < nq ? stats[size_t(pair) * nq + row]
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+        __syncwarp();
+        if ((pt & 31) == 0) mbar_arrive(full(st));
       }
-      if (pt < kRowTile) {
-        const int row = row0 + pt;
-        reinterpret_cast<float4*>(smem + st_tile(st, 2))[pt] =
-            row < nq ? stats[size_t(pair) * nq + row]
-                     : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-      __syncwarp();
-      if ((pt & 31) == 0) mbar_arrive(full(st));
     }
     return;
   }
 
-  // ---- consumers: dk, dv of M-tile 2 grp + wg over the range
+  // ---- consumers: dk, dv of M-tile 2 grp + wg over each segment
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kSConsumerRegs));
   const int ct = tid - wg * kWgThreads;
   const int lane = ct & 31;
-  const int mt = 2 * grp + wg;
-  const bool active = mt < nmt;
+  const int c = heads * D;
   Consumer<D> cs;
-  cs.k_s = base + kv_tile(wg, 0);
-  cs.v_s = base + kv_tile(wg, 1);
   cs.dst_s = 0;
   cs.dst = nullptr;
-  cs.nk = nk - mt * kKeyTile;  // keys of this M-tile and past it
   cs.warp = ct >> 5;
   cs.g8 = lane >> 2;
   cs.t4 = lane & 3;
   cs.scale = scale;
   cs.scale_log2 = scale_log2;
-  if (active) mbar_wait(kv_full(wg), 0);
   float ak[D / 2], av[D / 2];
-#pragma unroll
-  for (int j = 0; j < D / 2; ++j) ak[j] = av[j] = 0.f;
   auto none = [](int) {};
-  for (int i = 0; i < nt; ++i) {
-    const int st = i % kSStages;
-    mbar_wait(full(st), (i / kSStages) & 1);
+  int nseg = 0, i = 0;
+  for (int u = begin; u < end;) {
+    const int unit = u / q_tiles, pair = unit / key_groups;
+    const int grp = unit - pair * key_groups;
+    const int b = pair / heads, h = pair - b * heads;
+    const int seg_begin = u, seg_end = min(end, (unit + 1) * q_tiles);
+    const int mt = 2 * grp + wg;
+    const bool active = mt < nmt;
+    const int bf = nseg % kKBufs;
     if (active) {
-      cs.stats = reinterpret_cast<float4*>(smem + st_tile(st, 2));
-      main_tile<D, false, decltype(none), kHalf, false>(
-          cs, base + st_tile(st, 0), base + st_tile(st, 1), 0, ak, av, none);
+      cs.k_s = base + kv_tile(bf, wg, 0);
+      cs.v_s = base + kv_tile(bf, wg, 1);
+      cs.nk = nk - mt * kKeyTile;  // keys of this M-tile and past it
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) ak[j] = av[j] = 0.f;
+      mbar_wait(kv_full(bf, wg), (nseg / kKBufs) & 1);
     }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty(st));  // one per warp
-  }
-  if (!active) return;
-  const int c = heads * D;
-  const size_t n_out = size_t(b_total) * nk * c;
-  const size_t at0 = (size_t(b) * nk + size_t(mt) * kKeyTile) * c + h * D;
+    for (; u < seg_end; ++u, ++i) {
+      const int st = i % kKStages;
+      mbar_wait(full(st), (i / kKStages) & 1);
+      if (active) {
+        cs.stats = reinterpret_cast<float4*>(smem + st_tile(st, 2));
+        main_tile<D, false, decltype(none), kHalf, false>(
+            cs, base + st_tile(st, 0), base + st_tile(st, 1), 0, ak, av,
+            none);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(st));  // one per warp
+    }
+    if (!active) continue;
+    const bool whole =
+        seg_begin == unit * q_tiles && seg_end == (unit + 1) * q_tiles;
+    float* slot = part + (size_t(blockIdx.x) * 2 + (seg_begin == begin ? 0 : 1)) *
+                             2 * kUnitKeys * D;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = 16 * cs.warp + cs.g8 + 8 * r;  // in the M-tile
-    if (key >= cs.nk) continue;
+    for (int r = 0; r < 2; ++r) {
+      const int key = 16 * cs.warp + cs.g8 + 8 * r;  // in the M-tile
+      if (key >= cs.nk) continue;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int i = 4 * j + 2 * r;
-      const size_t at = at0 + size_t(key) * c + 8 * j + 2 * cs.t4;
-      if (part == nullptr) {
-        *reinterpret_cast<uint32_t*>(dk + at) = pack(ak[i], ak[i + 1]);
-        *reinterpret_cast<uint32_t*>(dv + at) = pack(av[i], av[i + 1]);
-      } else {
-        float* slot = part + 2 * n_out * split;
-        *reinterpret_cast<float2*>(slot + at) = make_float2(ak[i], ak[i + 1]);
-        *reinterpret_cast<float2*>(slot + n_out + at) =
-            make_float2(av[i], av[i + 1]);
+      for (int j = 0; j < D / 8; ++j) {
+        const int e = 4 * j + 2 * r, col = 8 * j + 2 * cs.t4;
+        if (whole) {
+          const size_t at = (size_t(b) * nk + mt * kKeyTile + key) * c +
+                            h * D + col;
+          *reinterpret_cast<uint32_t*>(dk + at) = pack(ak[e], ak[e + 1]);
+          *reinterpret_cast<uint32_t*>(dv + at) = pack(av[e], av[e + 1]);
+        } else {
+          const size_t at = size_t(wg * kKeyTile + key) * D + col;
+          *reinterpret_cast<float2*>(slot + at) = make_float2(ak[e], ak[e + 1]);
+          *reinterpret_cast<float2*>(slot + kUnitKeys * D + at) =
+              make_float2(av[e], av[e + 1]);
+        }
       }
     }
+    // done with this buffer's K and V (one arrival per warp)
+    __syncwarp();
+    if (lane == 0) mbar_arrive(kv_empty(bf, wg));
+    ++nseg;
   }
 }
 
-// dk, dv = the key pass's float32 split slots summed in split order and
-// cast to bf16 (n4 groups of four elements each).
-__global__ void __launch_bounds__(kThreads)
-sr_attention_bwd_wgmma_sum_kernel(const float4* __restrict__ part,
-                                  uint2* __restrict__ dk,
-                                  uint2* __restrict__ dv, size_t n4,
-                                  int splits) {
-  for (size_t i = size_t(blockIdx.x) * kThreads + threadIdx.x; i < n4;
-       i += size_t(gridDim.x) * kThreads) {
-    float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
-    for (int sp = 0; sp < splits; ++sp) {
-      const float4 a = __ldcg(part + 2 * n4 * sp + i);
-      const float4 o = __ldcg(part + 2 * n4 * sp + n4 + i);
-      sk.x += a.x; sk.y += a.y; sk.z += a.z; sk.w += a.w;
-      sv.x += o.x; sv.y += o.y; sv.z += o.z; sv.w += o.w;
-    }
-    dk[i] = make_uint2(pack(sk.x, sk.y), pack(sk.z, sk.w));
-    dv[i] = make_uint2(pack(sv.x, sv.y), pack(sv.z, sv.w));
-  }
+// Whether a grid of G CTAs over `total` work items in units of `per`,
+// its ranges cut at multiples of `granule`, cuts a unit (some CTA boundary
+// falls inside one).
+bool cuts_a_unit(int64_t total, int64_t grid, int64_t per,
+                 int64_t granule) {
+  for (int64_t x = 1; x < grid; ++x)
+    if (range_begin(x, total / granule, grid) * granule % per) return true;
+  return false;
 }
 
 template <int D>
 int launch_bwd_stream(const void* q, const void* k, const void* v,
                       const void* g, void* dq, void* dk, void* dv,
                       void* stats, void* part, int b, int nq, int nk,
-                      int heads, int row_ctas_per_pair, int key_groups,
-                      int splits, cudaStream_t stream, int* launched) {
-  auto rows = sr_attention_bwd_wgmma_rows_kernel<D>;
+                      int heads, int row_grid, int split_rows, int key_grid,
+                      int key_granule, cudaStream_t stream, int* launched) {
+  auto rows = split_rows ? sr_attention_bwd_wgmma_split_rows_kernel<D>
+                         : sr_attention_bwd_wgmma_rows_kernel<D>;
   auto keys = sr_attention_bwd_wgmma_keys_kernel<D>;
-  static std::atomic<uint32_t> opted_rows{0}, opted_keys{0};
-  cudaError_t err = opt_in_smem(rows, opted_rows);
+  static std::atomic<uint32_t> opted_rows{0}, opted_split{0}, opted_keys{0};
+  cudaError_t err = opt_in_smem(rows, split_rows ? opted_split : opted_rows);
   if (err == cudaSuccess) err = opt_in_smem(keys, opted_keys);
   if (err != cudaSuccess) return int(err);
   const int c = heads * D;
   const int64_t pairs = int64_t(b) * heads;
   const int tiles = (nq + kRowTile - 1) / kRowTile;
-  const int nmt = (nk + kKeyTile - 1) / kKeyTile;
-  const int64_t row_grid = pairs * row_ctas_per_pair;
-  const int64_t key_grid = pairs * key_groups * splits;
-  if (row_ctas_per_pair < 1 || row_ctas_per_pair > tiles ||
-      key_groups != (nmt + 1) / 2 || splits < 1 || splits > tiles ||
-      row_grid > INT_MAX || key_grid > INT_MAX ||
-      (splits > 1) != (part != nullptr))
+  const int nmt = (nk + kKeyTile - 1) / kKeyTile, groups = (nmt + 1) / 2;
+  const int64_t row_total = pairs * tiles, key_total = pairs * groups * tiles;
+  if (row_grid < 1 || row_grid > row_total || key_grid < 1 ||
+      (split_rows && nk > kSplitRowsNk) ||
+      key_grid > key_total || key_total > INT_MAX ||
+      (key_granule != 1 && key_granule != tiles) ||
+      key_grid > key_total / key_granule ||
+      cuts_a_unit(key_total, key_grid, tiles, key_granule) !=
+          (part != nullptr))
     return int(cudaErrorInvalidValue);
   CUtensorMap m[4];
   if (!encode_map<D>(&m[0], q, b, nq, c, kRowTile) ||
@@ -1271,23 +1651,33 @@ int launch_bwd_stream(const void* q, const void* k, const void* v,
       !encode_map<D>(&m[3], g, b, nq, c, kRowTile))
     return int(cudaErrorInvalidValue);
   const float scale = 1.0f / sqrtf(float(D));
-  rows<<<int(row_grid), kBwdThreads, RowStreamLayout(D).total, stream>>>(
+  rows<<<row_grid, kBwdThreads,
+         split_rows ? SplitRowsLayout(D).total
+                    : KVStreamLayout(D, kSStages * kSBlk).total,
+         stream>>>(
       m[0], m[1], m[2], m[3], static_cast<bf16*>(dq),
-      static_cast<float4*>(stats), nq, nk, heads, tiles, row_ctas_per_pair,
+      static_cast<float4*>(stats), nq, nk, heads, tiles, int(row_total),
       scale, 1.4426950408889634f * scale);
   if (const int e = launched_ok(launched)) return e;
-  keys<<<int(key_grid), kBwdThreads, KeyStreamLayout(D).total, stream>>>(
+  keys<<<key_grid, kBwdThreads, KeyStreamLayout(D).total, stream>>>(
       m[0], m[1], m[2], m[3], static_cast<const float4*>(stats),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-      static_cast<float*>(part), b, nq, nk, heads, key_groups, splits, scale,
-      1.4426950408889634f * scale);
-  if (const int e = launched_ok(launched); e || splits == 1) return e;
-  const size_t n4 = size_t(b) * nk * c / 4;
-  const size_t need = (n4 + kThreads - 1) / kThreads;
-  sr_attention_bwd_wgmma_sum_kernel<<<int(need < 1056 ? need : 1056),
-                                      kThreads, 0, stream>>>(
-      static_cast<const float4*>(part), static_cast<uint2*>(dk),
-      static_cast<uint2*>(dv), n4, splits);
+      static_cast<float*>(part), nq, nk, heads, groups, int(key_total),
+      key_granule, scale, 1.4426950408889634f * scale);
+  if (const int e = launched_ok(launched); e || part == nullptr) return e;
+  const int64_t units = pairs * groups;
+  const bool four =
+      units * ((kUnitKeys * D + 4 * kThreads - 1) / (4 * kThreads)) >=
+      2 * key_grid;
+  const int per_block = (four ? 4 : 1) * kThreads;
+  const dim3 sum_grid((kUnitKeys * D + per_block - 1) / per_block,
+                      unsigned(units));
+  auto sum = four ? sr_attention_bwd_split_sum_kernel<4>
+                  : sr_attention_bwd_split_sum_kernel<1>;
+  sum<<<sum_grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), nk, heads, D, tiles, int(key_total), key_grid,
+      groups, kUnitKeys);
   return launched_ok(launched);
 }
 
@@ -1943,13 +2333,14 @@ extern "C" {
 
 // Bytes of dynamic shared memory one CTA needs (elem: 4 float32, the larger
 // of the row and key passes; 2 bf16, the wgmma kernel up to kMaxNkBf16
-// keys, past them the larger of its row and key passes). Every kernel
+// keys, past them the larger of its row pass and key pass). Every kernel
 // takes any Nk within them.
 size_t sr_attention_bwd_smem_bytes(int nk, int d, int elem) {
   size_t r, k;
   if (elem == 2 && nk <= kMaxNkBf16) return BwdLayout(d, bwd_mtiles(nk)).total;
   if (elem == 2) {
-    r = RowStreamLayout(d).total;
+    r = nk <= kSplitRowsNk ? SplitRowsLayout(d).total
+                           : KVStreamLayout(d, kSStages * kSBlk).total;
     k = KeyStreamLayout(d).total;
   } else {
     r = F32RowLayout(d).total;
@@ -1990,30 +2381,33 @@ int sr_attention_bwd(const void* q, const void* k, const void* v,
 }
 
 // bfloat16 past kMaxNkBf16 keys (the row pass, key pass and split sum)
-// over the grids of ops/sr_attention.py's `bwd_launch_plan`, as
-// sr_attention_bwd takes them (key_groups = ceil(ceil(nk / 64) / 2), the
-// splits over 64-row query tiles); stats a float32 workspace of
-// 4 * b * heads * nq values, part (splits > 1, else null) one of
-// splits * 2 * b * nk * c. *launched as there.
-int sr_attention_bwd_wgmma_stream(const void* q, const void* k,
-                                  const void* v, const void* g, void* dq,
-                                  void* dk, void* dv, void* stats, void* part,
-                                  int b, int nq, int nk, int c, int heads,
-                                  int row_ctas_per_pair, int key_groups,
-                                  int splits, int* launched, void* stream) {
+// over the grids of ops/sr_attention.py's `bwd_launch_plan` (its stream
+// plan): the row pass over row_grid CTAs (the split row pass where
+// split_rows != 0, Nk <= 384), the key pass over key_grid CTAs;
+// stats a float32 workspace of 4 * b * heads * nq values; part, where the
+// key pass's grid cuts a (batch, head, key group) (else null), one of
+// key_grid * 2 * 2 * 128 * d values, and the split sum runs; key_granule
+// is 1 (the key pass's CTA ranges cut anywhere) or the query tiles of a
+// key group (whole groups). *launched as sr_attention_bwd's.
+int sr_attention_bwd_stream(const void* q, const void* k, const void* v,
+                            const void* g, void* dq, void* dk, void* dv,
+                            void* stats, void* part, int b, int nq, int nk,
+                            int c, int heads, int row_grid, int split_rows,
+                            int key_grid, int key_granule, int* launched,
+                            void* stream) {
   const int d = c / heads;
   *launched = 0;
-  if (b < 1 || nq < 1 || nk < 1 || d * heads != c)
+  if (b < 1 || nq < 1 || nk <= kMaxNkBf16 || d * heads != c)
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 32)
     return launch_bwd_stream<32>(q, k, v, g, dq, dk, dv, stats, part, b, nq,
-                                 nk, heads, row_ctas_per_pair, key_groups,
-                                 splits, s, launched);
+                                 nk, heads, row_grid, split_rows, key_grid,
+                                 key_granule, s, launched);
   if (d == 64)
     return launch_bwd_stream<64>(q, k, v, g, dq, dk, dv, stats, part, b, nq,
-                                 nk, heads, row_ctas_per_pair, key_groups,
-                                 splits, s, launched);
+                                 nk, heads, row_grid, split_rows, key_grid,
+                                 key_granule, s, launched);
   return int(cudaErrorInvalidValue);
 }
 

@@ -98,20 +98,36 @@
 //   stages (K hi and lo, V^T hi and lo, V), 152 KB; 384 threads, the
 //   producer at 56 registers and the consumers at 224 (setmaxnreg).
 //
-// bfloat16 past 288 keys: sr_attention_fwd_wgmma_stream_kernel. The
-// on-chip kernel's score row (144 floats a thread at 288 keys) and K/V
-// (72 KB at d = 64) grow with Nk; this one streams K and V through a ring
-// of 64-key blocks and keeps the float32 kernel's grid and rounds. The
-// plain version and the TPU kernel round the normalised p = e / l to bf16
-// before P.V; an online softmax that rescales o would round an
-// unnormalised p instead. So a round takes two sweeps over the blocks:
-// sweep 1 forms s = q k^T with an online row max m and sum l; sweep 2 forms
-// s again, p = 2^(s c - m) / l rounded to bf16 as the register A operand
-// (the plain version's rounding point, as the on-chip kernel), and
-// o += p v. One q k^T more than the function needs: 6 B Nq Nk C flops
-// where it needs 4, paid only past 288 keys. Resources per CTA at d = 64:
-// 2 x 8 KB of q tiles and 4 x 16 KB of K/V stages, 80 KB; the producer at
-// 56 registers, the consumers at 224 (ptxas: 168 a thread, no spills).
+// bfloat16 past 288 keys. The on-chip kernel's score row (144 floats a
+// thread at 288 keys) and K/V (72 KB at d = 64) grow with Nk. The plain
+// version and the TPU kernel round the normalised p = e / l to bf16 before
+// P.V, so an online softmax that rescales o (which would round an
+// unnormalised p) is out. Two kernels, chosen by Nk on the host
+// (ops/sr_attention.py's `fwd_stream_plan`), both over the on-chip
+// kernel's persistent grid (CTA x of G = min(T, SMs) takes a contiguous,
+// equal run of the T = B * heads * ceil(Nq / 64) query tiles, so every SM
+// works):
+//   sr_attention_fwd_wgmma_split_kernel, 288 < Nk <= 576: the on-chip
+//   kernel's one-sweep softmax with the score row split over the two
+//   consumers, each holding 12 or 18 of its 16-key tiles in registers (one
+//   exponential and the four flops a score the function needs, where the
+//   two-sweep kernel below spends two exponentials and six flops: on the
+//   H100 1.2-2.2x faster than the two-sweep design at MiT-B5's Nk-356
+//   shapes, PERF.md). K and V stay on chip, whole, per run of a (batch,
+//   head)'s tiles. Shared memory at d = 64: 149,576 bytes at 12
+//   key tiles a consumer (Nk <= 384), 198,728 at 18 (K/V, a 3-stage query
+//   ring, the output staging, consumer 1's p v); 384 threads, setmaxnreg
+//   24 / 240.
+//   sr_attention_fwd_wgmma_stream_kernel, Nk > 576: two sweeps over
+//   128-key blocks of K and V streamed through a ring of 4, twice per round
+//   of two tiles (one per consumer): sweep 1 forms s = q k^T with an online
+//   row max m and sum l; sweep 2 forms s again, p = 2^(s c - m) / l rounded
+//   to bf16 as the register A operand (the plain version's rounding point)
+//   and o += p v. One q k^T more than the function needs: 6 B Nq Nk C
+//   flops where it needs 4. K and V come from L2 once per round: holding a
+//   (batch, head)'s K/V in shared memory across its tiles instead (tried up
+//   to 768 keys at d = 64) ran slower on the H100 at every shape tried
+//   (PERF.md). Shared memory at d = 64: 165,056 bytes; setmaxnreg 56 / 224.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -203,8 +219,8 @@ __device__ __forceinline__ void softmax_turn_give(int c) {
 // run in 4 partial chains per row.
 
 // Masks keys past nk to -inf and returns m of rows g and g + 8 (the same
-// in the 4 lanes of a quad).
-template <int KT>
+// in the 4 lanes of a quad). Keys past nk lie in elements First on.
+template <int KT, int First = (KT > 16 ? 128 : 0)>
 __device__ __forceinline__ void row_max(float (&s)[KT * 8], int nk,
                                         float scale_log2, int t4,
                                         float (&m)[2]) {
@@ -212,9 +228,8 @@ __device__ __forceinline__ void row_max(float (&s)[KT * 8], int nk,
   // tiles; at KT = 16 only when nk < 256 (a branch on a uniform value
   // around straight-line code, which keeps s in registers).
   if (nk < KT * 16) {
-    constexpr int kFirst = KT > 16 ? 128 : 0;
 #pragma unroll
-    for (int i = kFirst; i < KT * 8; ++i) {
+    for (int i = First; i < KT * 8; ++i) {
       const int key = 8 * (i >> 2) + 2 * t4 + (i & 1);
       s[i] = key < nk ? s[i] : -INFINITY;
     }
@@ -237,8 +252,9 @@ __device__ __forceinline__ void row_max(float (&s)[KT * 8], int nk,
   }
 }
 
-// s = 2^(s c - m) in place; returns 1 / l of rows g and g + 8.
-template <int KT>
+// s = 2^(s c - m) in place; returns 1 / l of rows g and g + 8 (with
+// Inverse false, l itself).
+template <int KT, bool Inverse = true>
 __device__ __forceinline__ void exp_rowsum(float (&s)[KT * 8],
                                            float scale_log2,
                                            const float (&m)[2],
@@ -258,7 +274,7 @@ __device__ __forceinline__ void exp_rowsum(float (&s)[KT * 8],
     float l = (part[r][0] + part[r][1]) + (part[r][2] + part[r][3]);
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
-    inv_l[r] = 1.f / l;
+    inv_l[r] = Inverse ? 1.f / l : l;
   }
 }
 
@@ -523,28 +539,288 @@ int dispatch_wgmma(const void* q, const void* k, const void* v, void* out,
                                        stream);
 }
 
-// ---- bfloat16 past kMaxNkBf16 keys: K and V streamed, two sweeps ----
+// ---- bfloat16 from 289 to 2 * 288 keys: one sweep, the score row split
+// over the two consumers ----
 
-constexpr int kStreamKeys = 64;        // keys of a streamed K/V block
-constexpr int kStreamStages = 4;       // K/V blocks in flight
-constexpr int kStreamProducerRegs = 56;
-constexpr int kStreamConsumerRegs = 224;
+constexpr int kSplitMaxKT = kMaxKeyTiles;  // 16-key tiles a consumer holds
 
-// Shared memory of the streaming kernel, in bytes from a 1024-aligned base:
-//   q  [kConsumers][64][D]                  each consumer's query tile
-//   per stage st < kStreamStages: k [64][D], v [64][D]
-//   barriers: q_full, q_empty [kConsumers]; full, empty [kStreamStages]
-struct StreamLayout {
-  size_t tile, blk, q, stage, bar, total;
-  __host__ __device__ explicit StreamLayout(int d) {
-    tile = size_t(kTileQ) * d * sizeof(bf16);
-    blk = size_t(kStreamKeys) * d * sizeof(bf16);
-    q = 0;
-    stage = q + kConsumers * tile;
-    bar = stage + kStreamStages * 2 * blk;
-    total = bar + (2 * kConsumers + 2 * kStreamStages) * 8 + 1024;
+// Shared memory of the split kernel, in bytes from a 1024-aligned base
+// (KT key tiles a consumer, 2 KT * 16 keys in all):
+//   k, v [2 KT * 16][D]          K and V, keys past Nk zero (TMA fill)
+//   q    [kStages][kTileQ][D]    the query ring, read by both consumers
+//   o    [kTileQ][D]             consumer 0's output staging
+//   part [D / 2][128] float      consumer 1's p v, one column a thread
+//   red  [2][2][64] float        each consumer's row max, then row sum
+//   barriers                     q_full, q_empty [kStages], k_full,
+//                                v_full, kv_empty
+struct SplitLayout {
+  size_t k, v, q, o, part, red, bar, total;
+  __host__ __device__ SplitLayout(int d, int kt) {
+    const size_t row = size_t(d) * sizeof(bf16);
+    const size_t keys = size_t(2) * kt * 16;
+    k = 0;
+    v = k + keys * row;
+    q = v + keys * row;
+    o = q + size_t(kStages) * kTileQ * row;
+    part = o + size_t(kTileQ) * row;
+    red = part + size_t(d / 2) * kConsumerThreads * sizeof(float);
+    bar = red + 2 * kConsumers * kTileQ * sizeof(float);
+    total = bar + (2 * kStages + 3) * 8 + 1024;
   }
 };
+
+// The key tiles a split consumer holds at nk keys: 12 (nk <= 384) or 18.
+__host__ __device__ constexpr int split_kt(int nk) {
+  return nk <= 2 * 12 * 16 ? 12 : kSplitMaxKT;
+}
+
+// Both consumers' threads (named barrier 5; 1-4 are the on-chip kernel's).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 5, %0;\n" ::"n"(kConsumers * kConsumerThreads)
+               : "memory");
+}
+
+// 288 < Nk <= 576 in bfloat16: the on-chip kernel's one-sweep softmax with
+// the score row split over the two consumers. The grid and segments are
+// the on-chip kernel's (CTA x of G takes the global 64-row query tiles
+// [x T / G, (x + 1) T / G), G = min(T, SMs); a segment's K and V are loaded
+// once, whole), but both consumers work on every tile: consumer w holds
+// keys [w KT 16, (w + 1) KT 16). Per tile each forms s = q k^T for its keys
+// (wgmma m64n64k16, and m64n32k16 at KT = 18) in registers; the two row
+// maxima meet in shared memory (the row max m of all keys), each forms
+// 2^(s c - m) and its row sum, the two sums meet (l = l0 + l1, the same
+// order in both), and each forms p = 2^(s c - m) / l rounded to bf16 in
+// registers, the plain version's rounding point, and o_w = p v over its
+// keys (V MN-major). o = o0 + o1: consumer 1 hands its o to consumer 0
+// through shared memory, which adds it and stores o through its swizzled
+// staging tile by TMA. One exponential a score and the four flops a score
+// the function needs; the consumers' three meetings a tile are the cost.
+template <int D, int KT>
+__global__ void __launch_bounds__(kWgThreads, 1)
+sr_attention_fwd_wgmma_split_kernel(const __grid_constant__ CUtensorMap tq,
+                                    const __grid_constant__ CUtensorMap tk,
+                                    const __grid_constant__ CUtensorMap tv,
+                                    const __grid_constant__ CUtensorMap to,
+                                    int nk, int heads, int tiles_per_bh,
+                                    int total, float scale_log2) {
+  static_assert(KT % 2 == 0 && KT <= kSplitMaxKT, "KT is 12 or 18");
+  constexpr uint32_t kRow = D * sizeof(bf16);
+  constexpr uint32_t kQBytes = kTileQ * kRow;
+  constexpr uint32_t kKVBytes = 2 * KT * 16 * kRow;
+  constexpr int kKeys = KT * 16;  // keys a consumer holds
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const SplitLayout lay(D, KT);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t k_s = base + uint32_t(lay.k), v_s = base + uint32_t(lay.v);
+  const uint32_t q_s = base + uint32_t(lay.q), o_s = base + uint32_t(lay.o);
+  float* part = reinterpret_cast<float*>(smem + lay.part);
+  float* red = reinterpret_cast<float*>(smem + lay.red);
+  const uint32_t bars = base + uint32_t(lay.bar);
+  auto q_full = [&](int st) { return bars + 8 * st; };
+  auto q_empty = [&](int st) { return bars + 8 * (kStages + st); };
+  const uint32_t k_full = bars + 16 * kStages, v_full = k_full + 8,
+                 kv_empty = k_full + 16;
+
+  const int tid = int(threadIdx.x);
+  if (tid == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(q_full(st), 1);
+      mbar_init(q_empty(st), kConsumers * kConsumerThreads / 32);
+    }
+    mbar_init(k_full, 1);
+    mbar_init(v_full, 1);
+    mbar_init(kv_empty, kConsumers * kConsumerThreads / 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int begin = int(int64_t(blockIdx.x) * total / gridDim.x);
+  const int end = int(int64_t(blockIdx.x + 1) * total / gridDim.x);
+
+  const int wg = __shfl_sync(0xffffffffu, tid / kConsumerThreads, 0);
+  if (wg == kConsumers) {
+    // ---- producer: K and V per segment, query tiles into the ring
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid == kConsumers * kConsumerThreads) {
+      uint32_t gen = 0;
+      for (int u = begin; u < end; ++gen) {
+        const int bh = u / tiles_per_bh, b = bh / heads, h = bh - b * heads;
+        const int seg_end = min(end, (bh + 1) * tiles_per_bh);
+        // both consumers are done with the previous segment's K and V
+        if (gen) mbar_wait(kv_empty, (gen - 1) & 1);
+        mbar_expect_tx(k_full, kKVBytes);
+#pragma unroll 1
+        for (int j = 0; j < 2 * KT * 16 / kKeyBox; ++j)
+          tma_load(k_s + j * kKeyBox * kRow, &tk, k_full, h * D, j * kKeyBox,
+                   b);
+        mbar_expect_tx(v_full, kKVBytes);
+#pragma unroll 1
+        for (int j = 0; j < 2 * KT * 16 / kKeyBox; ++j)
+          tma_load(v_s + j * kKeyBox * kRow, &tv, v_full, h * D, j * kKeyBox,
+                   b);
+        for (; u < seg_end; ++u) {
+          const int i = u - begin, st = i % kStages;
+          mbar_wait(q_empty(st), ((i / kStages) & 1) ^ 1);
+          mbar_expect_tx(q_full(st), kQBytes);
+          tma_load(q_s + st * kQBytes, &tq, q_full(st), h * D,
+                   (u - bh * tiles_per_bh) * kTileQ, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: the keys [wg KT 16, (wg + 1) KT 16) of every tile
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int ct = tid - wg * kConsumerThreads;
+  const int warp = ct >> 5, lane = ct & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int key0 = wg * kKeys;
+  unsigned char* stage_o = smem + lay.o;
+  // red[kind][consumer][row]: kind 0 the row max, 1 the row sum
+  auto red_at = [&](int kind, int w, int r) {
+    return red + (kind * kConsumers + w) * kTileQ + 16 * warp + g + 8 * r;
+  };
+  uint32_t gen = 0;
+  for (int u = begin; u < end; ++gen) {
+    const int bh = u / tiles_per_bh, b = bh / heads, h = bh - b * heads;
+    const int seg_end = min(end, (bh + 1) * tiles_per_bh);
+    mbar_wait(k_full, gen & 1);
+    for (; u < seg_end; ++u) {
+      const int i = u - begin, st = i % kStages;
+      mbar_wait(q_full(st), (i / kStages) & 1);
+
+      float s[KT * 8];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        // k-step kk: 16 columns of d, 32 bytes into each swizzled row
+        const uint64_t da = smem_desc<D>(q_s + st * kQBytes) + 2 * kk;
+        const uint64_t db = smem_desc<D>(k_s + key0 * kRow) + 2 * kk;
+        if constexpr (KT == 12) {
+          wgmma_ss_n192(s, da, db, kk);
+        } else {
+          wgmma_ss_n256(s, da, db, kk);
+          wgmma_ss_n32(s + 128, da, db + ((256 * kRow) >> 4), kk);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<KT * 8>(s);
+      if (lane == 0) mbar_arrive(q_empty(st));  // one per warp
+
+      // each consumer's e = 2^(s c - m_w) and l_w = sum e over its keys (m_w
+      // its own row max); the two meet: m = max(m_0, m_1),
+      // l = l_0 2^(m_0 - m) + l_1 2^(m_1 - m) (the same order in both), and
+      // p = e 2^(m_w - m) / l = 2^(s c - m) / l
+      float m[2], l[2], f[2];
+      row_max<KT, 0>(s, nk - key0, scale_log2, t4, m);
+      exp_rowsum<KT, false>(s, scale_log2, m, l);
+      if (t4 == 0)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          *red_at(0, wg, r) = m[r];
+          *red_at(1, wg, r) = l[r];
+        }
+      consumers_sync();
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m0 = *red_at(0, 0, r), m1 = *red_at(0, 1, r);
+        const float mm = fmaxf(m0, m1);
+        const float lsum = *red_at(1, 0, r) * exp2_approx(m0 - mm) +
+                           *red_at(1, 1, r) * exp2_approx(m1 - mm);
+        f[r] = exp2_approx(m[r] - mm) / lsum;
+      }
+      uint32_t p[KT * 4];
+      normalize_pack<KT>(s, f, p);
+
+      float o[D / 2];
+      mbar_wait(v_full, gen & 1);
+      fence_regs<KT * 4>(p);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk)
+        wgmma_rs<D>(o, p + 4 * kk,
+                    smem_desc<D>(v_s + (key0 + 16 * kk) * kRow), kk);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<D / 2>(o);
+
+      // o = consumer 0's p v + consumer 1's
+      if (wg == 1)
+#pragma unroll
+        for (int j = 0; j < D / 2; ++j) part[j * kConsumerThreads + ct] = o[j];
+      consumers_sync();
+      if (wg == 0) {
+#pragma unroll
+        for (int j = 0; j < D / 2; ++j) o[j] += part[j * kConsumerThreads + ct];
+        // o to the staging tile once the previous tile's store has read
+        // it; then one TMA store
+        if (ct == 0) tma_store_wait<true>();
+        consumer_sync(0);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const uint32_t r = warp * 16 + g + 8 * half, c = 8 * j + 2 * t4;
+            *reinterpret_cast<uint32_t*>(stage_o + swizzled<D>(r, c)) =
+                sr_wgmma::pack(o[4 * j + 2 * half], o[4 * j + 2 * half + 1]);
+          }
+        fence_proxy_async();
+        consumer_sync(0);
+        if (ct == 0)
+          tma_store(&to, o_s, h * D, (u - bh * tiles_per_bh) * kTileQ, b);
+      }
+    }
+    // done with this segment's K and V (one arrival per warp)
+    if (seg_end < end && lane == 0) mbar_arrive(kv_empty);
+  }
+  if (wg == 0 && ct == 0) tma_store_wait<false>();
+}
+
+template <int D, int KT>
+int launch_split(const void* q, const void* k, const void* v, void* out,
+                 int b, int nq, int nk, int heads, int grid,
+                 cudaStream_t stream) {
+  auto kernel = sr_attention_fwd_wgmma_split_kernel<D, KT>;
+  static std::atomic<uint32_t> opted{0};
+  cudaError_t err = opt_in_smem(kernel, opted);
+  if (err != cudaSuccess) return int(err);
+  const int tiles = (nq + kTileQ - 1) / kTileQ;
+  const int64_t total = int64_t(b) * heads * tiles;
+  if (grid < 1 || grid > total || total > INT_MAX)
+    return int(cudaErrorInvalidValue);
+  CUtensorMap maps[4];
+  if (!encode_maps<D>(maps, q, k, v, out, b, nq, nk, heads * D))
+    return int(cudaErrorInvalidValue);
+  kernel<<<grid, kWgThreads, SplitLayout(D, KT).total, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], nk, heads, tiles, int(total),
+      1.4426950408889634f / sqrtf(float(D)));
+  return int(cudaGetLastError());
+}
+
+template <int D>
+int dispatch_split(const void* q, const void* k, const void* v, void* out,
+                   int b, int nq, int nk, int heads, int grid,
+                   cudaStream_t stream) {
+  if (split_kt(nk) == 12)
+    return launch_split<D, 12>(q, k, v, out, b, nq, nk, heads, grid, stream);
+  return launch_split<D, kSplitMaxKT>(q, k, v, out, b, nq, nk, heads, grid,
+                                      stream);
+}
+
+// ---- bfloat16 past 2 * kMaxNkBf16 keys: K and V streamed, two sweeps ----
+
+constexpr int kStreamKeys = 128;       // keys of a K/V block
+constexpr int kStreamStages = 4;       // K/V blocks in flight (streamed)
+constexpr int kQRing = 2;              // query tiles in flight per consumer
+constexpr int kStreamProducerRegs = 56;   // setmaxnreg: 128 * 56 + 256 * 224
+constexpr int kStreamConsumerRegs = 224;
+static_assert(2 * kStreamStages <= kStreamBars - 2 * kStreamTiles,
+              "the streaming kernel's barriers");
+static_assert(kConsumers * kQRing == kStreamTiles, "the layout's tiles");
 
 // The row max of a 64-key block's scores s (the accumulator of a 64 x 64
 // product: thread rows g and g + 8, keys 8 (i / 4) + 2 t4 + (i & 1) of the
@@ -571,51 +847,61 @@ __device__ __forceinline__ void block_max(float (&s)[kStreamKeys / 2],
   }
 }
 
-// Nk > kMaxNkBf16 in bfloat16. The grid and the rounds are the float32
-// kernel's: CTA x serves (batch, head) x / ctas_per_pair and a contiguous
-// run of its 64-row query tiles, two at a time over the two consumers.
-// Each round streams the pair's K/V blocks (64 keys, TMA, a ring of
-// kStreamStages) twice: sweep 1 brings K alone, and each consumer forms
-// s = q k^T (wgmma m64n64k16 from shared memory) with an online row max m
-// and sum l; sweep 2 brings K and V, forms s again and p = 2^(s c - m) / l
-// rounded to bf16 in registers, the plain version's rounding point, then
-// o += p v (m64n{d}k16, V MN-major). o is stored from registers. One
-// q k^T more than the function needs, paid only past kMaxNkBf16 keys.
+// Nk > 2 * kMaxNkBf16 in bfloat16. The grid is the on-chip kernel's: CTA
+// x of G takes the global 64-row query tiles [x T / G, (x + 1) T / G) of
+// T = B * heads * tiles_per_bh in (batch, head, tile) order (G = min(T,
+// SMs): every SM works, no CTA more than one tile over another); a run of
+// them with one (batch, head) is a segment, whose tiles alternate between
+// the two consumers (the segment's t-th tile goes to consumer t % 2).
+// K/V stream through a ring of kStreamStages blocks twice per round of two
+// tiles (one per consumer).
+// Per tile the consumer takes two sweeps over the blocks: sweep 1 forms
+// s = q k^T (wgmma m64n128k16) with an online row max m and sum l; sweep 2
+// forms s again, p = 2^(s c - m) / l rounded to bf16 in registers, the
+// plain version's rounding point, and o += p v (m64n{d}k16, V MN-major).
+// Each block's products are waited on before its fold: issuing the next
+// block's q k^T first (into a second accumulator) ran slower on the H100
+// at every shape tried (PERF.md). o is stored from registers. One q k^T
+// more than the function needs, paid only past 2 * kMaxNkBf16 keys.
 template <int D>
 __global__ void __launch_bounds__(kWgThreads, 1)
 sr_attention_fwd_wgmma_stream_kernel(const __grid_constant__ CUtensorMap tq,
                                      const __grid_constant__ CUtensorMap tk,
                                      const __grid_constant__ CUtensorMap tv,
                                      bf16* __restrict__ out, int nq, int nk,
-                                     int heads, int tiles_per_bh,
-                                     int ctas_per_pair, float scale_log2) {
+                                     int heads, int tiles_per_bh, int total,
+                                     float scale_log2) {
   constexpr uint32_t kRow = D * sizeof(bf16);
   constexpr uint32_t kQBytes = kTileQ * kRow;
   constexpr uint32_t kBlkBytes = kStreamKeys * kRow;
+  constexpr int kS = kStreamKeys / 2;  // accumulator floats a thread
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  const StreamLayout lay(D);
+  const int nb = (nk + kStreamKeys - 1) / kStreamKeys;
+  const KVStreamLayout lay(D, kStreamStages * kStreamKeys);
   const uint32_t base = smem_u32(smem);
-  auto q_tile = [&](int c) { return base + uint32_t(lay.q) + c * kQBytes; };
-  auto k_blk = [&](int st) {
-    return base + uint32_t(lay.stage) + 2 * st * kBlkBytes;
+  const uint32_t k_s = base + uint32_t(lay.k), v_s = base + uint32_t(lay.v);
+  auto q_slot = [&](int c, int st) {
+    return base + uint32_t(lay.tiles) + (c * kQRing + st) * kQBytes;
   };
-  auto v_blk = [&](int st) { return k_blk(st) + kBlkBytes; };
   const uint32_t bars = base + uint32_t(lay.bar);
-  auto q_full = [&](int c) { return bars + 8 * c; };
-  auto q_empty = [&](int c) { return bars + 8 * (kConsumers + c); };
-  auto full = [&](int st) { return bars + 8 * (2 * kConsumers + st); };
+  auto q_full = [&](int c, int st) { return bars + 8 * (c * kQRing + st); };
+  auto q_empty = [&](int c, int st) {
+    return bars + 8 * (kStreamTiles + c * kQRing + st);
+  };
+  auto full = [&](int st) { return bars + 8 * (2 * kStreamTiles + st); };
   auto empty = [&](int st) {
-    return bars + 8 * (2 * kConsumers + kStreamStages + st);
+    return bars + 8 * (2 * kStreamTiles + kStreamStages + st);
   };
 
   const int tid = int(threadIdx.x);
   if (tid == 0) {
-    for (int c = 0; c < kConsumers; ++c) {
-      mbar_init(q_full(c), 1);
-      mbar_init(q_empty(c), kConsumerThreads / 32);
-    }
+    for (int c = 0; c < kConsumers; ++c)
+      for (int st = 0; st < kQRing; ++st) {
+        mbar_init(q_full(c, st), 1);
+        mbar_init(q_empty(c, st), kConsumerThreads / 32);
+      }
     for (int st = 0; st < kStreamStages; ++st) {
       mbar_init(full(st), 1);
       mbar_init(empty(st), kConsumers * kConsumerThreads / 32);
@@ -624,75 +910,106 @@ sr_attention_fwd_wgmma_stream_kernel(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
 
-  const int pair = int(blockIdx.x) / ctas_per_pair;
-  const int chunk = int(blockIdx.x) - pair * ctas_per_pair;
-  const int b = pair / heads, h = pair - b * heads;
-  const int t0 = int(int64_t(chunk) * tiles_per_bh / ctas_per_pair);
-  const int ntiles =
-      int(int64_t(chunk + 1) * tiles_per_bh / ctas_per_pair) - t0;
-  const int rounds = (ntiles + 1) / 2;
-  const int nb = (nk + kStreamKeys - 1) / kStreamKeys;
+  const int begin = int(int64_t(blockIdx.x) * total / gridDim.x);
+  const int end = int(int64_t(blockIdx.x + 1) * total / gridDim.x);
 
   const int wg = __shfl_sync(0xffffffffu, tid / kConsumerThreads, 0);
   if (wg == kConsumers) {
-    // ---- producer: q tiles, then K blocks (sweep 1), K and V (sweep 2)
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
-        kStreamProducerRegs));
+    // ---- producer: per round the query tiles, then the K/V blocks of
+    // both sweeps
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kStreamProducerRegs));
     if (tid != kConsumers * kConsumerThreads) return;
-    uint32_t kv = 0;  // K/V blocks so far
-    for (int r = 0; r < rounds; ++r) {
-      for (int c = 0; c < kConsumers && 2 * r + c < ntiles; ++c) {
-        mbar_wait(q_empty(c), (r & 1) ^ 1);
-        mbar_expect_tx(q_full(c), kQBytes);
-        tma_load(q_tile(c), &tq, q_full(c), h * D,
-                 (t0 + 2 * r + c) * kTileQ, b);
+    uint32_t kv = 0;     // blocks so far
+    int n0 = 0, n1 = 0;  // each consumer's tiles so far
+    for (int u = begin; u < end;) {
+      const int bh = u / tiles_per_bh, b = bh / heads, h = bh - b * heads;
+      const int seg_end = min(end, (bh + 1) * tiles_per_bh);
+      const int ns = seg_end - u, t0 = u - bh * tiles_per_bh;
+      auto load_q = [&](int t) {
+        const int c = t & 1, nc = c ? n1 : n0, st = nc % kQRing;
+        mbar_wait(q_empty(c, st), ((nc / kQRing) & 1) ^ 1);
+        mbar_expect_tx(q_full(c, st), kQBytes);
+        tma_load(q_slot(c, st), &tq, q_full(c, st), h * D, (t0 + t) * kTileQ,
+                 b);
+        if (c)
+          ++n1;
+        else
+          ++n0;
+      };
+      for (int t = 0; t < ns; t += 2) {
+        load_q(t);
+        if (t + 1 < ns) load_q(t + 1);
+        for (int sweep = 0; sweep < 2; ++sweep)
+          for (int j = 0; j < nb; ++j, ++kv) {
+            const int st = int(kv % kStreamStages);
+            mbar_wait(empty(st), ((kv / kStreamStages) & 1) ^ 1);
+            mbar_expect_tx(full(st), (sweep + 1) * kBlkBytes);
+            tma_load(k_s + st * kBlkBytes, &tk, full(st), h * D,
+                     j * kStreamKeys, b);
+            if (sweep)
+              tma_load(v_s + st * kBlkBytes, &tv, full(st), h * D,
+                       j * kStreamKeys, b);
+          }
       }
-      for (int sweep = 0; sweep < 2; ++sweep)
-        for (int j = 0; j < nb; ++j, ++kv) {
-          const int st = int(kv % kStreamStages);
-          mbar_wait(empty(st), ((kv / kStreamStages) & 1) ^ 1);
-          mbar_expect_tx(full(st), (sweep + 1) * kBlkBytes);
-          tma_load(k_blk(st), &tk, full(st), h * D, j * kStreamKeys, b);
-          if (sweep)
-            tma_load(v_blk(st), &tv, full(st), h * D, j * kStreamKeys, b);
-        }
+      u = seg_end;
     }
     return;
   }
 
   // ---- consumers
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
-      kStreamConsumerRegs));
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kStreamConsumerRegs));
   const int ct = tid - wg * kConsumerThreads;
   const int warp = ct >> 5, lane = ct & 31, g = lane >> 2, t4 = lane & 3;
   const int c = heads * D;
-  uint32_t kv = 0;
-  for (int r = 0; r < rounds; ++r) {
-    const int tile = 2 * r + wg;
-    const bool mine = tile < ntiles;
-    const uint32_t qt = q_tile(wg);
-    if (mine) mbar_wait(q_full(wg), r & 1);
-    // the s = q k^T of a block at stage st, keys past nk masked; its max
-    auto scores = [&](int st, int key0, float (&s)[kStreamKeys / 2],
-                      float (&mx)[2]) {
-      wgmma_fence();
+  uint32_t kv = 0;  // blocks so far
+  int n = 0;        // this consumer's tiles so far
+  // Block x of a tile's two sweeps (x < nb: sweep 1, else sweep 2, key
+  // block x % nb) sits at stage (kv + x) % kStreamStages: `blk` is its byte
+  // offset in the K (and V) region
+  auto blk = [&](int x) -> uint32_t {
+    return ((kv + x) % kStreamStages) * kBlkBytes;
+  };
+  auto acquire = [&](int x) {
+    mbar_wait(full((kv + x) % kStreamStages), ((kv + x) / kStreamStages) & 1);
+  };
+  auto release = [&](int x) {  // one arrival per warp
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty((kv + x) % kStreamStages));
+  };
+  for (int u = begin; u < end;) {
+    const int bh = u / tiles_per_bh, b = bh / heads, h = bh - b * heads;
+    const int seg_end = min(end, (bh + 1) * tiles_per_bh);
+    const int ns = seg_end - u, t0 = u - bh * tiles_per_bh;
+    for (int t = wg; t - wg < ns; t += 2) {
+      if (t >= ns) {
+        // no tile of this round: pass its blocks on
+        for (int x = 0; x < 2 * nb; ++x) {
+          acquire(x);
+          release(x);
+        }
+        kv += 2 * nb;
+        break;
+      }
+      const int st_q = n % kQRing;
+      mbar_wait(q_full(wg, st_q), (n / kQRing) & 1);
+      const uint32_t qt = q_slot(wg, st_q);
+      auto issue_s = [&](float (&s)[kS], int x) {
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<kStreamKeys, 0, 0>(s, smem_desc<D>(qt) + 2 * kk,
-                                    smem_desc<D>(k_blk(st)) + 2 * kk, kk);
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs<kStreamKeys / 2>(s);
-      block_max(s, key0, nk, t4, mx);
-    };
-    // sweep 1: the online row max and sum
-    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-    for (int j = 0; j < nb; ++j, ++kv) {
-      const int st = int(kv % kStreamStages);
-      mbar_wait(full(st), (kv / kStreamStages) & 1);
-      if (mine) {
-        float s[kStreamKeys / 2], mx[2];
-        scores(st, j * kStreamKeys, s, mx);
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<kStreamKeys, 0, 0>(s, smem_desc<D>(qt) + 2 * kk,
+                                      smem_desc<D>(k_s + blk(x)) + 2 * kk,
+                                      kk);
+        wgmma_commit();
+      };
+      float s[kS];
+
+      // sweep 1: the online row max and sum
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+      auto fold1 = [&](float (&s)[kS], int j) {
+        fence_regs<kS>(s);
+        float mx[2];
+        block_max(s, j * kStreamKeys, nk, t4, mx);
 #pragma unroll
         for (int rr = 0; rr < 2; ++rr) {
           // the block holds a valid key, so the new max is finite
@@ -701,57 +1018,71 @@ sr_attention_fwd_wgmma_stream_kernel(const __grid_constant__ CUtensorMap tq,
           m[rr] = mn;
         }
 #pragma unroll
-        for (int i = 0; i < kStreamKeys / 2; ++i)
+        for (int i = 0; i < kS; ++i)
           l[(i >> 1) & 1] +=
               exp2_approx(fmaf(s[i], scale_log2, -m[(i >> 1) & 1]));
+        release(j);
+      };
+      for (int j = 0; j < nb; ++j) {
+        acquire(j);
+        issue_s(s, j);
+        wgmma_wait_all();
+        fold1(s, j);
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty(st));  // one per warp
-    }
-    float inv_l[2];
+      float inv_l[2];
 #pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
-      l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
-      inv_l[rr] = 1.f / l[rr];
-    }
-    // sweep 2: p = 2^(s c - m) / l in bf16, o += p v
-    float o[D / 2];
+      for (int rr = 0; rr < 2; ++rr) {
+        l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+        l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
+        inv_l[rr] = 1.f / l[rr];
+      }
+
+      // sweep 2: p = 2^(s c - m) / l in bf16, o += p v
+      float o[D / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-    for (int j = 0; j < nb; ++j, ++kv) {
-      const int st = int(kv % kStreamStages);
-      mbar_wait(full(st), (kv / kStreamStages) & 1);
-      if (mine) {
-        float s[kStreamKeys / 2], mx[2];
-        scores(st, j * kStreamKeys, s, mx);
-        uint32_t p[kStreamKeys / 4];
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      uint32_t p[kS / 2];
+      auto fold2 = [&](float (&s)[kS], int j) {
+        fence_regs<kS>(s);
+        if ((j + 1) * kStreamKeys > nk) {
 #pragma unroll
-        for (int i = 0; i < kStreamKeys / 4; ++i) {
+          for (int i = 0; i < kS; ++i) {
+            const int key = j * kStreamKeys + 8 * (i >> 2) + 2 * t4 + (i & 1);
+            s[i] = key < nk ? s[i] : -INFINITY;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kS / 2; ++i) {
           const int rr = i & 1;
           p[i] = sr_wgmma::pack(
               exp2_approx(fmaf(s[2 * i], scale_log2, -m[rr])) * inv_l[rr],
               exp2_approx(fmaf(s[2 * i + 1], scale_log2, -m[rr])) *
                   inv_l[rr]);
         }
-        fence_regs<kStreamKeys / 4>(p);
+        fence_regs<kS / 2>(p);
         fence_regs<D / 2>(o);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kStreamKeys / 16; ++kk)
           wgmma_rs<D>(o, p + 4 * kk,
-                      smem_desc<D>(v_blk(st) + kk * 16 * kRow), 1);
+                      smem_desc<D>(v_s + blk(nb + j) + kk * 16 * kRow), 1);
         wgmma_commit();
         wgmma_wait_all();
         fence_regs<D / 2>(o);
+        release(nb + j);
+      };
+      for (int j = 0; j < nb; ++j) {
+        acquire(nb + j);
+        issue_s(s, nb + j);
+        wgmma_wait_all();
+        fold2(s, j);
       }
+      kv += 2 * nb;
+
       __syncwarp();
-      if (lane == 0) mbar_arrive(empty(st));
-    }
-    if (mine) {
-      __syncwarp();
-      if (lane == 0) mbar_arrive(q_empty(wg));  // q read by both sweeps
-      const int row0 = (t0 + tile) * kTileQ + 16 * warp + g;
+      if (lane == 0) mbar_arrive(q_empty(wg, st_q));  // q read by both sweeps
+      ++n;
+      const int row0 = (t0 + t) * kTileQ + 16 * warp + g;
       bf16* ob = out + size_t(b) * nq * c + h * D;
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
@@ -765,20 +1096,21 @@ sr_attention_fwd_wgmma_stream_kernel(const __grid_constant__ CUtensorMap tq,
         }
       }
     }
+    u = seg_end;
   }
 }
 
 template <int D>
 int launch_stream(const void* q, const void* k, const void* v, void* out,
-                  int b, int nq, int nk, int heads, int ctas_per_pair,
+                  int b, int nq, int nk, int heads, int grid,
                   cudaStream_t stream) {
   auto kernel = sr_attention_fwd_wgmma_stream_kernel<D>;
   static std::atomic<uint32_t> opted{0};
   cudaError_t err = opt_in_smem(kernel, opted);
   if (err != cudaSuccess) return int(err);
   const int tiles = (nq + kTileQ - 1) / kTileQ;
-  const int64_t grid = int64_t(b) * heads * ctas_per_pair;
-  if (ctas_per_pair < 1 || ctas_per_pair > tiles || grid > INT_MAX)
+  const int64_t total = int64_t(b) * heads * tiles;
+  if (grid < 1 || grid > total || total > INT_MAX)
     return int(cudaErrorInvalidValue);
   const int c = heads * D;
   CUtensorMap maps[3];
@@ -786,12 +1118,12 @@ int launch_stream(const void* q, const void* k, const void* v, void* out,
       !encode_map<D>(&maps[1], k, b, nk, c, kStreamKeys) ||
       !encode_map<D>(&maps[2], v, b, nk, c, kStreamKeys))
     return int(cudaErrorInvalidValue);
-  kernel<<<int(grid), kWgThreads, StreamLayout(D).total, stream>>>(
+  kernel<<<grid, kWgThreads,
+           KVStreamLayout(D, kStreamStages * kStreamKeys).total, stream>>>(
       maps[0], maps[1], maps[2], static_cast<bf16*>(out), nq, nk, heads,
-      tiles, ctas_per_pair, 1.4426950408889634f / sqrtf(float(D)));
+      tiles, int(total), 1.4426950408889634f / sqrtf(float(D)));
   return int(cudaGetLastError());
 }
-
 
 // ---- float32: the 3xTF32 wgmma + TMA kernel ----
 
@@ -1096,11 +1428,14 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int b,
 extern "C" {
 
 // Bytes of dynamic shared memory one CTA needs (elem: 4 the float32
-// kernel; 2 the bfloat16 one, streaming past kMaxNkBf16 keys). Every
-// kernel takes any Nk within them.
+// kernel; 2 the bfloat16 one, past kMaxNkBf16 keys the split kernel, past
+// 2 * kMaxNkBf16 the two-sweep kernel). Every kernel takes any Nk within
+// them.
 size_t sr_attention_fwd_smem_bytes(int nk, int d, int elem) {
   if (elem == 4) return F32Layout(d).total;
-  if (nk > kMaxNkBf16) return StreamLayout(d).total;
+  if (nk > 2 * kMaxNkBf16)
+    return KVStreamLayout(d, kStreamStages * kStreamKeys).total;
+  if (nk > kMaxNkBf16) return SplitLayout(d, split_kt(nk)).total;
   return WgLayout(d, nk <= 16 * 16 ? 16 : kMaxKeyTiles).total;
 }
 
@@ -1119,11 +1454,11 @@ int sr_attention_fwd_wgmma_ctas_per_sm(int nk, int d) {
 }
 
 // dtype: 0 float32 (the 3xTF32 kernel over b * heads * ctas_per_pair CTAs,
-// as ops/sr_attention.py's launch plan sets it), 1 bfloat16 (up to
-// kMaxNkBf16 keys the bf16 kernel, one CTA an SM, ctas_per_pair unused;
-// past them the streaming kernel over b * heads * ctas_per_pair CTAs). q,
-// k, v and out are 16-byte aligned. Returns a cudaError_t (0 on success);
-// 1 (cudaErrorInvalidValue) for a shape or type the kernels do not take.
+// as ops/sr_attention.py's launch plan sets it), 1 bfloat16 up to
+// kMaxNkBf16 keys (the bf16 kernel, one CTA an SM, ctas_per_pair unused;
+// past them sr_attention_fwd_stream runs). q, k, v and out are 16-byte
+// aligned. Returns a cudaError_t (0 on success); 1 (cudaErrorInvalidValue)
+// for a shape or type the kernels do not take.
 int sr_attention_fwd(const void* q, const void* k, const void* v, void* out,
                      int b, int nq, int nk, int c, int heads, int dtype,
                      int ctas_per_pair, void* stream) {
@@ -1135,16 +1470,34 @@ int sr_attention_fwd(const void* q, const void* k, const void* v, void* out,
     return launch_f32<32>(q, k, v, out, b, nq, nk, heads, ctas_per_pair, s);
   if (dtype == 0 && d == 64)
     return launch_f32<64>(q, k, v, out, b, nq, nk, heads, ctas_per_pair, s);
-  if (dtype == 1 && nk > kMaxNkBf16 && d == 32)
-    return launch_stream<32>(q, k, v, out, b, nq, nk, heads, ctas_per_pair,
-                             s);
-  if (dtype == 1 && nk > kMaxNkBf16 && d == 64)
-    return launch_stream<64>(q, k, v, out, b, nq, nk, heads, ctas_per_pair,
-                             s);
-  if (dtype == 1 && d == 32)
+  if (dtype == 1 && nk <= kMaxNkBf16 && d == 32)
     return dispatch_wgmma<32>(q, k, v, out, b, nq, nk, heads, s);
-  if (dtype == 1 && d == 64)
+  if (dtype == 1 && nk <= kMaxNkBf16 && d == 64)
     return dispatch_wgmma<64>(q, k, v, out, b, nq, nk, heads, s);
+  return int(cudaErrorInvalidValue);
+}
+
+// bfloat16 past kMaxNkBf16 keys over `grid` CTAs, as ops/sr_attention.py's
+// `fwd_stream_plan` sets them: the split kernel (split != 0, Nk <= 576) or
+// the two-sweep kernel. q, k, v and out are 16-byte aligned. Returns a
+// cudaError_t (0 on success); 1 (cudaErrorInvalidValue) for a shape, grid
+// or kernel they do not take (the split kernel past 576 keys).
+int sr_attention_fwd_stream(const void* q, const void* k, const void* v,
+                            void* out, int b, int nq, int nk, int c,
+                            int heads, int grid, int split, void* stream) {
+  const int d = c / heads;
+  if (b < 1 || nq < 1 || nk <= kMaxNkBf16 || d * heads != c ||
+      (split && nk > 2 * kMaxNkBf16))
+    return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (split && d == 32)
+    return dispatch_split<32>(q, k, v, out, b, nq, nk, heads, grid, s);
+  if (split && d == 64)
+    return dispatch_split<64>(q, k, v, out, b, nq, nk, heads, grid, s);
+  if (d == 32)
+    return launch_stream<32>(q, k, v, out, b, nq, nk, heads, grid, s);
+  if (d == 64)
+    return launch_stream<64>(q, k, v, out, b, nq, nk, heads, grid, s);
   return int(cudaErrorInvalidValue);
 }
 

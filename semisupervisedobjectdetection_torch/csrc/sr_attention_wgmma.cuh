@@ -54,9 +54,10 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
 // Hopper (227 KB), once per device; `done` holds one bit per device and
 // belongs to the caller's kernel instantiation. Launches above 48 KB are
 // refused without it.
+constexpr int kMaxSmemBytes = 232448;
+
 template <typename Kernel>
 cudaError_t opt_in_smem(Kernel* kernel, std::atomic<uint32_t>& done) {
-  constexpr int kMaxSmemBytes = 232448;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -236,6 +237,30 @@ __device__ __forceinline__ void wgmma_ss_n256(float* d, uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d (+)= A B for a 64 x 192 tile over k = 16: A (64 x 16) and B (192 x 16)
+// both K-major in shared memory (descriptors), d float32 in registers.
+__device__ __forceinline__ void wgmma_ss_n192(float* d, uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 0, 0;\n}\n"
+      : SR_F64(0), SR_F32(64)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // d (+)= A B for a 64 x 32 tile over k = 16: A (64 x 16) and B (32 x 16)
 // in shared memory (descriptors), K-major, or MN-major where TA / TB is 1
 // (wgmma's transpose bits); d float32 in registers.
@@ -278,6 +303,26 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b,
       "%24, %25, %26, %27, %28, %29, %30, %31"
       "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
       : SR_F32(0)
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// As wgmma_ss_n32 for a 64 x 128 tile.
+template <int TA = 0, int TB = 0>
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : SR_F64(0)
       : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
@@ -480,12 +525,15 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
     wgmma_rs_n32(d, a, b, accumulate);
 }
 
-// The shared-memory product of N columns (64, 32 or 16).
+// The shared-memory product of N columns (128, 64, 32 or 16).
 template <int N, int TA, int TB>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b,
                                          int accumulate) {
-  static_assert(N == 16 || N == 32 || N == 64, "N is 16, 32 or 64");
-  if constexpr (N == 64)
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128,
+                "N is 16, 32, 64 or 128");
+  if constexpr (N == 128)
+    wgmma_ss_n128<TA, TB>(d, a, b, accumulate);
+  else if constexpr (N == 64)
     wgmma_ss_n64<TA, TB>(d, a, b, accumulate);
   else if constexpr (N == 32)
     wgmma_ss_n32<TA, TB>(d, a, b, accumulate);
@@ -503,6 +551,28 @@ __device__ __forceinline__ void pack_a(const float* d, uint32_t* a) {
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) a[i] = pack(d[2 * i], d[2 * i + 1]);
 }
+
+// ---- the bf16 streaming kernels' shared memory (past 288 keys) ----
+
+// K1's two-sweep kernel and K2's row pass hold, in bytes from a
+// 1024-aligned base, a ring of K and V blocks (`kv_rows` keys of each),
+// four 64-row tiles of D bf16 (K1: each consumer's two query stages; the
+// row pass: each consumer's q and g) and kStreamBars mbarriers (the
+// tiles' and the ring's). `total` includes the slack that aligns the
+// dynamic buffer's base.
+constexpr int kStreamTiles = 4;
+constexpr int kStreamBars = 24;
+struct KVStreamLayout {
+  size_t k, v, tiles, bar, total;
+  __host__ __device__ KVStreamLayout(int d, int kv_rows) {
+    const size_t row = size_t(d) * sizeof(bf16);
+    k = 0;
+    v = k + size_t(kv_rows) * row;
+    tiles = v + size_t(kv_rows) * row;
+    bar = tiles + size_t(kStreamTiles) * 64 * row;
+    total = bar + kStreamBars * 8 + 1024;
+  }
+};
 
 // ---- tensor maps (host) ----
 

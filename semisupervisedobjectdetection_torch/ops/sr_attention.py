@@ -29,10 +29,14 @@ HEAD_DIMS = (32, 64)
 # The most keys the on-chip bfloat16 kernels hold (`kMaxNkBf16` in both
 # sources): one (batch, head)'s K and V sit on chip and the score row of a
 # query tile sits in registers (the forward's 64-row tile: 18 tiles of 16
-# keys). Past them the bfloat16 streaming kernels run, which, like the
-# float32 kernels, stream K and V in blocks: every kernel family takes any
-# Nk.
+# keys). Past them the bfloat16 kernels of `fwd_stream_plan` and
+# `bwd_launch_plan`'s stream plan run: every kernel family takes any Nk.
 BF16_ON_CHIP_NK = 288
+# The streaming key pass's key group: two 64-key M-tiles, one per consumer.
+STREAM_UNIT_KEYS = 128
+# Up to this many keys K2's row pass runs in one sweep with the score row
+# split over the two consumer warpgroups (12 16-key tiles each).
+BWD_SPLIT_ROWS_NK = 384
 # The bfloat16 backward (the wgmma kernel) walks 64-row query tiles, one
 # CTA an SM; the H100's SM count is the CPU's stand-in for the card's.
 BWD_WGMMA_ROW_TILE = 64
@@ -46,11 +50,14 @@ F32_KEY_PASS_ROWS = 32
 # Opt-in shared memory a block may use on Hopper (227 KB).
 MAX_SMEM_BYTES = 232448
 # The kernel a forward call of each dtype launches (`csrc/sr_attention_fwd.cu`)
-# up to `BF16_ON_CHIP_NK` keys; past them bfloat16 launches
-# `FWD_STREAM_KERNEL`.
+# up to `BF16_ON_CHIP_NK` keys; past them bfloat16 launches the kernel
+# `fwd_stream_plan` names: `FWD_SPLIT_KERNEL` up to `FWD_SPLIT_NK` keys,
+# `FWD_STREAM_KERNEL` past them.
 FWD_KERNELS = {torch.bfloat16: "sr_attention_fwd_wgmma_kernel",
                torch.float32: "sr_attention_fwd_f32_kernel"}
 FWD_STREAM_KERNEL = "sr_attention_fwd_wgmma_stream_kernel"
+FWD_SPLIT_KERNEL = "sr_attention_fwd_wgmma_split_kernel"
+FWD_SPLIT_NK = 2 * BF16_ON_CHIP_NK
 
 
 def streams_bf16(dtype: torch.dtype, nk: int) -> bool:
@@ -125,6 +132,10 @@ def declare_fwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sr_attention_fwd.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.sr_attention_fwd.restype = ctypes.c_int
+    if hasattr(lib, "sr_attention_fwd_stream"):  # absent before it
+        lib.sr_attention_fwd_stream.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        lib.sr_attention_fwd_stream.restype = ctypes.c_int
     lib.sr_attention_fwd_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.sr_attention_fwd_smem_bytes.restype = ctypes.c_size_t
     lib.sr_attention_fwd_wgmma_ctas_per_sm.argtypes = [ctypes.c_int] * 2
@@ -152,10 +163,11 @@ def declare_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
         + [launched, ctypes.c_void_p])
     lib.sr_attention_bwd_wgmma.restype = ctypes.c_int
-    if hasattr(lib, "sr_attention_bwd_wgmma_stream"):  # absent before it
-        lib.sr_attention_bwd_wgmma_stream.argtypes = \
-            lib.sr_attention_bwd.argtypes
-        lib.sr_attention_bwd_wgmma_stream.restype = ctypes.c_int
+    if hasattr(lib, "sr_attention_bwd_stream"):  # absent before it
+        lib.sr_attention_bwd_stream.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+            + [launched, ctypes.c_void_p])
+        lib.sr_attention_bwd_stream.restype = ctypes.c_int
     lib.sr_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.sr_attention_bwd_smem_bytes.restype = ctypes.c_size_t
     lib.sr_attention_bwd_error_string.argtypes = [ctypes.c_int]
@@ -320,15 +332,10 @@ def bwd_launch_plan(b: int, nq: int, nk: int, c: int, num_heads: int,
     few shapes every step); callers do not modify the dict.
 
     Past `BF16_ON_CHIP_NK` keys (`"stream": True`) the call runs the
-    streaming kernels (`sr_attention_bwd_wgmma_stream`): `_pass_plan` over
-    64-row key-pass query tiles, the float32 plan's layout."""
+    streaming kernels (`sr_attention_bwd_stream`) over `_stream_bwd_plan`'s
+    grids."""
     if nk > BF16_ON_CHIP_NK:
-        return dict(_pass_plan(b, nq, nk, c, num_heads, sms,
-                               BWD_WGMMA_ROW_TILE,
-                               ("sr_attention_bwd_wgmma_rows_kernel",
-                                "sr_attention_bwd_wgmma_keys_kernel",
-                                "sr_attention_bwd_wgmma_sum_kernel")),
-                    stream=True)
+        return _stream_bwd_plan(b, nq, nk, c, num_heads, sms)
     tiles = -(-nq // BWD_WGMMA_ROW_TILE)
     pairs = b * num_heads
     total = pairs * tiles
@@ -345,6 +352,120 @@ def bwd_launch_plan(b: int, nq: int, nk: int, c: int, num_heads: int,
             if split else 0,
             "kernels": ("sr_attention_bwd_wgmma_kernel",)
             + (("sr_attention_bwd_split_sum_kernel",) if split else ())}
+
+
+def _ranges(total: int, grid: int, granule: int = 1):
+    """CTA x of `grid` takes work items [x total / grid, (x + 1) total /
+    grid), counted in granules of `granule` items: the bounds, grid + 1 of
+    them."""
+    return [x * (total // granule) // grid * granule
+            for x in range(grid + 1)]
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_stream_plan(b: int, nq: int, nk: int, c: int, num_heads: int,
+                    sms: int = H100_SMS) -> dict:
+    """The launch of K1's bfloat16 streaming kernel past
+    `BF16_ON_CHIP_NK` keys (`sr_attention_fwd_stream`), which K2's row
+    pass shares: persistent CTAs over the T = B * heads * ceil(Nq / 64)
+    query tiles in (batch, head, tile) order, G = min(T, sms), CTA x
+    taking [x T / G, (x + 1) T / G), so every SM works and no CTA holds
+    more than one tile over another (a (batch, head) may span CTAs: each
+    loads its K and V); and K1's kernel: up to `FWD_SPLIT_NK` keys the
+    split kernel (one sweep, the score row split over the two consumers,
+    K and V whole in shared memory), past them the two-sweep kernel (K and
+    V streamed). Cached per shape; callers do not modify the dict."""
+    tiles = -(-nq // BWD_WGMMA_ROW_TILE)
+    total = b * num_heads * tiles
+    grid = min(total, sms)
+    bounds = _ranges(total, grid)
+    split = nk <= FWD_SPLIT_NK
+    return {"grid": grid, "tiles_per_pair": tiles, "tiles": total,
+            "cta_tiles": [e - s for s, e in zip(bounds, bounds[1:])],
+            "split": split,
+            "kernel": FWD_SPLIT_KERNEL if split else FWD_STREAM_KERNEL}
+
+
+def stream_segments(total: int, grid: int, per: int, granule: int = 1):
+    """CTA by CTA, the segments of a persistent grid of `grid` CTAs over
+    `total` work items in units of `per` consecutive items (a (batch,
+    head)'s query tiles, or a key pass's (batch, head, key group)'s), the
+    CTA ranges cut at multiples of `granule`: a list per CTA of (unit,
+    first, last) with first and last the unit's items (0-based) the segment
+    holds."""
+    bounds = _ranges(total, grid, granule)
+    out = []
+    for s, e in zip(bounds, bounds[1:]):
+        segs, u = [], s
+        while u < e:
+            unit = u // per
+            end = min(e, (unit + 1) * per)
+            segs.append((unit, u - unit * per, end - 1 - unit * per))
+            u = end
+        out.append(segs)
+    return out
+
+
+def _stream_bwd_plan(b: int, nq: int, nk: int, c: int, num_heads: int,
+                     sms: int) -> dict:
+    """K2's bfloat16 streaming launch: the row pass over
+    `fwd_stream_plan`'s grid (up to `BWD_SPLIT_ROWS_NK` keys its split
+    kernel: one sweep, the score row split over the two consumers; past
+    them two sweeps); the key pass over the W = B * heads * key
+    groups * q tiles units of work in (batch, head, key group, tile) order
+    (a key group is two 64-key M-tiles, one per consumer), G = min(W, sms)
+    persistent CTAs each taking a contiguous, equal range (of whole key
+    groups where that leaves the longest CTA within 1.1x the mean, as at
+    MiT-B5's stages 3 and 4 at batch 16: then no group spans two CTAs and
+    the split sum does not run). Where a CTA boundary cuts a (batch, head,
+    key group) its CTAs write float32 dk and dv to their slots (two per
+    CTA: its first and last segment) and the split sum adds a group's slots
+    in CTA order. `splits` is the most CTAs a key group spans."""
+    rows = fwd_stream_plan(b, nq, nk, c, num_heads, sms)
+    tiles = rows["tiles_per_pair"]
+    key_blocks = -(-nk // F32_KEY_BLOCK)
+    groups = -(-key_blocks // 2)
+    units = b * num_heads * groups
+    key_total = units * tiles
+    key_grid = min(key_total, sms)
+    granule = tiles if (units >= key_grid and 10 * -(-units // key_grid)
+                        * tiles * key_grid <= 11 * key_total) else 1
+    spans = [0] * units
+    for segs in stream_segments(key_total, key_grid, tiles, granule):
+        for unit, _, _ in segs:
+            spans[unit] += 1
+    split = max(spans) > 1
+    split_rows = nk <= BWD_SPLIT_ROWS_NK
+    return {"stream": True, "row_grid": rows["grid"],
+            "split_rows": split_rows, "q_tiles": tiles,
+            "key_blocks": key_blocks, "key_groups": groups,
+            "key_total": key_total, "key_grid": key_grid,
+            "key_granule": granule,
+            "splits": max(spans),
+            "stats_floats": b * num_heads * nq * 4,
+            "workspace_floats": (key_grid * 2 * 2 * STREAM_UNIT_KEYS
+                                 * (c // num_heads) if split else 0),
+            "kernels": ("sr_attention_bwd_wgmma_split_rows_kernel"
+                        if split_rows else
+                        "sr_attention_bwd_wgmma_rows_kernel",
+                        "sr_attention_bwd_wgmma_keys_kernel")
+            + (("sr_attention_bwd_split_sum_kernel",) if split else ())}
+
+
+def stream_key_work(plan: dict):
+    """The streaming key pass's work, CTA by CTA in launch order, as the
+    kernel walks it: (pair, key block, first and last query tile) for each
+    consumer that holds a key block, per segment."""
+    groups, tiles = plan["key_groups"], plan["q_tiles"]
+    work = []
+    for segs in stream_segments(plan["key_total"], plan["key_grid"], tiles,
+                                plan["key_granule"]):
+        for unit, first, last in segs:
+            pair, grp = divmod(unit, groups)
+            for kb in (2 * grp, 2 * grp + 1):
+                if kb < plan["key_blocks"]:
+                    work.append((pair, kb, first, last))
+    return work
 
 
 @functools.lru_cache(maxsize=None)
@@ -374,12 +495,19 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _fwd_limits(nk, c // num_heads, q.element_size()))
     bf16 = q.dtype == torch.bfloat16
     on_chip = bf16 and not streams_bf16(q.dtype, nk)
-    cpp = 0 if on_chip else f32_ctas_per_pair(b, nq, num_heads,
-                                              _sm_count(q.device.index))
     out = torch.empty_like(q)
-    err = _launch(lib.sr_attention_fwd, q.device, q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), out.data_ptr(), b, nq, nk, c, num_heads,
-                  _DTYPES[q.dtype], cpp)
+    if bf16 and not on_chip:
+        plan = fwd_stream_plan(b, nq, nk, c, num_heads,
+                               _sm_count(q.device.index))
+        err = _launch(lib.sr_attention_fwd_stream, q.device, q.data_ptr(),
+                      k.data_ptr(), v.data_ptr(), out.data_ptr(), b, nq, nk,
+                      c, num_heads, plan["grid"], int(plan["split"]))
+    else:
+        cpp = 0 if on_chip else f32_ctas_per_pair(
+            b, nq, num_heads, _sm_count(q.device.index))
+        err = _launch(lib.sr_attention_fwd, q.device, q.data_ptr(),
+                      k.data_ptr(), v.data_ptr(), out.data_ptr(), b, nq, nk,
+                      c, num_heads, _DTYPES[q.dtype], cpp)
     if err:
         raise RuntimeError(
             f"sr_attention_fwd launch failed: "
@@ -411,11 +539,12 @@ def sr_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     runs one kernel: the row statistics on chip, dk and dv in registers
     across each CTA's run of query tiles, over the grid of
     `bwd_launch_plan`; where that grid splits a (batch, head) over CTAs, a
-    second kernel sums their float32 parts in CTA order. Past them it
-    streams K and V through a row pass (row statistics to a float32
-    workspace, dq) and a key pass (dk and dv per 64-key M-tile over split
-    ranges of query tiles), with the split sum, as float32 does. float32
-    splits each product three ways on the TF32 tensor
+    second kernel sums their float32 parts in CTA order. Past them a row
+    pass (row statistics to a float32 workspace, dq; K and V streamed) and
+    a key pass (dk and dv per 64-key M-tile over runs of query tiles) run
+    over grids of one CTA an SM (`bwd_launch_plan`'s stream plan), with
+    the split sum where a key group spans CTAs. float32 splits each
+    product three ways on the TF32 tensor
     cores (3xTF32: hi = tf32(x), lo = tf32(x - hi), a b = a_lo b_hi +
     a_hi b_lo + a_hi b_hi, within ~1e-6 of float64; at most 495 / 3 = 165
     TFLOP/s) and streams K and V in blocks, over the grids of
@@ -457,10 +586,14 @@ def sr_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         if q.dtype == torch.bfloat16:
             plan = bwd_launch_plan(b, nq, nk, c, num_heads, sms)
-            fn = lib.sr_attention_bwd_wgmma_stream
+            fn = lib.sr_attention_bwd_stream
+            grids = (plan["row_grid"], int(plan["split_rows"]),
+                     plan["key_grid"], plan["key_granule"])
         else:
             plan = bwd_f32_plan(b, nq, nk, c, num_heads, sms)
             fn = lib.sr_attention_bwd
+            grids = (plan["row_ctas_per_pair"], plan["key_groups"],
+                     plan["splits"])
         stats = torch.empty(plan["stats_floats"], dtype=torch.float32,
                             device=q.device)
         part = torch.empty(plan["workspace_floats"], dtype=torch.float32,
@@ -469,9 +602,7 @@ def sr_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(),
                       dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
                       part.data_ptr() if plan["splits"] > 1 else None, b, nq,
-                      nk, c, num_heads, plan["row_ctas_per_pair"],
-                      plan["key_groups"], plan["splits"],
-                      ctypes.byref(launched))
+                      nk, c, num_heads, *grids, ctypes.byref(launched))
     if err:
         raise RuntimeError(
             f"sr_attention_bwd launch failed: "
@@ -524,9 +655,11 @@ def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     TMA, and sum in the tensor cores' order:
 
     - bfloat16: all of a (batch, head)'s K and V on chip and one full-row
-      softmax up to `BF16_ON_CHIP_NK` keys; past them K and V stream in
-      64-key blocks in two sweeps (the row max and sum, then the normalised
-      p rounded to bf16, the plain version's rounding point, and o += p v).
+      softmax up to `BF16_ON_CHIP_NK` keys; up to `FWD_SPLIT_NK` the same
+      one sweep with the score row split over the two consumer warpgroups;
+      past that K and V stream in 128-key blocks in two sweeps (the row max
+      and sum, then the normalised p rounded to bf16, the plain version's
+      rounding point, and o += p v; `fwd_stream_plan` picks the kernel).
       A small share of its outputs differ from the plain version's by an
       ulp or two. The function moves
       2*B*(Nq+Nk)*C elements and does 4*B*Nq*Nk*C flops, ~250 flops a byte
@@ -543,7 +676,8 @@ def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     `sr_attention.launches` counts forward kernel launches (not CPU calls),
     `sr_attention.mma_launches` those of the bfloat16 kernels and
-    `sr_attention.stream_launches` those of the bfloat16 streaming kernel.
+    `sr_attention.stream_launches` those of the bfloat16 kernels past
+    `BF16_ON_CHIP_NK` keys.
     """
     _check(q, k, v, num_heads)
     return SRAttention.apply(q, k, v, num_heads)

@@ -110,6 +110,25 @@ def kernels_launched(fn, match: str):
     return out, [name for _, name in found]
 
 
+def kernel_times_us(fn, match: str, iters: int = 5) -> dict:
+    """{kernel name: mean device microseconds per call} of the kernels whose
+    names hold `match` over `iters` calls of `fn()`, as `torch.profiler`
+    saw them on the card (names as `kernels_launched` gives them)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total: dict = {}
+    for e in prof.events():
+        m = re.search(match + r"[a-z0-9_]*?_kernel", e.name)
+        if e.device_type == torch.autograd.DeviceType.CUDA and m:
+            total[m.group(0)] = total.get(m.group(0), 0.0) + (
+                e.time_range.end - e.time_range.start)
+    return {name: us / iters for name, us in total.items()}
+
+
 def _write(prof, out: str) -> None:
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "table.txt"), "w") as f:

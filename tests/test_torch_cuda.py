@@ -21,9 +21,9 @@ import torch
 
 from semisupervisedobjectdetection_torch.ops.sr_attention import (
     FWD_KERNELS,
-    FWD_STREAM_KERNEL,
     bwd_f32_plan,
     bwd_launch_plan,
+    fwd_stream_plan,
     sr_attention,
     sr_attention_backward_reference,
     sr_attention_bwd,
@@ -169,12 +169,12 @@ def test_hopper_forward_at_main_path_shapes(cuda, b, nq, nk, c, h):
 def test_hopper_forward_refuses_what_it_cannot_run(cuda):
     """A non-contiguous input raises before any launch; Nk 289 (one key
     past the on-chip kernel's 288) is no longer refused: it launches the
-    streaming kernel, once."""
+    kernel its streaming plan names (the split kernel), once."""
     before = sr_attention.launches, sr_attention.mma_launches
     q, k, v = _qkv(cuda, 1, 64, 289, 64, torch.bfloat16)
     _, ran = kernels_launched(lambda: sr_attention(q, k, v, 1),
                               "sr_attention_fwd")
-    assert ran == [FWD_STREAM_KERNEL]
+    assert ran == [fwd_stream_plan(1, 64, 289, 64, 1)["kernel"]]
     before = before[0] + 1, before[1] + 1
     q, k, v = _qkv(cuda, 1, 64, 96, 128, torch.bfloat16)
     with pytest.raises(ValueError, match="contiguous"):
@@ -346,16 +346,23 @@ def test_bwd_kernel_rejects_what_it_cannot_run(cuda):
         sr_attention_bwd(q, k, v, q, 1)
 
 
-# bfloat16 past the 288 keys its on-chip kernels hold (the streaming
-# forward; the backward's row pass, key pass and split sum): Nk 289 (one
-# key past), 300, 356 (100 prompt tokens at 512x512), 512 and 1024 (stage
-# 1 at 1024x1024), each at head width 64 and 32, Nq off the 64-row tile.
+# bfloat16 past the 288 keys its on-chip kernels hold (the forward's split
+# kernel up to 576 keys and its two-sweep kernel past them; the backward's
+# row pass, key pass and split sum): Nk 289 (one key past), 300, 356 (100
+# prompt tokens at 512x512), 512 and 1024 (stage 1 at 1024x1024), each at
+# head width 64 and 32, Nq off the 64-row tile; and the most keys the
+# split kernels hold and one more (the forward's 576 and 577, the row
+# pass's 384 and 385, at head width 64 and 32).
 STREAM_SHAPES = [
     (2, 1000, 289, 64, 1), (1, 333, 289, 32, 1),
     (2, 150, 300, 64, 1), (3, 77, 300, 64, 2),
     (2, 1124, 356, 320, 5), (2, 4196, 356, 128, 4),
     (1, 1000, 512, 64, 1), (3, 129, 512, 64, 2),
     (1, 4096, 1024, 64, 1), (2, 100, 1024, 256, 8),
+    (2, 1000, 576, 64, 1), (2, 1000, 577, 64, 1),
+    (2, 500, 576, 64, 2), (2, 500, 577, 64, 2),
+    (2, 1000, 384, 64, 1), (2, 1000, 385, 64, 1),
+    (2, 500, 384, 64, 2), (2, 500, 385, 64, 2),
 ]
 
 
@@ -373,11 +380,11 @@ def test_bf16_streaming_kernels_past_288_keys(cuda, b, nq, nk, c, h):
     out = sr_attention(q, k, v, h)
     again, ran = kernels_launched(lambda: sr_attention(q, k, v, h),
                                   "sr_attention_fwd")
-    assert ran == [FWD_STREAM_KERNEL]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert ran == [fwd_stream_plan(b, nq, nk, c, h, sms)["kernel"]]
     got = sr_attention_bwd(q, k, v, g, h)
     again_bwd, ran = kernels_launched(
         lambda: sr_attention_bwd(q, k, v, g, h), "sr_attention_bwd")
-    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     plan = bwd_launch_plan(b, nq, nk, c, h, sms)
     assert plan["stream"] and tuple(ran) == plan["kernels"]
     assert sr_attention_bwd.last_launches == len(ran)

@@ -32,6 +32,7 @@ from semisupervisedobjectdetection_torch.ops.sr_attention import (
     sr_attention_backward_reference,
     sr_attention_bwd,
     sr_attention_reference,
+    stream_key_work,
 )
 from test_torch_segformer import one_torch_thread  # noqa: F401 (autouse)
 
@@ -222,41 +223,47 @@ def test_wgmma_launch_plan_fills_the_card(b, nq, nk, c, h, grid, split):
 
 @pytest.mark.parametrize("b,nq,nk,c,h,splits", [
     (2, 16428, 300, 64, 1, 22),    # stage 1, a 44-token prefix: Nk 300
-    (16, 16484, 356, 64, 1, 2),    # stage 1 with 100 prompt tokens
+    (16, 16484, 356, 64, 1, 4),    # stage 1 with 100 prompt tokens
     (16, 1124, 356, 320, 5, 1),    # stage 3 with 100 prompt tokens
-    (1, 65536, 1024, 64, 1, 16),   # stage 1 at 1024x1024 (Nk 1024)
+    (1, 65536, 1024, 64, 1, 17),   # stage 1 at 1024x1024 (Nk 1024)
     (3, 129, 289, 64, 2, 3),       # one key past the on-chip kernel's
 ])
 def test_bf16_plan_past_288_keys_streams(b, nq, nk, c, h, splits):
     """bfloat16 past 288 keys (`bwd_launch_plan` with `"stream": True`):
-    the row pass, the key pass over 64-row query tiles split into as many
-    contiguous ranges as fill the SMs once, and the split sum where there
-    are splits; every (query tile, 64-key M-tile) pair of every (batch,
-    head) covered exactly once, in split order; the workspaces follow the
-    split count. Up to 288 keys the on-chip kernel's plan stays."""
+    the row pass over `fwd_stream_plan`'s grid (in one sweep, the score
+    row split over the consumers, up to 384 keys), the key pass over its
+    (batch, head, key group, 64-row query tile) work cut into equal
+    contiguous ranges, one CTA an SM, and the split sum where a key group
+    spans CTAs (`splits` the most CTAs one spans); every (query tile,
+    64-key M-tile) pair of every (batch, head) covered exactly once, in
+    CTA order; the workspaces follow the cuts. Up to 288 keys the on-chip
+    kernel's plan stays."""
     plan = bwd_launch_plan(b, nq, nk, c, h)
     pairs, tiles = b * h, -(-nq // BWD_WGMMA_ROW_TILE)
     blocks = -(-nk // F32_KEY_BLOCK)
     assert plan["stream"] and plan["splits"] == splits
     assert plan["q_tiles"] == tiles and plan["key_blocks"] == blocks
-    assert plan["key_grid"] == pairs * plan["key_groups"] * splits
-    assert plan["key_grid"] <= H100_SMS or splits == 1
-    assert splits == tiles or (pairs * plan["key_groups"] * (splits + 1)
-                               > H100_SMS)
+    assert plan["key_total"] == pairs * plan["key_groups"] * tiles
+    assert plan["key_grid"] == min(plan["key_total"], H100_SMS)
+    assert plan["row_grid"] == min(pairs * tiles, H100_SMS)
     seen = {}
-    for pair, kb, first, last in bwd_f32_key_work(plan, pairs):
+    for pair, kb, first, last in stream_key_work(plan):
         seen.setdefault((pair, kb), []).append((first, last))
     assert sorted(seen) == [(p, kb) for p in range(pairs)
                             for kb in range(blocks)]
     for ranges in seen.values():
         assert ranges[0][0] == 0 and ranges[-1][1] == tiles - 1
         assert all(r[1] + 1 == n[0] for r, n in zip(ranges, ranges[1:]))
+        assert len(ranges) <= splits
+    assert max(len(r) for r in seen.values()) == splits
     assert plan["stats_floats"] == pairs * nq * 4
-    assert plan["workspace_floats"] == (splits * 2 * b * nk * c
-                                        if splits > 1 else 0)
-    assert plan["kernels"] == ("sr_attention_bwd_wgmma_rows_kernel",
-                               "sr_attention_bwd_wgmma_keys_kernel") + (
-        ("sr_attention_bwd_wgmma_sum_kernel",) if splits > 1 else ())
+    assert plan["workspace_floats"] == (
+        plan["key_grid"] * 2 * 2 * 128 * (c // h) if splits > 1 else 0)
+    rows = ("sr_attention_bwd_wgmma_split_rows_kernel" if nk <= 384
+            else "sr_attention_bwd_wgmma_rows_kernel")
+    assert plan["split_rows"] == (nk <= 384)
+    assert plan["kernels"] == (rows, "sr_attention_bwd_wgmma_keys_kernel") + (
+        ("sr_attention_bwd_split_sum_kernel",) if splits > 1 else ())
     assert not bwd_launch_plan(b, nq, 288, c, h)["stream"]
     assert bwd_launch_plan(b, nq, 288, c, h)["kernels"][0] == \
         "sr_attention_bwd_wgmma_kernel"

@@ -6,7 +6,8 @@ same numpy inputs and the same weights on both sides:
   and the mean-teacher EMA (`train/teacher_student.py::ema_update`);
 - the model's logits and every parameter gradient against
   `jax.value_and_grad` of the JAX model on the tiny config of
-  tests/test_torch_segformer.py, under remat;
+  tests/test_torch_segformer.py, under remat (the JAX side in a fresh
+  interpreter, tests/_grad_parity_main.py);
 - a 3-step float32 trajectory of `train/ema.py::ema_semi_step` against the
   JAX `ema_semi_step`, from one state carried across with
   `train_state_from_flax`, at accum 1 and 2;
@@ -17,6 +18,9 @@ import contextlib
 import copy
 import io
 import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -224,21 +228,27 @@ def test_ema_update_matches_jax():
 
 # ---- model gradients ----------------------------------------------------
 
-@pytest.mark.parametrize("case", ["shared_prompts_cls",
-                                  "per_layer_prompts_cls"])
-def test_gradients_match_jax_value_and_grad(case):
-    """The EMA step's student loss (0.8 dice to GT + 0.2 dice to a teacher
-    mask) on the tiny config with prompt tokens and a CLS token at every
-    stage, both sides under full remat: logits, loss and every parameter
-    gradient. float32 sums in another order through 6 layers, forward and
-    back: gradients agree to 1e-5 of the largest gradient."""
+def _grad_inputs(case: str):
+    """The JAX config, seeded variables and numpy inputs of
+    `test_gradients_match_jax_value_and_grad` (no XLA compile: the
+    variables come from `jax.eval_shape` and seeded numpy)."""
     jcfg = JCfg(**TINY, **CASES[case])
-    cfg = MiTConfig(**TINY, **CASES[case])
     v = jax_variables(jcfg, seed=1)
     rng = np.random.default_rng(2)
     x = rng.uniform(size=(2, SIZE, SIZE, 3)).astype(np.float32)
     gt = (rng.uniform(size=(2, SIZE, SIZE)) > 0.6).astype(np.float32)
     tm = (rng.uniform(size=(2, SIZE, SIZE)) > 0.4).astype(np.float32)
+    return jcfg, v, x, gt, tm
+
+
+def jax_value_and_grad(case: str) -> dict:
+    """The JAX side of `test_gradients_match_jax_value_and_grad`, run by
+    tests/_grad_parity_main.py in a fresh interpreter (the jit of the
+    loss's value and gradient is a large new executable, which the XLA:CPU
+    compile cache can abort on in a long-lived worker): the loss, the
+    logits and every parameter gradient under the port's names, as numpy
+    arrays."""
+    jcfg, v, x, gt, tm = _grad_inputs(case)
 
     def loss_fn(params):
         logits, _ = JSegFormer(jcfg).apply(
@@ -249,7 +259,34 @@ def test_gradients_match_jax_value_and_grad(case):
 
     (jloss, jlogits), jgrads = jax.jit(
         jax.value_and_grad(loss_fn, has_aux=True))(v["params"])
+    out = {"loss": np.asarray(jloss), "logits": np.asarray(jlogits)}
+    cfg = MiTConfig(**TINY, **CASES[case])
+    for n, g in state_dict_from_flax(
+            cfg, jax.tree.map(np.asarray, jgrads)).items():
+        out[f"grad/{n}"] = g.numpy()
+    return out
 
+
+@pytest.mark.parametrize("case", ["shared_prompts_cls",
+                                  "per_layer_prompts_cls"])
+def test_gradients_match_jax_value_and_grad(case, tmp_path):
+    """The EMA step's student loss (0.8 dice to GT + 0.2 dice to a teacher
+    mask) on the tiny config with prompt tokens and a CLS token at every
+    stage, both sides under full remat: logits, loss and every parameter
+    gradient. float32 sums in another order through 6 layers, forward and
+    back: gradients agree to 1e-5 of the largest gradient. The JAX side
+    (`jax_value_and_grad`) runs in a fresh interpreter and hands its arrays
+    over in a file."""
+    path = tmp_path / "jax_grads.npz"
+    script = os.path.join(os.path.dirname(__file__), "_grad_parity_main.py")
+    proc = subprocess.run([sys.executable, script, case, str(path)],
+                          capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0 and "grad-parity-jax-ok" in proc.stdout, (
+        f"the JAX side failed:\n{proc.stdout[-3000:]}\n"
+        f"{proc.stderr[-3000:]}")
+    ref = dict(np.load(path))
+    _, v, x, gt, tm = _grad_inputs(case)
+    cfg = MiTConfig(**TINY, **CASES[case])
     model = SegFormer(cfg)
     model.load_state_dict(state_dict_from_flax(cfg, v["params"],
                                                v["batch_stats"]))
@@ -259,13 +296,13 @@ def test_gradients_match_jax_value_and_grad(case):
         0.2 * losses.dice_loss(m, _t(tm))
     params = dict(model.named_parameters())
     grads = grads_of(loss, params)
-    _close(logits, jlogits, atol=1e-4, rtol=1e-4)
-    _close(loss, jloss, atol=1e-6)
-    ref = state_dict_from_flax(cfg, jax.tree.map(np.asarray, jgrads))
-    scale = max(float(np.abs(ref[n].numpy()).max()) for n in params)
+    _close(logits, ref["logits"], atol=1e-4, rtol=1e-4)
+    _close(loss, ref["loss"], atol=1e-6)
+    scale = max(float(np.abs(ref[f"grad/{n}"]).max()) for n in params)
     assert set(grads) == set(params)
     for n, g in grads.items():
-        _close(g, ref[n], atol=1e-5 * scale, rtol=1e-3, err_msg=n)
+        _close(g, ref[f"grad/{n}"], atol=1e-5 * scale, rtol=1e-3,
+               err_msg=n)
 
 
 # ---- the EMA step -------------------------------------------------------
