@@ -242,6 +242,43 @@ non-zero before the final line:
                 launched at Nk 266 and Nk 356 (the 100-token points on the
                 bf16 streaming kernels), 208 K1 and 104 K2 per train step
                 and 52 K1 per eval batch.
+26. quant_serve - quantized serving at MiT-B5 512x512 bf16 --perf, seeded
+                weights, batch 8: `ops/quant.py::QLinear` on the card's
+                int8 and fp8 GEMMs against its plain product at every B5
+                dense shape (and cls_proj's batch-8 rows): int8 bit-equal,
+                fp8 within 1e-3 of each output's largest, with the device
+                ms of each path and of a bf16 `F.linear`; the int8 and fp8
+                `predict` masks against the float32 model's on 8 seeded
+                images, at the JAX package's bounds: binarised agreement
+                above 0.98 (int8) and 0.97 (fp8) at B5 widths and the
+                5-layer depth those bounds were set at (1, 1, 2, 1), and
+                int8's also at the full depth (fp8's printed there: the
+                untrained 52 layers leave the probabilities within a few
+                hundredths of 0.5, where e4m3 flips ~5% of the pixels);
+                |dice delta| against a seeded target at most 0.01 at both
+                depths;
+                device ms, host ms and 52 K1 launches per batch-8 predict
+                in bf16, int8 and fp8; a `save_quantized` /
+                `load_quantized` round trip into a fresh model giving the
+                same masks bit for bit; `cli/serve.py::main --int8
+                --int8-snapshot` in this process (snapshot written,
+                /healthz quant int8), its raw and PNG replies equal to
+                `predict` of the padded batch, binarised.
+27. int8_teacher - the flagship EMA step (32 + 32 images, microbatches of
+                16) with the int8 teacher: two float-teacher steps and three
+                `ema_semi_step_int8` steps from one seeded state, the first
+                steps' kept counts and pseudo-mask agreement side by side,
+                finite losses, 312 K1 and 104 K2 launches a step, the
+                snapshot bit-unchanged while the teacher moved, step ms
+                and peak memory; then one epoch of `cli/teacher_student.py
+                --ema-mode --int8-teacher` at the CLI point: one snapshot,
+                312/104 launches a train step, 2 x 52 per eval batch.
+28. sliding_raster - `cli/supervised.py --predict --sliding-raster` on a
+                seeded 1200 x 1500 PNG (window 512, overlap 64: 12 windows
+                in 2 batches of 8, the second padded), plain and with
+                --int8: the PNG written equals the numpy blend of
+                `SegFormerModel.predict` over the same windows byte for
+                byte, 104 K1 launches a run.
 
 Then the `kernels` summary line, the `nvidia-smi` name/power-limit line and,
 last, {"ok": true, "device": {...}}.
@@ -416,6 +453,31 @@ FEWSHOT_AE_K = (2 * FEWSHOT_SEG_K[0], 2 * FEWSHOT_SEG_K[1])    # 416, 208
 # group), 4 eval tiles in one batch, 4 iterations an epoch.
 FEWSHOT_CLI_TILES = 6
 FEWSHOT_CLI_ITERS = 4
+# Quantized serving (quant_serve): the masks of the int8 and fp8 snapshots
+# against the float32 model's, at the JAX package's own bounds
+# (tests/test_quant.py: binarised agreement above 0.98 int8 and 0.97 fp8;
+# tests/_quant_delta_main.py: the binarised dice against a target within
+# 0.01). QLinear on the card against its plain product: int8 bit-equal,
+# fp8 within 1e-3 of each output's largest value (the plain product sums
+# the same exact e4m3 products in float32 in another order).
+# The JAX package set its agreement bounds on a 5-layer model (depths 1, 1,
+# 2, 1); through 52 untrained layers the seeded B5's probabilities sit
+# within a few hundredths of 0.5, where a binarised pixel flips on noise
+# (bf16 alone flips ~1% against float32, fp8's e4m3 about 5%). So the
+# agreement bounds hold the quantized masks at B5 widths at that depth
+# (QUANT_GATE_DEPTHS) in both widths, and at the full depth in int8; the
+# full depth's fp8 agreement is printed, and the dice bound holds at both
+# depths.
+QUANT_KINDS = ("int8", "fp8")
+QUANT_AGREE = {"int8": 0.98, "fp8": 0.97}
+QUANT_DICE_DELTA = 0.01
+QUANT_GATE_DEPTHS = (1, 1, 2, 1)
+QLINEAR_FP8_TOL = 1e-3
+# The sliding raster (sliding_raster): a 1200 x 1500 scene in 512-pixel
+# windows overlapping by 64, 3 rows x 4 columns = 12 windows, predicted in
+# batches of 8 (the second padded).
+RASTER_HW = (1200, 1500)
+RASTER_WINDOW, RASTER_OVERLAP, RASTER_BATCH = 512, 64, 8
 
 
 def emit(obj) -> None:
@@ -2212,6 +2274,494 @@ def phase_tune_cli(smi: str):
     return row
 
 
+def _b5_dense_shapes(batch):
+    """(rows, in, out, layers) of every distinct dense shape of MiT-B5 at
+    512x512 on `batch` images: per stage query and the attention output,
+    key and value (the 256 reduced tokens), dense1, dense2 and the decode
+    head's linear_c; then cls_proj of a model with CLS tokens (one row per
+    image)."""
+    out = []
+    for i, (nq, nk, c, _) in enumerate(STAGE_SHAPES):
+        out += [(batch * nq, c, c, f"stage {i} query, attention output"),
+                (batch * nk, c, c, f"stage {i} key, value"),
+                (batch * nq, c, 4 * c, f"stage {i} dense1"),
+                (batch * nq, 4 * c, c, f"stage {i} dense2"),
+                (batch * nq, c, 768, f"linear_c_{i}")]
+    return out + [(batch, 512, 768, "cls_proj (a model with CLS tokens)")]
+
+
+def _qlinear_rows():
+    """QLinear (bf16 in, float32 out: the model casts it to bf16, where two
+    float32 sums one ulp apart can round to two bf16 values) on the card's
+    GEMMs against its plain product on the same inputs, at every B5 dense
+    shape at batch 8, both widths: the error, and the device ms of the card
+    path, the plain path and a bf16 `F.linear` of the same float weights
+    (a yardstick)."""
+    import torch
+    import torch.nn.functional as F
+
+    from semisupervisedobjectdetection_torch.ops.quant import QLinear
+
+    dev = torch.device("cuda")
+    rows = []
+    for m, k, n, what in _b5_dense_shapes(BATCH):
+        g = torch.Generator(device=dev).manual_seed(SEED + m + k + n)
+        w = torch.randn(n, k, device=dev, generator=g) * 0.02
+        b = torch.randn(n, device=dev, generator=g) * 0.02
+        x = torch.randn(m, k, device=dev, generator=g).bfloat16()
+        wb, bb = w.bfloat16(), b.bfloat16()
+        with torch.inference_mode():
+            linear_ms = cuda_ms(lambda: F.linear(x, wb, bb), iters=10,
+                                warmup=2)
+            for kind in QUANT_KINDS:
+                layer = QLinear(k, n, kind, torch.float32).to(dev)
+                layer.set_from(w, b)
+                got, want = layer(x), layer(x, plain=True)
+                err = (got - want).abs().max().item()
+                top = want.abs().max().item()
+                rows.append({
+                    "kind": kind, "rows": m, "in": k, "out": n,
+                    "layers": what, "max_abs_err": err, "out_max": top,
+                    "ok": bool(torch.isfinite(got).all()) and (
+                        err == 0.0 if kind == "int8"
+                        else err <= QLINEAR_FP8_TOL * top),
+                    "ms": cuda_ms(lambda: layer(x), iters=10, warmup=2),
+                    "plain_ms": cuda_ms(lambda: layer(x, plain=True),
+                                        iters=3, warmup=1),
+                    "bf16_linear_ms": linear_ms})
+                del layer, got, want
+    return rows
+
+
+def _forward_ms(model, x):
+    """Device ms of one forward of `model` on the device batch `x`
+    (`cuda_ms`), and host ms of one `predict`-style call ended by the copy
+    of its masks to the host."""
+    import torch
+
+    from semisupervisedobjectdetection_torch.models.segformer import (
+        forward_masks,
+    )
+
+    with torch.inference_mode():
+        dev_ms = cuda_ms(lambda: forward_masks(model, x), iters=5, warmup=1)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            forward_masks(model, x)[0].cpu()
+        host_ms = (time.perf_counter() - t0) / 3 * 1e3
+    return dev_ms, host_ms
+
+
+def phase_quant_serve(smi: str):
+    """Quantized serving at MiT-B5 512x512 bf16 --perf, seeded weights,
+    batch 8: QLinear on the card against its plain product at every B5
+    dense shape; the int8 and fp8 `predict` masks against the float32
+    model's (agreement and binarised dice against a seeded target, at the
+    full depth and at QUANT_GATE_DEPTHS); a
+    snapshot round trip into a fresh model; `cli/serve.py::main --int8
+    --int8-snapshot` in this process, its raw and PNG replies equal to
+    `predict` of the padded batch; device ms, host ms and K1 launches per
+    batch-8 predict in bf16, int8 and fp8."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from semisupervisedobjectdetection_torch import losses
+    from semisupervisedobjectdetection_torch.api import SegFormerModel
+    from semisupervisedobjectdetection_torch.cli import serve
+    from semisupervisedobjectdetection_torch.core.config import mit_b5
+
+    qrows = _qlinear_rows()
+    emit({"phase": "quant_serve", "qlinear": qrows, "card": smi})
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = mit_b5(dtype="bfloat16", gelu_approx=True)
+    rng = np.random.default_rng(SEED + 20)
+    x = rng.uniform(size=(BATCH, IMG, IMG, 3)).astype(np.float32)
+    target = (rng.uniform(size=(BATCH, IMG, IMG)) > 0.7).astype(np.float32)
+    xt = torch.from_numpy(x).cuda()
+
+    def dice(masks):
+        return 1.0 - float(losses.dice_argmax_loss(
+            torch.from_numpy(masks), torch.from_numpy(target)))
+
+    def against(masks, ref):
+        return {"agree_vs_float32": float(((masks > 0.5) == (ref > 0.5))
+                                          .mean()),
+                "max_abs_err_vs_float32": float(np.abs(masks - ref).max()),
+                "dice_delta_vs_float32": abs(dice(masks) - dice(ref)),
+                "finite": bool(np.isfinite(masks).all())}
+
+    # at the depth of the JAX package's bounds, B5 widths
+    shallow = cfg.replace(depths=QUANT_GATE_DEPTHS)
+    ref = SegFormerModel(config=shallow.replace(dtype="float32"), seed=SEED)
+    f32 = ref.predict(x)
+    small = SegFormerModel(config=shallow, seed=SEED)
+    gate_depth = {}
+    for kind in QUANT_KINDS:
+        small.quantize(kind)
+        gate_depth[kind] = against(small.predict(x), f32)
+    ref = SegFormerModel(config=cfg.replace(dtype="float32"), seed=SEED)
+    f32 = ref.predict(x)
+    del ref, small
+    torch.cuda.empty_cache()
+    model = SegFormerModel(config=cfg, seed=SEED)
+    paths = {}
+    for kind in ("none",) + QUANT_KINDS:
+        if kind != "none":
+            model.quantize(kind)
+        _reset_counts()
+        masks = model.predict(x)
+        launches = _counts()
+        dev_ms, host_ms = _forward_ms(model.model, xt)
+        paths[kind] = {"launches_k1_k2_k1mma": launches,
+                       "device_ms": dev_ms, "host_ms": host_ms,
+                       "dice": dice(masks), **against(masks, f32)}
+    dice_f32 = dice(f32)
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_quant_")
+    try:
+        model.quantize("int8")
+        snap = os.path.join(root, "b5_int8.pt")
+        model.save_quantized(snap)
+        fresh = SegFormerModel(config=cfg, seed=SEED + 1)
+        fresh.load_quantized(snap)
+        round_trip = bool(np.array_equal(fresh.predict(x),
+                                         model.predict(x)))
+        snap_bytes = os.path.getsize(snap)
+        del fresh
+        torch.cuda.empty_cache()
+        tiles = (x[:3] * 255).astype(np.uint8)
+        got = {}
+
+        def serve_then_stop(srv):
+            base = f"http://127.0.0.1:{srv._httpd.server_address[1]}"
+            try:
+                with urllib.request.urlopen(base + "/healthz",
+                                            timeout=60) as r:
+                    got["health"] = json.loads(r.read())
+                _reset_counts()
+                got["raw"] = [_post(base + "/predict", t.tobytes(),
+                                    raw=True)[2] for t in tiles[:2]]
+                got["png"] = _post(base + "/predict", _png(tiles[2]),
+                                   raw=False)[2]
+                got["launches"] = _counts()
+            finally:
+                srv.stop()
+
+        real = serve._serve_until_signal
+        serve._serve_until_signal = serve_then_stop
+        try:
+            t0 = time.perf_counter()
+            serve.main(["--variant", "b5", "--img-size", str(IMG),
+                        "--perf", "--max-batch", str(BATCH), "--port", "0",
+                        "--int8", "--int8-snapshot",
+                        os.path.join(root, "served_int8.pt")])
+            serve_s = time.perf_counter() - t0
+        finally:
+            serve._serve_until_signal = real
+        served_snapshot = os.path.exists(os.path.join(root,
+                                                      "served_int8.pt"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    want = []
+    for t in tiles:
+        padded = np.zeros((BATCH, IMG, IMG, 3), np.float32)
+        padded[0] = t.astype(np.float32) / 255.0
+        want.append((model.predict(padded)[0] >= 0.5).astype(np.uint8)
+                    * 255)
+    del model
+    torch.cuda.empty_cache()
+    raw_equal = [r == w.tobytes() for r, w in zip(got["raw"], want)]
+    png_equal = bool(np.array_equal(
+        np.asarray(Image.open(io.BytesIO(got["png"]))), want[2]))
+    per = sum(B5_DEPTHS)
+    row = {"phase": "quant_serve", "variant": "b5", "img": IMG,
+           "dtype": "bfloat16", "batch": BATCH, "paths": paths,
+           "dice_float32": dice_f32,
+           "at_gate_depth": {"depths": list(QUANT_GATE_DEPTHS),
+                             **gate_depth},
+           "snapshot_round_trip": round_trip,
+           "snapshot_bytes": snap_bytes, "serve_s": serve_s,
+           "serve_snapshot_written": served_snapshot,
+           "served_raw_equal_predict": raw_equal,
+           "served_png_equal_predict": png_equal,
+           "served_launches_k1_k2_k1mma": got["launches"],
+           "healthz": got["health"],
+           "bounds": {"agree": QUANT_AGREE, "dice_delta": QUANT_DICE_DELTA,
+                      "agree_full_depth": {"int8": QUANT_AGREE["int8"]},
+                      "qlinear_fp8": QLINEAR_FP8_TOL},
+           "card": smi}
+    emit(row)
+    bad = [r for r in qrows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"QLinear on the card disagrees with its "
+                             f"plain product: {bad}")
+    for kind in QUANT_KINDS:
+        for p in (paths[kind], gate_depth[kind]):
+            if not p["finite"] or \
+                    p["dice_delta_vs_float32"] > QUANT_DICE_DELTA:
+                raise AssertionError(f"{kind} masks against float32: {p}")
+        if gate_depth[kind]["agree_vs_float32"] <= QUANT_AGREE[kind]:
+            raise AssertionError(f"{kind} masks against float32 at depths "
+                                 f"{QUANT_GATE_DEPTHS}: {gate_depth[kind]}")
+    if paths["int8"]["agree_vs_float32"] <= QUANT_AGREE["int8"]:
+        raise AssertionError(f"int8 masks against float32: {paths['int8']}")
+    if any(p["launches_k1_k2_k1mma"] != (per, 0, per)
+           for p in paths.values()) or \
+            got["launches"] != (3 * per, 0, 3 * per):
+        raise AssertionError(f"K1 launches per predict "
+                             f"{[p['launches_k1_k2_k1mma'] for p in paths.values()]}"
+                             f", served {got['launches']}")
+    if not round_trip or not all(raw_equal) or not png_equal or \
+            not served_snapshot or got["health"].get("quant") != "int8":
+        raise AssertionError(f"snapshot round trip {round_trip}, served "
+                             f"raw {raw_equal}, png {png_equal}, snapshot "
+                             f"{served_snapshot}, {got['health']}")
+    return row
+
+
+def phase_int8_teacher(smi: str):
+    """The flagship EMA step with the int8 teacher (MiT-B5 512x512 bf16,
+    32 + 32 images in microbatches of 16): two float-teacher steps and
+    three int8-teacher steps from one seeded state, the kept counts and
+    pseudo-masks of the first of each beside each other; the snapshot bit-unchanged
+    while the teacher moved; then one epoch of `cli/teacher_student.py
+    --ema-mode --int8-teacher` at the CLI point."""
+    import copy
+    import math
+    import tempfile
+
+    import torch
+
+    from semisupervisedobjectdetection_torch import bench
+    from semisupervisedobjectdetection_torch.cli import teacher_student
+    from semisupervisedobjectdetection_torch.train.ema import (
+        make_teacher_int8_snapshot,
+    )
+
+    dev = torch.device("cuda")
+    w = bench.make_workload(bench.flagship_config(), TEACHER_BATCH, IMG,
+                            ACCUM, dev, seed=SEED)
+    wf = bench.Workload(copy.deepcopy(w.teacher), copy.deepcopy(w.student),
+                        w.unlabeled, w.images, w.masks, ACCUM)
+    float_steps = []
+    for i in range(2):
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_f = wf.step()
+        float_steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                            "loss": float(out_f.student_loss_total),
+                            "kept": float(out_f.n_kept),
+                            "launches_k1_k2_k1mma": _counts()})
+        if i == 0:
+            mask_f = out_f.pseudo_mask.clone()
+    del wf, out_f
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    w.teacher_int8 = make_teacher_int8_snapshot(w.teacher)
+    torch.cuda.synchronize()
+    snapshot_ms = (time.perf_counter() - t0) * 1e3
+    before = {n: t.clone() for n, t in w.teacher_int8.state_dict().items()}
+    teacher0 = {n: p.detach().clone() for n, p in w.teacher.params.items()}
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(3):
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = w.step()
+        loss = float(out.student_loss_total)
+        steps.append({"ms": (time.perf_counter() - t0) * 1e3, "loss": loss,
+                      "kept": float(out.n_kept),
+                      "launches_k1_k2_k1mma": _counts()})
+        if i == 0:
+            first = {"kept": float(out.n_kept),
+                     "pseudo_mask_agree_vs_float_teacher": float(
+                         (out.pseudo_mask == mask_f).float().mean())}
+    peak = torch.cuda.max_memory_allocated()
+    frozen = all(torch.equal(t, before[n]) for n, t in
+                 w.teacher_int8.state_dict().items())
+    moved = sum(not torch.equal(p, teacher0[n])
+                for n, p in w.teacher.params.items())
+    del w, out, before, teacher0
+    torch.cuda.empty_cache()
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_int8t_")
+    old_tmp, tempfile.tempdir = tempfile.tempdir, root
+    snapshots = []
+    real = teacher_student.make_teacher_int8_snapshot
+
+    def counted(state):
+        snapshots.append(1)
+        return real(state)
+
+    teacher_student.make_teacher_int8_snapshot = counted
+    argv = ["--ema-mode", "--int8-teacher"] + _cli_point() + [
+        "--epochs", "1", "--checkpoint-dir", os.path.join(root, "ck"),
+        "--metrics-csv", os.path.join(root, "m.csv")]
+    try:
+        _reset_counts()
+        t0 = time.perf_counter()
+        reports = teacher_student.main(argv)
+        cli_s = time.perf_counter() - t0
+        cli_launches = _counts()
+        rows = _csv_rows(os.path.join(root, "m.csv"))
+    finally:
+        teacher_student.make_teacher_int8_snapshot = real
+        tempfile.tempdir = old_tmp
+        shutil.rmtree(root, ignore_errors=True)
+    row = {"phase": "int8_teacher", "variant": "b5", "img": IMG,
+           "dtype": "bfloat16", "micro": MICRO, "accum": ACCUM,
+           "float_teacher_steps": float_steps,
+           "int8_teacher_steps": steps, "first_step": first,
+           "snapshot_ms": snapshot_ms, "peak_bytes": peak,
+           "snapshot_frozen": frozen, "teacher_params_moved": moved,
+           "cli_argv": argv, "cli_s": cli_s, "cli_epochs": _epochs(reports),
+           "cli_csv_rows": rows, "cli_launches_k1_k2_k1mma": cli_launches,
+           "cli_snapshots": len(snapshots),
+           "launches_expected_per_step": [K1_PER_STEP, K2_PER_STEP],
+           "card": smi}
+    emit(row)
+    if not all(math.isfinite(s["loss"]) for s in steps + float_steps):
+        raise AssertionError(f"int8-teacher losses {steps}")
+    if any(s["launches_k1_k2_k1mma"] != (K1_PER_STEP, K2_PER_STEP,
+                                         K1_PER_STEP)
+           for s in steps + float_steps):
+        raise AssertionError(f"int8-teacher launches per step "
+                             f"{[s['launches_k1_k2_k1mma'] for s in steps]}")
+    if not frozen or moved == 0:
+        raise AssertionError(f"snapshot frozen {frozen}, teacher tensors "
+                             f"moved {moved}")
+    per_step = [(r["launches_train"][0] / max(r["train_steps"], 1),
+                 r["launches_train"][1] / max(r["train_steps"], 1))
+                for r in reports]
+    if len(rows) != 1 or not math.isfinite(float(rows[0]["train_loss"])) \
+            or len(snapshots) != 1 or \
+            per_step != [(K1_PER_STEP, K2_PER_STEP)] or \
+            [r["train_steps"] for r in reports] != [CLI_STEPS_PER_EPOCH] or \
+            any(r["launches_eval_k1"] != 2 * sum(B5_DEPTHS)
+                for r in reports):
+        raise AssertionError(f"--int8-teacher CLI: rows {rows}, snapshots "
+                             f"{len(snapshots)}, launches per step "
+                             f"{per_step}")
+    return row
+
+
+def _raster_windows(h, w):
+    """The corners of the raster's windows: a stride of window - overlap,
+    and a last row and column flush with the edge."""
+    stride = RASTER_WINDOW - RASTER_OVERLAP
+    ys = list(range(0, h - RASTER_WINDOW + 1, stride))
+    xs = list(range(0, w - RASTER_WINDOW + 1, stride))
+    if ys[-1] + RASTER_WINDOW < h:
+        ys.append(h - RASTER_WINDOW)
+    if xs[-1] + RASTER_WINDOW < w:
+        xs.append(w - RASTER_WINDOW)
+    return [(y, x) for y in ys for x in xs]
+
+
+def _raster_blend(predict, img):
+    """The Hann-weighted blend of `predict` over the raster's windows in
+    batches of RASTER_BATCH (the last zero-padded), in numpy."""
+    import numpy as np
+
+    win = RASTER_WINDOW
+    hann = 0.5 - 0.5 * np.cos(2 * np.pi * (np.arange(win) + 0.5) / win)
+    weight = np.outer(hann, hann).astype(np.float32) + 1e-3
+    acc = np.zeros(img.shape[:2], np.float32)
+    norm = np.zeros(img.shape[:2], np.float32)
+    coords = _raster_windows(*img.shape[:2])
+    for i in range(0, len(coords), RASTER_BATCH):
+        chunk = coords[i:i + RASTER_BATCH]
+        tiles = np.zeros((RASTER_BATCH, win, win, 3), np.float32)
+        for j, (y, x) in enumerate(chunk):
+            tiles[j] = img[y:y + win, x:x + win]
+        for (y, x), p in zip(chunk, predict(tiles)):
+            acc[y:y + win, x:x + win] += p * weight
+            norm[y:y + win, x:x + win] += weight
+    return acc / np.maximum(norm, 1e-8)
+
+
+def phase_sliding_raster(smi: str):
+    """`cli/supervised.py --predict --sliding-raster` on a seeded 1200 x
+    1500 PNG (MiT-B5 bf16 --perf, seeded weights, window 512, overlap 64:
+    12 windows in 2 batches of 8), once plain and once with --int8: the
+    PNG written equals, byte for byte, the numpy blend of
+    `SegFormerModel.predict` (quantized the same way) over the same
+    windows; 52 K1 launches per batch."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from semisupervisedobjectdetection_torch.api import SegFormerModel
+    from semisupervisedobjectdetection_torch.cli import supervised
+    from semisupervisedobjectdetection_torch.core.config import mit_b5
+
+    h, w = RASTER_HW
+    rgb = np.random.default_rng(SEED + 30).integers(0, 256, (h, w, 3),
+                                                    dtype=np.uint8)
+    img = rgb.astype(np.float32) / 255.0
+    windows = _raster_windows(h, w)
+    batches = -(-len(windows) // RASTER_BATCH)
+    root = tempfile.mkdtemp(prefix="chip_smoke_raster_")
+    runs = {}
+    try:
+        scene = os.path.join(root, "scene.png")
+        Image.fromarray(rgb).save(scene)
+        for quant in ("none", "int8"):
+            out_dir = os.path.join(root, quant)
+            argv = ["--variant", "b5", "--perf", "--predict",
+                    "--sliding-raster", scene, "--window",
+                    str(RASTER_WINDOW), "--overlap", str(RASTER_OVERLAP),
+                    "--dump-masks", out_dir, "--seed", str(SEED)]
+            if quant != "none":
+                argv.append("--int8")
+            _reset_counts()
+            t0 = time.perf_counter()
+            supervised.main(argv)
+            run_s = time.perf_counter() - t0
+            launches = _counts()
+            got = np.asarray(Image.open(os.path.join(out_dir,
+                                                     "raster_mask.png")))
+            model = SegFormerModel(config=mit_b5(dtype="bfloat16",
+                                                 gelu_approx=True),
+                                   seed=SEED)
+            if quant != "none":
+                model.quantize(quant)
+            want = (_raster_blend(model.predict, img) * 255).astype(
+                np.uint8)
+            del model
+            torch.cuda.empty_cache()
+            runs[quant] = {"argv": argv, "run_s": run_s,
+                           "launches_k1_k2_k1mma": launches,
+                           "shape": list(got.shape),
+                           "equal_numpy_blend": bool(
+                               np.array_equal(got, want)),
+                           "mask_mean": float(got.mean())}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    per = batches * sum(B5_DEPTHS)
+    row = {"phase": "sliding_raster", "raster": [h, w],
+           "window": RASTER_WINDOW, "overlap": RASTER_OVERLAP,
+           "windows": len(windows), "batches": batches, "runs": runs,
+           "card": smi}
+    emit(row)
+    if len(windows) != 12 or batches != 2:
+        raise AssertionError(f"{len(windows)} windows in {batches} batches")
+    for quant, r in runs.items():
+        if not r["equal_numpy_blend"] or r["shape"] != [h, w] or \
+                r["launches_k1_k2_k1mma"] != (per, 0, per):
+            raise AssertionError(f"sliding raster ({quant}): {r}")
+    return row
+
+
 def _ts_models(cfg, dev):
     """A teacher (lr 5e-7) and a student (lr 3e-5) of one seeded MiT-B5 on
     `dev`, the classifier bias at TS_CLS_BIAS."""
@@ -3132,7 +3682,8 @@ def _kernel_entry(rows, passes, dtype="bfloat16", shapes=STAGE_SHAPES,
 def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
             transfer_grad, transfer_grad_nk356, transfer_step, sup_cli,
             transfer_cli, ts_step, ts_cli, ae_step, ae_cli, serve_ckpt,
-            fewshot_grad, fewshot_step, fewshot_cli, grad, tune_cli):
+            fewshot_grad, fewshot_step, fewshot_cli, grad, tune_cli,
+            quant_serve, int8_teacher, sliding_raster):
     """The `kernels` line: each kernel's times, bound and plain/library
     times summed over what its main path runs, with its launches there.
     K1's bf16 kernel (`sr_attention_fwd`, wgmma, every bf16 path) and K2's
@@ -3170,7 +3721,11 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
     (`sr_attention_fwd_stream`, `sr_attention_bwd_stream`: the same
     wrappers, counted apart) sum over one Nk-356 transfer step at batch 16
     (tune_cli's 100-token points, where their launches are counted), with
-    their rows at Nk 300 and Nk 1024 beside it."""
+    their rows at Nk 300 and Nk 1024 beside it. The quantized-serving
+    phases (quant_serve, int8_teacher, sliding_raster) join
+    `launches_by_path` of the bf16 K1 (and of K2, for the int8 teacher's
+    student backward); their products run on the library's int8 and fp8
+    GEMMs, which are not in this line."""
 
     def kernel_calls(i):
         return sum(c["launches_k1_k2_k1mma"][i]
@@ -3202,6 +3757,27 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
                     "an eval batch of 4 each, --predict)")
     few_grad_path = ("fewshot_grad (B5 float32, Nk 257: the AE and seg "
                      "pair losses)")
+    quant_path = ("quant_serve (a batch-8 predict each in bf16, int8 and "
+                  "fp8, and 3 served int8 batches)")
+    int8t_path = ("int8_teacher (2 float-teacher and 3 int8-teacher EMA "
+                  "steps, 1 --int8-teacher CLI epoch)")
+    raster_path = ("sliding_raster (2 CLI runs, plain and --int8, of 2 "
+                   "batches of 8 windows)")
+
+    def quant(i):
+        return sum(p["launches_k1_k2_k1mma"][i]
+                   for p in quant_serve["paths"].values()) + \
+            quant_serve["served_launches_k1_k2_k1mma"][i]
+
+    def int8t(i):
+        return sum(st["launches_k1_k2_k1mma"][i]
+                   for st in int8_teacher["float_teacher_steps"]
+                   + int8_teacher["int8_teacher_steps"]) + \
+            int8_teacher["cli_launches_k1_k2_k1mma"][i]
+
+    def raster(i):
+        return sum(r["launches_k1_k2_k1mma"][i]
+                   for r in sliding_raster["runs"].values())
 
     def few_step(i):
         return sum(c["launches_k1_k2_k1mma"][i]
@@ -3255,7 +3831,9 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
             ae_cli_path: ae_cli["launches_k1_k2_k1mma"][2]
             + ae_cli["launches_transfer"][2],
             few_step_path: few_step(2),
-            few_cli_path: few_cli(2)},
+            few_cli_path: few_cli(2),
+            quant_path: quant(2), int8t_path: int8t(2),
+            raster_path: raster(2)},
         per_serve_forward={
             **_passes_sum(wg_rows, ((BATCH, 1),)),
             "per": f"one serve forward: B5 512x512 bf16 at batch {BATCH}, "
@@ -3334,7 +3912,8 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
             ae_cli_path: ae_cli["launches_k1_k2_k1mma"][1]
             + ae_cli["launches_transfer"][1],
             few_step_path: few_step(1),
-            few_cli_path: few_cli(1)},
+            few_cli_path: few_cli(1),
+            int8t_path: int8t(1)},
         per_transfer_step=_passes_sum(k2_bf16, ((MICRO, ACCUM),),
                                       TRANSFER_SHAPES),
         per_labeled_step=_passes_sum(k2_bf16, ((MICRO, 2 * ACCUM),)),
@@ -3445,7 +4024,11 @@ def main() -> int:
                           ("fewshot_grad", phase_fewshot_grad),
                           ("fewshot_step", lambda: phase_fewshot_step(smi)),
                           ("fewshot_cli", lambda: phase_fewshot_cli(smi)),
-                          ("tune_cli", lambda: phase_tune_cli(smi))):
+                          ("tune_cli", lambda: phase_tune_cli(smi)),
+                          ("quant_serve", lambda: phase_quant_serve(smi)),
+                          ("int8_teacher", lambda: phase_int8_teacher(smi)),
+                          ("sliding_raster",
+                           lambda: phase_sliding_raster(smi))):
             t = time.perf_counter()
             results[phase] = fn()
             seconds[phase] = round(time.perf_counter() - t, 2)
@@ -3469,7 +4052,10 @@ def main() -> int:
                                       results["fewshot_step"],
                                       results["fewshot_cli"],
                                       results["grad"],
-                                      results["tune_cli"])}
+                                      results["tune_cli"],
+                                      results["quant_serve"],
+                                      results["int8_teacher"],
+                                      results["sliding_raster"])}
         emit({"phase": "total", "seconds": round(time.perf_counter() - t0,
                                                  2), "per_phase": seconds})
     except Exception as e:

@@ -20,6 +20,15 @@ trainable mask); it serves from a copy of the model:
   copy is built at the first `predict` after the weights changed, so
   serving casts no weight per forward, and a model that only serves holds
   no Adam moments;
+- quantized serving: `quantize("int8" | "fp8")` snapshots the float32
+  masters into a copy whose dense layers are `ops/quant.py::QLinear`
+  (per-channel weights, per-token activations) and whose other weights
+  are cast once; `predict` then serves the snapshot until `dequantize()`.
+  Training leaves the snapshot as it was until the next `quantize()`
+  (the serving copy, in contrast, follows training); a structural rebuild
+  drops it. `save_quantized` and `load_quantized` write and read it
+  (`checkpoint/io.py::save_snapshot`), its width read back from the
+  stored dtypes;
 - checkpoints: `save`, `load` (a warm start, or the full state with
   `full_state=True`), `resume` (the `_last` checkpoint of a training run),
   `load_hf` and `load_state_dict`; `show_mask` writes a PNG overlay in
@@ -46,9 +55,7 @@ carried CLS token, the domain token the few-shot loop trains
 its place, as the JAX package does.
 
 Not ported yet, each raising NotImplementedError that names ROADMAP.md:
-the "bce" loss, the quantized serving snapshot
-(`quantize`, `dequantize`, `save_quantized`, `load_quantized`),
-`export_serving` and `export_hf`.
+the "bce" loss, `export_serving` and `export_hf`.
 """
 
 from __future__ import annotations
@@ -66,9 +73,11 @@ from semisupervisedobjectdetection_torch.checkpoint.convert import (
 )
 from semisupervisedobjectdetection_torch.checkpoint.io import (
     load_last,
+    load_snapshot,
     merge_restore,
     restore_state,
     restore_weights,
+    save_snapshot,
     save_state,
 )
 from semisupervisedobjectdetection_torch.core.config import (
@@ -82,6 +91,10 @@ from semisupervisedobjectdetection_torch.models.segformer import (
     forward_logits,
     forward_masks,
     init_weights,
+)
+from semisupervisedobjectdetection_torch.ops.quant import (
+    quantize_dense_params,
+    snapshot_kind,
 )
 from semisupervisedobjectdetection_torch.train import autoencoder
 from semisupervisedobjectdetection_torch.train import state as state_lib
@@ -148,6 +161,7 @@ class SegFormerModel:
         self._net: Optional[SegFormer] = None
         self._state: Optional[TrainState] = None
         self._served: Optional[SegFormer] = None
+        self._quantized: Optional[SegFormer] = None
         self._init_state()
         if hf_weights:
             self.load_hf(hf_weights)
@@ -166,9 +180,11 @@ class SegFormerModel:
         """A fresh float32 model for `self.cfg`: seeded weights on the CPU,
         with the current model's weights and BatchNorm statistics over them
         wherever the name and shape match when `keep`; the old model, its
-        train state and serving copy are let go before the new one moves to
-        the card, so two models never sit there at once. The train state
-        is made anew at its first use (`state`), its moments at zero."""
+        train state, serving copy and quantized snapshot are let go before
+        the new one moves to the card, so two models never sit there at
+        once (a rebuild drops the snapshot, as in the JAX package: call
+        `quantize()` again). The train state is made anew at its first use
+        (`state`), its moments at zero."""
         model = init_weights(SegFormer(self.cfg),
                              torch.Generator().manual_seed(self.seed))
         if keep and self._net is not None:
@@ -177,7 +193,7 @@ class SegFormerModel:
             model.load_state_dict(merge_restore(model.state_dict(), old),
                                   strict=True)
             del old
-        self._net = self._state = self._served = None
+        self._net = self._state = self._served = self._quantized = None
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
         self._net = model.to(self.device)
@@ -232,9 +248,13 @@ class SegFormerModel:
     # ----------------------------------------------------------- serving
     @property
     def model(self) -> SegFormer:
-        """The serving copy of the float32 model: dense and conv weights in
-        the compute dtype, SR-attention on the forward kernel of that dtype.
-        Built when first asked for after the weights changed."""
+        """The model `predict` runs: the quantized snapshot while there is
+        one, else the serving copy of the float32 model (dense and conv
+        weights in the compute dtype), built when first asked for after the
+        weights changed. SR-attention runs the forward kernel of the compute
+        dtype in both."""
+        if self._quantized is not None:
+            return self._quantized
         if self._served is None:
             # ordinary tensors, whether `predict`'s inference mode is on
             with torch.inference_mode(False), torch.no_grad():
@@ -413,19 +433,52 @@ class SegFormerModel:
         self.load_state_dict(sd)
         print("Pretrained model loaded")
 
-    # ---------------------------------------------------- not ported yet
+    # ------------------------------------------------- quantized serving
+    @property
+    def quant(self) -> str:
+        """The width `predict` serves: "none", "int8" or "fp8"."""
+        return "none" if self._quantized is None \
+            else self._quantized.cfg.quant
+
     def quantize(self, kind: str = "int8") -> None:
-        _not_ported("quantized serving (quantize)")
+        """Snapshot the float32 masters (not the bfloat16 serving copy: the
+        scales would differ) into a quantized serving model: dense layers
+        `kind` ("int8" or "fp8" e4m3) with per-channel scales, activations
+        quantized per token at run time, the other weights cast once to the
+        compute dtype, the BatchNorm statistics kept. `predict` serves it
+        until `dequantize()`; training leaves it stale until the next
+        `quantize()`."""
+        self._quantized = None
+        self._quantized = cast_to_compute_dtype(
+            quantize_dense_params(self._net, kind))
 
     def dequantize(self) -> None:
-        _not_ported("quantized serving (dequantize)")
+        """Serve the float model again."""
+        self._quantized = None
 
     def save_quantized(self, path: str) -> None:
-        _not_ported("quantized serving (save_quantized)")
+        """Write the quantized snapshot (`quantize()` first) to the file
+        `path`, so that a serving process needs no float checkpoint: the
+        dense weights take a quarter of their float32 bytes."""
+        if self._quantized is None:
+            raise ValueError("no quantized snapshot: call quantize() first")
+        save_snapshot(path, self._quantized)
 
     def load_quantized(self, path: str) -> None:
-        _not_ported("quantized serving (load_quantized)")
+        """Load a snapshot written by `save_quantized`; `predict` serves it
+        until `dequantize()`. Its width (int8 or fp8) comes from the stored
+        weight dtypes (a ValueError when it holds neither or both); the
+        model's config must be the one it was quantized from."""
+        sd = load_snapshot(path)
+        kind = snapshot_kind(sd)
+        self._quantized = None
+        with torch.device("meta"):
+            snap = SegFormer(self.cfg.replace(quant=kind))
+        snap = cast_to_compute_dtype(snap.to_empty(device=self.device))
+        snap.load_state_dict(sd, strict=True)
+        self._quantized = snap.eval().requires_grad_(False)
 
+    # ---------------------------------------------------- not ported yet
     def export_serving(self, path: str, batch_size: int, img_size=None,
                        platforms=()) -> dict:
         _not_ported("the serving artifact (export_serving)")

@@ -4,8 +4,11 @@ JAX train state into the port's `TrainState`.
 Two sources of weights:
 
 - `state_dict_from_flax`: the JAX package's param tree (nested dicts of
-  numpy arrays, as `SegFormer.init` / `TrainState` hold them) and its
-  BatchNorm statistics. Per-layer params of a stage are stacked there along
+  numpy arrays, as `SegFormer.init` / `TrainState` hold them, or its
+  quantized serving tree from `ops/quant.py::quantize_dense_params`, whose
+  int8 or e4m3 dense kernels and `kernel_scale` become a `QLinear`'s
+  `weight` and `weight_scale`, for `SegFormer(cfg.replace(quant=...))`)
+  and its BatchNorm statistics. Per-layer params of a stage are stacked there along
   a leading depth axis (the JAX encoder scans over its layers) and are
   unstacked here. Layouts: Dense kernel (I, O) -> Linear weight (O, I);
   Conv kernel (kh, kw, I, O) -> Conv2d weight (O, I, kh, kw); LayerNorm and
@@ -41,11 +44,35 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, np.float32, copy=True))
 
 
+def _quantized(k) -> torch.Tensor:
+    """An int8 or float8_e4m3fn numpy kernel (in, out) -> its (out, in)
+    torch tensor, bit for bit (e4m3 goes through its bytes: numpy holds it
+    as the `ml_dtypes` type, which torch does not read)."""
+    w = np.ascontiguousarray(np.asarray(k).T)
+    if w.dtype == np.int8:
+        return torch.from_numpy(w.copy())
+    if w.dtype.name != "float8_e4m3fn":
+        raise ValueError(f"a quantized kernel is int8 or float8_e4m3fn, "
+                         f"not {w.dtype}")
+    return torch.from_numpy(w.view(np.uint8).copy()).view(
+        torch.float8_e4m3fn)
+
+
 def _lin(sd: Dict, name: str, leaf: Mapping, j: Optional[int] = None):
+    """A Dense leaf -> `Linear` weight and bias; a quantized one (a
+    `kernel_scale` beside an int8 or e4m3 kernel, the JAX
+    `quantize_dense_params` tree) -> `QLinear`'s weight, weight_scale and
+    float32 bias."""
     k, b = leaf["kernel"], leaf["bias"]
+    scale = leaf.get("kernel_scale")
     if j is not None:
         k, b = k[j], b[j]
-    sd[f"{name}.weight"] = _t(np.asarray(k).T)
+        scale = None if scale is None else scale[j]
+    if scale is None:
+        sd[f"{name}.weight"] = _t(np.asarray(k).T)
+    else:
+        sd[f"{name}.weight"] = _quantized(k)
+        sd[f"{name}.weight_scale"] = _t(scale)
     sd[f"{name}.bias"] = _t(b)
 
 

@@ -100,6 +100,20 @@ def restore_weights(path: str, model: nn.Module) -> None:
     _load_partial(model, _read(path)["model"])
 
 
+def save_snapshot(path: str, model: nn.Module) -> None:
+    """Write a quantized serving snapshot: the state_dict of the quantized
+    model (its int8 or float8_e4m3fn dense weights, their scales, and the
+    rest in its serving dtypes) to the file `path`, under "snapshot"."""
+    _atomic_save({"snapshot": {k: _host(v) for k, v in
+                               model.state_dict().items()}},
+                 os.path.abspath(path))
+
+
+def load_snapshot(path: str) -> Dict[str, torch.Tensor]:
+    """The state_dict `save_snapshot` wrote to `path`, on the CPU."""
+    return _read(path)["snapshot"]
+
+
 @torch.no_grad()
 def restore_state(path: str, template: TrainState,
                   load_opt_state: bool = True,

@@ -11,9 +11,16 @@ The port of the JAX package's `cli/serve.py`, with the same behaviour:
   share a forward while a lone request sees little queueing delay.
 - **Single device owner.** All model work happens on the one model thread.
 
+- **Quantized serving.** ``--int8`` or ``--fp8`` serves the model's
+  quantized snapshot (`SegFormerModel.quantize`: per-channel int8 or e4m3
+  dense weights, per-token activations, on the card's int8 and fp8
+  GEMMs); ``--int8-snapshot FILE`` loads the snapshot when the file is
+  there (its width read from the stored dtypes), else writes it after
+  quantizing, so that a serving process needs no float checkpoint.
+
 Endpoints:
   GET  /healthz  -> {"status": "ok", "platform", "device", "device_name",
-                     "variant", "img_size", "max_batch"}
+                     "variant", "img_size", "max_batch", "quant", "int8"}
   GET  /stats    -> request/batch counters, mean batch fill, latency
                     p50/p90/p99 (ms)
   POST /predict  -> body: PNG/JPEG image (any size; resized to the model's
@@ -31,9 +38,8 @@ Run: python -m semisupervisedobjectdetection_torch.cli.serve --variant b5 \
 
 The weights are seeded random ones unless --pretrain-weight (a `.pt`
 checkpoint of the port's CLIs, loaded as `SegFormerModel.load` does) or
---hf-weights is given. The quantized snapshots (--int8, --fp8,
---int8-snapshot) and the AOT artifact (--artifact) are not ported yet and
-are refused with a message naming ROADMAP.md.
+--hf-weights is given. The AOT artifact (--artifact) is not ported yet and
+is refused with a message naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -67,7 +73,8 @@ class InferenceServer:
     """Batching HTTP server around a `SegFormerModel`-like object.
 
     `model` needs a `predict(batch_nhwc) -> (B,H,W) float` method and may
-    have a `device` (a `torch.device`), which /healthz reports.
+    have a `device` (a `torch.device`) and a `quant` ("none", "int8" or
+    "fp8"), which /healthz reports.
     """
 
     def __init__(self, model, img_size: int, max_batch: int = 8,
@@ -154,6 +161,7 @@ class InferenceServer:
 
     def health(self) -> dict:
         dev = getattr(self.model, "device", None)
+        quant = getattr(self.model, "quant", "none")
         return {
             "status": "ok",
             "platform": dev.type if dev is not None else "?",
@@ -162,6 +170,8 @@ class InferenceServer:
             "variant": self.variant,
             "img_size": self.img_size,
             "max_batch": self.max_batch,
+            "quant": quant,
+            "int8": quant == "int8",
         }
 
     def snapshot_stats(self) -> dict:
@@ -336,6 +346,22 @@ def _serve_until_signal(srv: InferenceServer) -> None:
     print("drained; bye", flush=True)
 
 
+def load_or_quantize(model, kind: str, snapshot: Optional[str]) -> None:
+    """Serve `model` quantized: load the snapshot file `snapshot` when it
+    exists (its own width), else quantize to `kind` and, with a path,
+    write the snapshot there."""
+    import os
+
+    if snapshot and os.path.exists(snapshot):
+        model.load_quantized(snapshot)
+        print(f"quantized snapshot loaded: {snapshot} ({model.quant})")
+        return
+    model.quantize(kind)
+    if snapshot:
+        model.save_quantized(snapshot)
+        print(f"{kind} snapshot written: {snapshot}")
+
+
 def main(argv=None):
     import argparse
 
@@ -356,11 +382,14 @@ def main(argv=None):
                    help="torch .pth/.safetensors SegFormer weights")
     p.add_argument("--artifact", help="AOT serving artifact (not ported)")
     p.add_argument("--int8", action="store_true",
-                   help="serve an int8 snapshot (not ported)")
+                   help="serve the int8 snapshot (per-channel int8 dense "
+                        "weights, per-token activations, int8 GEMMs)")
     p.add_argument("--fp8", action="store_true",
-                   help="serve an fp8 snapshot (not ported)")
+                   help="serve an fp8 (e4m3) snapshot (fp8 GEMMs)")
     p.add_argument("--int8-snapshot",
-                   help="with --int8/--fp8: snapshot dir (not ported)")
+                   help="with --int8/--fp8: snapshot file, loaded if it "
+                        "exists (width from its dtypes), else written after "
+                        "quantize()")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8765)
     p.add_argument("--max-batch", type=int, default=8)
@@ -371,14 +400,15 @@ def main(argv=None):
                    help="torch device to serve on (default cuda; 'cpu' to "
                         "run without a card)")
     args = p.parse_args(argv)
-    refused = [flag for flag, on in (
-        ("--artifact", bool(args.artifact)), ("--int8", args.int8),
-        ("--fp8", args.fp8), ("--int8-snapshot", bool(args.int8_snapshot)))
-        if on]
-    if refused:
+    if args.artifact:
         raise SystemExit(
-            f"{', '.join(refused)}: not ported to the PyTorch package yet; "
+            "--artifact: not ported to the PyTorch package yet; "
             "ROADMAP.md lists what waits (Queue 1, serving)")
+    if args.int8 and args.fp8:
+        raise SystemExit("--int8 and --fp8 are mutually exclusive")
+    quant = "fp8" if args.fp8 else ("int8" if args.int8 else "none")
+    if args.int8_snapshot and quant == "none":
+        raise SystemExit("--int8-snapshot needs --int8 or --fp8")
 
     import torch
 
@@ -396,6 +426,8 @@ def main(argv=None):
     if not (args.pretrain_weight or args.hf_weights):
         print("WARNING: serving randomly initialized weights "
               "(no --pretrain-weight / --hf-weights)")
+    if quant != "none":
+        load_or_quantize(model, quant, args.int8_snapshot)
     srv = InferenceServer(model, img_size=args.img_size,
                           max_batch=args.max_batch,
                           batch_window_ms=args.batch_window_ms,
@@ -403,7 +435,9 @@ def main(argv=None):
     port = srv.start(args.host, args.port)
     print(f"serving {args.variant} on http://{args.host}:{port}  "
           f"({model.device}, batch {args.max_batch}, window "
-          f"{args.batch_window_ms}ms)", flush=True)
+          f"{args.batch_window_ms}ms"
+          + (f", {model.quant}" if model.quant != "none" else "") + ")",
+          flush=True)
     _serve_until_signal(srv)
 
 

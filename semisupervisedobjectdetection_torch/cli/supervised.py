@@ -13,17 +13,24 @@ is written, the best checkpoint is kept and, under --resume, the `_last`
 checkpoint is written. Per-step metrics stay on the device until one read
 per epoch. `--predict` evaluates a checkpoint (--pretrain-weight) instead
 of training, and `--dump-masks` writes each eval tile's ground-truth and
-predicted mask overlays. By default (the reference's quirk) the forward of
-a train step runs in eval mode; --no-quirks runs it in train mode.
+predicted mask overlays; with `--int8` or `--fp8` it serves the model's
+quantized snapshot (`SegFormerModel.quantize`, or the file
+`--int8-snapshot` when it exists, else written there), its loss the
+binarised dice of `predict`. `--predict --sliding-raster PNG` instead
+predicts one large raster through Hann-blended `--window` windows with
+`--overlap` (`eval/sliding_window.py`, batches of 8) and writes
+`<dump-masks>/raster_mask.png`; it reads no tiles. By default (the
+reference's quirk) the forward of a train step runs in eval mode;
+--no-quirks runs it in train mode.
 `--tune-lr a,b,c` grid-searches the learning rate on an 80/20 split of the
 train tiles (the reference's `Hyperparameter_Tuning`, `:103-144`): each
 point trains a fresh model for max(epochs // 5, 1) epochs and writes no
 checkpoint, and --resume is off.
 
 It runs on the CUDA card unless `--device cpu` is given. Not ported yet, and
-refused with a message naming ROADMAP.md: `--loss bce`, `--int8`, `--fp8`,
-`--int8-snapshot`, `--sliding-raster`, `--async-checkpoint`, `--parallel`
-other than none, `--profile-dir`, `--plot-curves` and `--ffn-impl`.
+refused with a message naming ROADMAP.md: `--loss bce`, `--async-checkpoint`,
+`--parallel` other than none, `--profile-dir`, `--plot-curves` and
+`--ffn-impl`.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from semisupervisedobjectdetection_torch.checkpoint.io import (
     save_last,
 )
 from semisupervisedobjectdetection_torch.cli import common
+from semisupervisedobjectdetection_torch.cli.serve import load_or_quantize
 from semisupervisedobjectdetection_torch.core.config import MIT_VARIANTS
 from semisupervisedobjectdetection_torch.data.prefetch import (
     fold_in,
@@ -51,6 +59,9 @@ from semisupervisedobjectdetection_torch.eval.metrics import (
     binary_miou,
     dice_score,
     per_image_miou,
+)
+from semisupervisedobjectdetection_torch.eval.sliding_window import (
+    sliding_window_predict,
 )
 from semisupervisedobjectdetection_torch.utils import preemption
 from semisupervisedobjectdetection_torch.utils.device import resolve_device
@@ -187,13 +198,18 @@ def train_loop(model: SegFormerModel, loaders, dcfg, tc, args,
 def predict(model: SegFormerModel, loaders, dcfg, args) -> dict:
     """Evaluate the model on the eval tiles; with --dump-masks write each
     tile's ground-truth and predicted overlays there
-    (`b{batch}_{i}_gt.png`, `..._pred.png`). Returns the mean eval loss
-    and the number of tiles dumped."""
+    (`b{batch}_{i}_gt.png`, `..._pred.png`). A quantized model is
+    evaluated through `predict` (the binarised dice of its masks), the
+    float one through `eval_one_epoch`. Returns the mean eval loss and the
+    number of tiles dumped."""
     losses, dumped = [], 0
     for bi, (images_u8, masks_u8) in enumerate(loaders["eval"]):
         imgs, masks = common.device_eval_batch(images_u8, masks_u8, dcfg,
                                                model.device)
-        loss, pred = model.eval_one_epoch(imgs, masks)
+        if model.quant != "none":
+            loss, pred = model.predict(imgs, masks, use_loss="dice_argmax")
+        else:
+            loss, pred = model.eval_one_epoch(imgs, masks)
         losses.append(float(loss))
         if args.dump_masks:
             host_imgs = imgs.cpu().numpy()
@@ -208,6 +224,27 @@ def predict(model: SegFormerModel, loaders, dcfg, args) -> dict:
     print(f"eval loss: {mean:.4f} (dice ~ {1 - mean:.4f})"
           + (f"; dumped {dumped} mask overlays" if dumped else ""))
     return {"eval_loss": mean, "dumped": dumped}
+
+
+def predict_raster(model: SegFormerModel, args) -> dict:
+    """--sliding-raster: the RGB raster's mask blended over windows of
+    `model.predict` (`eval/sliding_window.py`, batches of 8), written as
+    an 8-bit PNG to `<dump-masks>/raster_mask.png` (`figures/` without
+    --dump-masks). Returns the path and the raster's size."""
+    from PIL import Image
+
+    img = np.asarray(Image.open(args.sliding_raster).convert("RGB"),
+                     np.float32) / 255.0
+    mask = sliding_window_predict(model.predict, img, window=args.window,
+                                  overlap=args.overlap)
+    out = args.dump_masks or "figures"
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, "raster_mask.png")
+    Image.fromarray((mask * 255).astype(np.uint8)).save(path)
+    print(f"raster mask written: {path} ({img.shape[0]}x{img.shape[1]}, "
+          f"window {args.window}, overlap {args.overlap}"
+          + (f", {model.quant}" if model.quant != "none" else "") + ")")
+    return {"path": path, "shape": img.shape[:2]}
 
 
 def best_eval(reports: List[dict]) -> float:
@@ -249,14 +286,23 @@ def main(argv: Optional[List[str]] = None):
     p.add_argument("--dump-masks",
                    help="with --predict: dir for GT/pred mask overlays")
     p.add_argument("--int8", action="store_true",
-                   help="with --predict: int8 serving (not ported)")
+                   help="with --predict: serve the int8 snapshot "
+                        "(SegFormerModel.quantize)")
     p.add_argument("--fp8", action="store_true",
-                   help="with --predict: fp8 serving (not ported)")
+                   help="with --predict: serve an fp8 (e4m3) snapshot")
     p.add_argument("--int8-snapshot",
-                   help="persisted quantized snapshot (not ported)")
+                   help="with --int8/--fp8: snapshot file, loaded if it "
+                        "exists (width from its dtypes), else written after "
+                        "quantize()")
     p.add_argument("--sliding-raster",
-                   help="with --predict: one large raster through "
-                        "sliding windows (not ported)")
+                   help="with --predict: one large RGB raster, predicted "
+                        "through Hann-blended sliding windows "
+                        "(eval/sliding_window.py) into "
+                        "<dump-masks>/raster_mask.png")
+    p.add_argument("--window", type=int, default=512,
+                   help="sliding-raster window size")
+    p.add_argument("--overlap", type=int, default=64,
+                   help="sliding-raster window overlap")
     p.add_argument("--resume", action="store_true",
                    help="write a <checkpoint-dir>/segformer_last "
                         "checkpoint (full state, epoch, best gate) every "
@@ -269,17 +315,26 @@ def main(argv: Optional[List[str]] = None):
                         "split")
     args = p.parse_args(argv)
     common.refuse_unported(args, (
-        ("--loss bce", args.loss == "bce"), ("--int8", args.int8),
-        ("--fp8", args.fp8), ("--int8-snapshot", bool(args.int8_snapshot)),
-        ("--sliding-raster", bool(args.sliding_raster)),
+        ("--loss bce", args.loss == "bce"),
         ("--async-checkpoint", args.async_checkpoint)))
+    if args.int8 and args.fp8:
+        raise SystemExit("--int8 and --fp8 are mutually exclusive")
+    quant = "fp8" if args.fp8 else ("int8" if args.int8 else "none")
+    if not args.predict and (quant != "none" or args.int8_snapshot
+                             or args.sliding_raster):
+        raise SystemExit("--int8, --fp8, --int8-snapshot and "
+                         "--sliding-raster apply to --predict only")
+    if args.int8_snapshot and quant == "none":
+        raise SystemExit("--int8-snapshot needs --int8 or --fp8")
     device = resolve_device(args.device)
     cfg = common.apply_perf_preset(
         MIT_VARIANTS[args.variant](dtype=args.dtype), args)
     common.check_kernel_shapes(cfg, args, device)
     dcfg, tc = common.configs_from_args(args)
-    dcfg = common.ensure_data(args, dcfg)
-    loaders = common.make_loaders(dcfg, args.seed)
+    loaders = None
+    if not args.sliding_raster:   # a raster reads no tiles
+        dcfg = common.ensure_data(args, dcfg)
+        loaders = common.make_loaders(dcfg, args.seed)
     if not args.predict:
         common.check_grad_accum(args, loaders["train"])
     if args.tune_lr:
@@ -289,6 +344,10 @@ def main(argv: Optional[List[str]] = None):
                            hf_weights=args.hf_weights, seed=args.seed,
                            grad_accum=args.grad_accum, device=device)
     if args.predict:
+        if quant != "none":
+            load_or_quantize(model, quant, args.int8_snapshot)
+        if args.sliding_raster:
+            return predict_raster(model, args)
         return predict(model, loaders, dcfg, args)
     logger = MetricLogger(args.metrics_csv)
     try:

@@ -18,7 +18,9 @@ Two loops, each per epoch:
   copies the student into the teacher every 5 epochs;
 - `--ema-mode`: every (labeled, unlabeled) batch pair takes one EMA
   mean-teacher step (`train/ema.py::ema_semi_step`); then both schedules
-  step.
+  step. With `--int8-teacher` the teacher's forwards run on an int8
+  snapshot of the teacher taken at the start of each epoch
+  (`ema_semi_step_int8`), while the float32 teacher takes the EMA.
 
 Batches are staged by a background thread (decode, upload, augmentation on
 the device). After the train steps both models are evaluated
@@ -36,8 +38,9 @@ models with fresh Adam state at epoch 0.
 models for max(epochs // 5, 1) epochs, writes no checkpoint and does not
 resume.
 
-It runs on the CUDA card unless `--device cpu` is given. Not ported yet, and
-refused with a message naming ROADMAP.md: `--int8-teacher`,
+It runs on the CUDA card unless `--device cpu` is given. `--int8-teacher`
+applies to `--ema-mode` only and is refused in the gradient loop. Not
+ported yet, and refused with a message naming ROADMAP.md:
 `--async-checkpoint`, `--parallel` other than none, `--profile-dir`,
 `--plot-curves` and `--ffn-impl`.
 """
@@ -82,7 +85,11 @@ from semisupervisedobjectdetection_torch.models.segformer import (
     init_weights,
 )
 from semisupervisedobjectdetection_torch.train import teacher_student as ts
-from semisupervisedobjectdetection_torch.train.ema import ema_semi_step
+from semisupervisedobjectdetection_torch.train.ema import (
+    ema_semi_step,
+    ema_semi_step_int8,
+    make_teacher_int8_snapshot,
+)
 from semisupervisedobjectdetection_torch.train.state import TrainState
 from semisupervisedobjectdetection_torch.train.supervised import eval_step
 from semisupervisedobjectdetection_torch.utils import preemption
@@ -327,12 +334,20 @@ def _ema_train_loop(args, dcfg, tc, loaders, logger, device, *, teacher,
         s_losses, p_losses, kept = [], [], []
         images = [0]
         t_epoch = time.perf_counter()
+        # the int8 teacher's forwards run on a snapshot taken once an epoch
+        snapshot = make_teacher_int8_snapshot(teacher) \
+            if args.int8_teacher else None
 
         def step(imgs, masks, u_imgs):
-            out = ema_semi_step(
-                teacher, student, u_imgs, imgs, masks, sup_w, args.ema,
-                denoise_label=not args.no_denoise, threshold=threshold,
-                train_mode=train_mode, accum=accum, generator=generator)
+            kw = dict(denoise_label=not args.no_denoise, threshold=threshold,
+                      train_mode=train_mode, accum=accum,
+                      generator=generator)
+            if snapshot is not None:
+                out = ema_semi_step_int8(snapshot, teacher, student, u_imgs,
+                                         imgs, masks, sup_w, args.ema, **kw)
+            else:
+                out = ema_semi_step(teacher, student, u_imgs, imgs, masks,
+                                    sup_w, args.ema, **kw)
             images[0] += imgs.shape[0] + u_imgs.shape[0]
             s_losses.append(out.student_loss_total)
             kept.append(out.n_kept)
@@ -419,7 +434,8 @@ def parse_args(argv: Optional[List[str]] = None):
                         "per-step EMA with decay --ema, no teacher "
                         "gradients (default: the gradient loop)")
     p.add_argument("--int8-teacher", action="store_true",
-                   help="int8 teacher forwards (not ported)")
+                   help="--ema-mode: the teacher's forwards run on an int8 "
+                        "snapshot of the teacher, refreshed every epoch")
     p.add_argument("--resume", action="store_true",
                    help="write ts_{teacher,student}_last checkpoints every "
                         "epoch and continue from them when present (both "
@@ -466,8 +482,10 @@ def tune(args, dcfg, tc, loaders, cfg, device):
 def main(argv: Optional[List[str]] = None):
     args = parse_args(argv)
     common.refuse_unported(args, (
-        ("--int8-teacher", args.int8_teacher),
-        ("--async-checkpoint", args.async_checkpoint)))
+        ("--async-checkpoint", args.async_checkpoint),))
+    if args.int8_teacher and not args.ema_mode:
+        raise SystemExit("--int8-teacher applies to --ema-mode only (the "
+                         "gradient loop trains its teacher)")
     device = resolve_device(args.device)
     dcfg, tc = common.configs_from_args(args)
     dcfg = common.ensure_data(args, dcfg, need_unlabeled=True)

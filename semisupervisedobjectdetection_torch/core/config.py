@@ -4,9 +4,9 @@ The port's own copy of the MiT variants of the JAX package's
 `core/config.py` (`MiTConfig`, `mit_b0`..`mit_b5`, `MIT_VARIANTS`), of its
 tile-data settings (`DataConfig`) and of its optimizer constants
 (`TrainConfig`), with the same values. Fields that
-only steer JAX compilation (`scan_unroll`, `ffn_impl`) are left out, and so
-is `quant`, which belongs to the quantized-serving slice. `attn_impl` names
-the port's own choices; `remat` takes the JAX package's "full" and "none".
+only steer JAX compilation (`scan_unroll`, `ffn_impl`) are left out.
+`attn_impl` names the port's own choices; `remat` takes the JAX package's
+"full" and "none"; `quant` takes its "none", "int8" and "fp8".
 """
 
 from __future__ import annotations
@@ -69,6 +69,12 @@ class MiTConfig:
     # GELU flavour: False = exact erf, True = tanh approximation.
     gelu_approx: bool = False
 
+    # Serving quantization of the dense layers: "none" (cfg.dtype), "int8"
+    # or "fp8" (e4m3): per-channel weights and per-token activations,
+    # `ops/quant.py::QLinear`. Inference only; a float model is converted
+    # by `ops.quant.quantize_dense_params(model, kind)`.
+    quant: str = "none"
+
     def __post_init__(self):
         if self.remat not in REMAT_POLICIES:
             # the JAX package's other policies, one or one per stage
@@ -84,6 +90,10 @@ class MiTConfig:
         if self.dtype not in ("float32", "bfloat16"):
             raise ValueError(f"dtype must be 'float32' or 'bfloat16', "
                              f"got {self.dtype!r}")
+        if self.quant not in ("none", "int8", "fp8"):
+            # a typo would otherwise serve the float model
+            raise ValueError(f"MiTConfig.quant must be 'none', 'int8' or "
+                             f"'fp8', got {self.quant!r}")
 
     @property
     def num_stages(self) -> int:

@@ -50,6 +50,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from semisupervisedobjectdetection_torch.core.config import MiTConfig
+from semisupervisedobjectdetection_torch.ops.quant import (
+    QLinear,
+    check_kind,
+)
 from semisupervisedobjectdetection_torch.ops.sr_attention import (
     HEAD_DIMS,
     sr_attention,
@@ -171,6 +175,17 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
+def dense_factory(cfg: MiTConfig):
+    """The class of the dense layers the JAX model builds through
+    `_dense_cls`: `Linear` when `cfg.quant` is "none", else a callable
+    making `QLinear(in, out, cfg.quant)` that computes in the config's
+    dtype."""
+    if cfg.quant == "none":
+        return Linear
+    kind, dtype = check_kind(cfg.quant), compute_dtype(cfg)
+    return lambda i, o: QLinear(i, o, kind, dtype)
+
+
 class Conv2d(nn.Conv2d):
     """nn.Conv2d computing in its input's dtype, as `Linear`."""
 
@@ -229,14 +244,14 @@ class EfficientSelfAttention(nn.Module):
     `sr_norm`)."""
 
     def __init__(self, hidden: int, num_heads: int, sr_ratio: int,
-                 eps: float, attn_impl: str):
+                 eps: float, attn_impl: str, dense=Linear):
         super().__init__()
         self.num_heads = num_heads
         self.sr_ratio = sr_ratio
         self.attn_impl = attn_impl
-        self.query = Linear(hidden, hidden)
-        self.key = Linear(hidden, hidden)
-        self.value = Linear(hidden, hidden)
+        self.query = dense(hidden, hidden)
+        self.key = dense(hidden, hidden)
+        self.value = dense(hidden, hidden)
         if sr_ratio > 1:
             self.sr = Conv2d(hidden, hidden, sr_ratio, sr_ratio)
             self.layer_norm = LayerNorm(hidden, eps=eps)
@@ -258,9 +273,9 @@ class EfficientSelfAttention(nn.Module):
 
 
 class SelfOutput(nn.Module):
-    def __init__(self, hidden: int):
+    def __init__(self, hidden: int, dense=Linear):
         super().__init__()
-        self.dense = Linear(hidden, hidden)
+        self.dense = dense(hidden, hidden)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.dense(x)
@@ -268,11 +283,11 @@ class SelfOutput(nn.Module):
 
 class Attention(nn.Module):
     def __init__(self, hidden: int, num_heads: int, sr_ratio: int,
-                 eps: float, attn_impl: str):
+                 eps: float, attn_impl: str, dense=Linear):
         super().__init__()
         self.self = EfficientSelfAttention(hidden, num_heads, sr_ratio, eps,
-                                           attn_impl)
-        self.output = SelfOutput(hidden)
+                                           attn_impl, dense)
+        self.output = SelfOutput(hidden, dense)
 
     def forward(self, x, h, w, n_prefix):
         return self.output(self.self(x, h, w, n_prefix))
@@ -290,12 +305,13 @@ class DWConv(nn.Module):
 class MixFFN(nn.Module):
     """dense -> 3x3 depthwise conv -> GELU -> dense."""
 
-    def __init__(self, hidden: int, mlp_hidden: int, gelu_approx: bool):
+    def __init__(self, hidden: int, mlp_hidden: int, gelu_approx: bool,
+                 dense=Linear):
         super().__init__()
         self.gelu = "tanh" if gelu_approx else "none"
-        self.dense1 = Linear(hidden, mlp_hidden)
+        self.dense1 = dense(hidden, mlp_hidden)
         self.dwconv = DWConv(mlp_hidden)
-        self.dense2 = Linear(mlp_hidden, hidden)
+        self.dense2 = dense(mlp_hidden, hidden)
 
     def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
         x = self.dense1(x)
@@ -312,11 +328,12 @@ class Block(nn.Module):
         super().__init__()
         c = cfg.hidden_sizes[i]
         eps = cfg.layer_norm_eps
+        dense = dense_factory(cfg)
         self.layer_norm_1 = LayerNorm(c, eps=eps)
         self.attention = Attention(c, cfg.num_heads[i], cfg.sr_ratios[i], eps,
-                                   cfg.attn_impl)
+                                   cfg.attn_impl, dense)
         self.layer_norm_2 = LayerNorm(c, eps=eps)
-        self.mlp = MixFFN(c, int(c * cfg.mlp_ratio), cfg.gelu_approx)
+        self.mlp = MixFFN(c, int(c * cfg.mlp_ratio), cfg.gelu_approx, dense)
 
     def forward(self, tokens: torch.Tensor, h: int, w: int,
                 prompt: Optional[torch.Tensor],
@@ -431,11 +448,12 @@ class LinearC(nn.Module):
     """Per-stage projection to the decoder width, plus `cls_proj` of the
     final-stage CLS when every stage has a CLS token."""
 
-    def __init__(self, in_ch: int, d: int, cls_in: Optional[int]):
+    def __init__(self, in_ch: int, d: int, cls_in: Optional[int],
+                 dense=Linear):
         super().__init__()
-        self.proj = Linear(in_ch, d)
+        self.proj = dense(in_ch, d)
         if cls_in is not None:
-            self.cls_proj = Linear(cls_in, d)
+            self.cls_proj = dense(cls_in, d)
 
 
 class DecodeHead(nn.Module):
@@ -450,8 +468,9 @@ class DecodeHead(nn.Module):
         self.cfg = cfg
         d, n = cfg.decoder_hidden, cfg.num_stages
         cls_in = cfg.hidden_sizes[-1] if cfg.use_cls else None
+        dense = dense_factory(cfg)
         self.linear_c = nn.ModuleList(
-            LinearC(c, d, cls_in) for c in cfg.hidden_sizes)
+            LinearC(c, d, cls_in, dense) for c in cfg.hidden_sizes)
         self.linear_fuse = Conv2d(n * d, d, 1, bias=False)
         self.batch_norm = nn.BatchNorm2d(d, eps=1e-5)
         self.classifier = Conv2d(d, cfg.num_labels, 1)

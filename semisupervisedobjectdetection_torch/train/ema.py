@@ -24,7 +24,12 @@ teacher's EMA then follows. The teacher's forward stays in eval mode.
 
 The states are updated in place (the teacher's and student's models are
 trained where they lie); the returned `EmaStepOut` holds the same states.
-The int8 teacher (`ema_semi_step_int8`) is not ported yet.
+
+The int8 teacher (`ema_semi_step_int8`): the teacher's forward runs the
+int8 serving path (`ops/quant.py`) on a snapshot of the teacher quantized
+once per epoch (`make_teacher_int8_snapshot`); the float32 teacher still
+takes the EMA every step, as the source of the next snapshot, and the
+snapshot shares no tensor with it, so it stays as it was for the epoch.
 """
 
 from __future__ import annotations
@@ -32,8 +37,15 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+from torch import nn
 
 from semisupervisedobjectdetection_torch import losses
+from semisupervisedobjectdetection_torch.models.segformer import (
+    cast_to_compute_dtype,
+)
+from semisupervisedobjectdetection_torch.ops.quant import (
+    quantize_dense_params,
+)
 from semisupervisedobjectdetection_torch.train import pseudo
 from semisupervisedobjectdetection_torch.train.common import (
     accumulate_microbatches,
@@ -58,21 +70,21 @@ class EmaStepOut(NamedTuple):
 
 
 @torch.no_grad()
-def _teacher_soft_masks(teacher: TrainState, unlabeled: torch.Tensor,
+def _teacher_soft_masks(t_model: nn.Module, unlabeled: torch.Tensor,
                         images: torch.Tensor):
-    """The teacher's soft masks of both batches, from one concatenated
-    forward when the spatial shapes match."""
+    """The teacher's soft masks of both batches (`t_model`: the teacher's
+    model or its int8 snapshot), from one concatenated forward when the
+    spatial shapes match."""
     if unlabeled.shape[1:] == images.shape[1:]:
-        soft, _, _ = forward_masks(teacher.model,
-                                   torch.cat([unlabeled, images]))
+        soft, _, _ = forward_masks(t_model, torch.cat([unlabeled, images]))
         return soft[:unlabeled.shape[0]], soft[unlabeled.shape[0]:]
-    return (forward_masks(teacher.model, unlabeled)[0],
-            forward_masks(teacher.model, images)[0])
+    return (forward_masks(t_model, unlabeled)[0],
+            forward_masks(t_model, images)[0])
 
 
-def _targets(teacher, unlabeled, images, ground_truth, denoise_label,
+def _targets(t_model, unlabeled, images, ground_truth, denoise_label,
              threshold, confident_threshold):
-    u_soft, l_soft = _teacher_soft_masks(teacher, unlabeled, images)
+    u_soft, l_soft = _teacher_soft_masks(t_model, unlabeled, images)
     labels = pseudo.threshold_pseudo_masks(
         u_soft, threshold, confident_threshold, allow_throw_sample=True)
     teacher_mask = pseudo.denoise_labels(l_soft, ground_truth, threshold) \
@@ -94,11 +106,12 @@ def _student_loss_and_grads(student: TrainState, images, ground_truth,
     return total.detach(), sup.detach(), self_sup.detach(), grads, new_stats
 
 
-def _ema_semi_impl(teacher: TrainState, student: TrainState, unlabeled,
-                   images, ground_truth, supervise_weight, ema_decay,
-                   denoise_label, threshold, confident_threshold,
-                   train_mode, generator) -> EmaStepOut:
-    labels, teacher_mask = _targets(teacher, unlabeled, images,
+def _ema_semi_impl(t_model: nn.Module, teacher: TrainState,
+                   student: TrainState, unlabeled, images, ground_truth,
+                   supervise_weight, ema_decay, denoise_label, threshold,
+                   confident_threshold, train_mode, generator
+                   ) -> EmaStepOut:
+    labels, teacher_mask = _targets(t_model, unlabeled, images,
                                     ground_truth, denoise_label, threshold,
                                     confident_threshold)
     total, sup, self_sup, grads, new_stats = _student_loss_and_grads(
@@ -112,10 +125,11 @@ def _ema_semi_impl(teacher: TrainState, student: TrainState, unlabeled,
                       labels.n_kept, labels.pseudo_mask)
 
 
-def _ema_semi_accum(teacher: TrainState, student: TrainState, unlabeled,
-                    images, ground_truth, supervise_weight, ema_decay,
-                    denoise_label, threshold, confident_threshold,
-                    train_mode, generator, accum: int) -> EmaStepOut:
+def _ema_semi_accum(t_model: nn.Module, teacher: TrainState,
+                    student: TrainState, unlabeled, images, ground_truth,
+                    supervise_weight, ema_decay, denoise_label, threshold,
+                    confident_threshold, train_mode, generator,
+                    accum: int) -> EmaStepOut:
     """Both batches split into `accum` microbatch pairs, in order: student
     gradients and losses averaged, one update and one EMA. The pseudo-label
     metric pools as the full batch would (per-sample dice sums and kept
@@ -132,7 +146,7 @@ def _ema_semi_accum(teacher: TrainState, student: TrainState, unlabeled,
           ground_truth.reshape(accum, bl // accum, *ground_truth.shape[1:]))
 
     def micro(stats, u_mb, i_mb, g_mb):
-        labels, teacher_mask = _targets(teacher, u_mb, i_mb, g_mb,
+        labels, teacher_mask = _targets(t_model, u_mb, i_mb, g_mb,
                                         denoise_label, threshold,
                                         confident_threshold)
         total, sup, self_sup, g, new_stats = _student_loss_and_grads(
@@ -182,13 +196,53 @@ def ema_semi_step(teacher_state: TrainState, student_state: TrainState,
     models carry their configs. `generator` (on the images' device) draws
     the student's train-mode masks. Nothing in the step waits on the
     host."""
+    return _ema_step(teacher_state.model, teacher_state, student_state,
+                     unlabeled, images, ground_truth, supervise_weight,
+                     ema_decay, denoise_label, threshold,
+                     confident_threshold, train_mode, accum, generator)
+
+
+def _ema_step(t_model, teacher_state, student_state, unlabeled, images,
+              ground_truth, supervise_weight, ema_decay, denoise_label,
+              threshold, confident_threshold, train_mode, accum, generator):
     dev = images.device
     supervise_weight = torch.as_tensor(supervise_weight, dtype=torch.float32,
                                        device=dev)
     ema_decay = torch.as_tensor(ema_decay, dtype=torch.float32, device=dev)
-    args = (teacher_state, student_state, unlabeled, images, ground_truth,
-            supervise_weight, ema_decay, denoise_label, threshold,
-            confident_threshold, train_mode, generator)
+    args = (t_model, teacher_state, student_state, unlabeled, images,
+            ground_truth, supervise_weight, ema_decay, denoise_label,
+            threshold, confident_threshold, train_mode, generator)
     if accum > 1:
         return _ema_semi_accum(*args, accum)
     return _ema_semi_impl(*args)
+
+
+def ema_semi_step_int8(teacher_qmodel: nn.Module,
+                       teacher_state: TrainState, student_state: TrainState,
+                       unlabeled: torch.Tensor, images: torch.Tensor,
+                       ground_truth: torch.Tensor, supervise_weight,
+                       ema_decay, denoise_label: bool = True,
+                       threshold: float = pseudo.PSEUDO_MASK_THRESHOLD,
+                       confident_threshold: float =
+                       pseudo.CONFIDENT_THRESHOLD,
+                       train_mode: bool = False, accum: int = 1,
+                       generator: Optional[torch.Generator] = None
+                       ) -> EmaStepOut:
+    """`ema_semi_step` with the teacher's forwards on `teacher_qmodel`, the
+    int8 snapshot from `make_teacher_int8_snapshot`; the float32
+    `teacher_state` still takes the EMA of the student every step (it is
+    the source of the next snapshot)."""
+    return _ema_step(teacher_qmodel, teacher_state, student_state,
+                     unlabeled, images, ground_truth, supervise_weight,
+                     ema_decay, denoise_label, threshold,
+                     confident_threshold, train_mode, accum, generator)
+
+
+def make_teacher_int8_snapshot(teacher_state: TrainState) -> nn.Module:
+    """The int8 serving model of the EMA teacher for `ema_semi_step_int8`:
+    its dense layers quantized per channel (`ops/quant.py`), its other
+    weights cast once to the compute dtype, its BatchNorm statistics
+    copied. Every tensor is its own (a deep copy), so the in-place EMA of
+    the teacher does not move it. Refresh it once per epoch."""
+    return cast_to_compute_dtype(
+        quantize_dense_params(teacher_state.model, "int8"))

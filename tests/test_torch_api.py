@@ -232,11 +232,8 @@ def test_train_mode_without_quirks_is_seeded():
 @pytest.mark.parametrize("call", [
     lambda m: m.predict(np.zeros((1, SIZE, SIZE, 3)),
                         np.zeros((1, SIZE, SIZE)), use_loss="bce"),
-    lambda m: m.quantize(), lambda m: m.dequantize(),
-    lambda m: m.save_quantized("q"), lambda m: m.load_quantized("q"),
     lambda m: m.export_serving("a", 1), lambda m: m.export_hf("h.pth"),
-], ids=["bce", "quantize", "dequantize",
-        "save_quantized", "load_quantized", "export_serving", "export_hf"])
+], ids=["bce", "export_serving", "export_hf"])
 def test_unported_surface_raises(call):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call(_model())

@@ -168,7 +168,7 @@ def test_best_checkpointer_gate(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--int8-teacher"], ["--async-checkpoint"],
+    ["--async-checkpoint"],
     ["--parallel", "dp"], ["--parallel", "pp"],
     ["--profile-dir", "p"], ["--plot-curves"], ["--ffn-impl", "xla"],
 ], ids=lambda f: " ".join(f))

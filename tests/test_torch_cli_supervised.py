@@ -5,7 +5,9 @@
   checkpoint and writes the overlays;
 - `cli.transfer` warm-starts from a checkpoint, keeps the frozen stages'
   layers bit-equal to it and trains the prompt tokens (--no-quirks);
-- the flags whose paths are not ported are refused naming ROADMAP.md,
+- the flags whose paths are not ported are refused naming ROADMAP.md (the
+  quantized predict and the sliding raster are held in
+  tests/test_torch_quant_serving.py and tests/test_torch_sliding_window.py),
   without `--device` both need a card, and on the card a prompt prefix that
   takes SR-attention past 288 keys is taken by the kernel check (the bf16
   kernels stream K/V there);
@@ -128,9 +130,7 @@ def test_transfer_cli_keeps_frozen_stages_and_trains_prompts(tmp_path,
 
 
 @pytest.mark.parametrize("cli,flags", [
-    (supervised, ["--loss", "bce"]), (supervised, ["--int8"]),
-    (supervised, ["--fp8"]), (supervised, ["--int8-snapshot", "s"]),
-    (supervised, ["--sliding-raster", "r.png"]),
+    (supervised, ["--loss", "bce"]),
     (supervised, ["--async-checkpoint"]),
     (supervised, ["--parallel", "pp"]), (supervised, ["--parallel", "dp_pp"]),
     (supervised, ["--plot-curves"]), (supervised, ["--profile-dir", "p"]),

@@ -9,7 +9,10 @@ where its streaming kernels run, up to Nk 1024; bit-identical on a rerun),
 gradients
 through `sr_attention` on CUDA, the launch counts of a small EMA step, a
 train-mode gradient through the kernels, and the augmentation on the card
-against the CPU.
+against the CPU. Also `ops/quant.py::QLinear` on the card's int8 and fp8
+GEMMs against its plain product at every distinct MiT-B5 dense shape
+(fewer than 17 rows and widths that need padding among them), and a GEMM
+that refuses raising through it (no fallback).
 Marked `cuda`; each skips without a CUDA device (decided in a fixture, not
 at import). On a machine with a card and no JAX:
 
@@ -577,3 +580,71 @@ def test_augmentation_on_the_card_equals_the_cpu(cuda):
         for (ci, cm), (gi, gm) in pairs:
             torch.testing.assert_close(gi.cpu(), ci, rtol=0, atol=1e-5)
             assert torch.equal(gm.cpu(), cm)
+
+
+# (rows, in, out) of every dense layer of MiT-B5 at 512x512, batch 8, per
+# stage (tokens 16384, 4096, 1024, 256; widths 64, 128, 320, 512): query
+# and the attention output, key and value (256 reduced tokens), dense1,
+# dense2 and the decode head's linear_c; cls_proj of a model with CLS
+# tokens (one row per image: the int8 GEMM takes more than 16, so rows
+# are padded); and widths the GEMMs take only padded (K or N not a
+# multiple of 16, fp8, or of 8, int8).
+QLINEAR_SHAPES = [s for n, c in ((16384, 64), (4096, 128), (1024, 320),
+                                 (256, 512))
+                  for s in ((8 * n, c, c), (8 * 256, c, c),
+                            (8 * n, c, 4 * c), (8 * n, 4 * c, c),
+                            (8 * n, c, 768))] + [
+    (8, 512, 768), (40, 40, 24), (5, 20, 12)]
+
+
+def _qlinear(cuda, kind, k, n, seed=0):
+    from semisupervisedobjectdetection_torch.ops.quant import QLinear
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    layer = QLinear(k, n, kind, torch.float32).to(cuda)
+    layer.set_from(torch.randn(n, k, device=cuda, generator=g) * 0.02,
+                   torch.randn(n, device=cuda, generator=g) * 0.02)
+    return layer, g
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("m,k,n", QLINEAR_SHAPES)
+def test_qlinear_card_gemm_matches_plain(cuda, kind, m, k, n):
+    """bfloat16 activations, float32 output (a bf16 output would round two
+    float32 sums an ulp apart to two bf16 values). int8: `torch._int_mm`
+    gives the plain integer product's bits; fp8: `torch._scaled_mm`
+    (full-precision accumulation) within 1e-3 of the output's largest value
+    of the float32 product of the e4m3 values."""
+    layer, g = _qlinear(cuda, kind, k, n)
+    x = torch.randn(m, k, device=cuda, generator=g).bfloat16()
+    with torch.no_grad():
+        got, want = layer(x), layer(x, plain=True)
+    assert got.shape == (m, n) and torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    if kind == "int8":
+        assert err == 0.0, err
+    else:
+        assert err <= 1e-3 * want.abs().max().item(), err
+
+
+def test_qlinear_card_refusal_raises(cuda, monkeypatch):
+    """A GEMM that refuses its operands raises through QLinear: the plain
+    product never stands in on the card. Mismatched inner widths raise
+    before any GEMM."""
+    from semisupervisedobjectdetection_torch.ops import quant
+
+    def refuse(*args, **kw):
+        raise RuntimeError("refused by the card's GEMM")
+
+    monkeypatch.setattr(torch, "_int_mm", refuse)
+    monkeypatch.setattr(torch, "_scaled_mm", refuse)
+    x = torch.randn(64, 64, device=cuda).bfloat16()
+    for kind in ("int8", "fp8"):
+        layer, _ = _qlinear(cuda, kind, 64, 64)
+        with pytest.raises(RuntimeError, match="refused"):
+            layer(x)
+    with pytest.raises(ValueError, match="inner widths"):
+        quant.int8_mm_card(torch.zeros(32, 64, dtype=torch.int8,
+                                       device=cuda),
+                           torch.zeros(16, 48, dtype=torch.int8,
+                                       device=cuda))

@@ -67,7 +67,13 @@ from test_torch_segformer import (  # noqa: F401 (autouse fixture)
     jax_variables,
     one_torch_thread,
 )
-from test_torch_supervised import _Gradients, _check_params, LR
+from test_torch_supervised import (
+    LR,
+    _Gradients,
+    _check_params,
+    _jax_mu,
+    _jax_state_dict,
+)
 
 SIZE = 64
 FEW = dict(depths=(1, 1), hidden_sizes=(8, 16), num_heads=(1, 2),
@@ -148,7 +154,7 @@ def _trajectory(num_labels, seed, make_inputs, jax_step, port_step):
         jout = jax_step(js, [jnp.asarray(a) for a in x], jcfg)
         js = jout.state
         out = port_step(state, [_t(a) for a in x])
-        grads.record(js)
+        grads.record(_jax_mu(cfg, js))
         outs.append((out, jout))
     assert int(state.count) == 2
     return cfg, state, js, grads, start, outs
@@ -158,7 +164,7 @@ def _check_trajectory(run):
     """Every parameter as `_check_params` bounds it (eval mode), and the
     CLS tokens moved on both sides."""
     cfg, state, js, grads, start, _ = run
-    _check_params(cfg, state, js, False, 2, grads)
+    _check_params(cfg, state, _jax_state_dict(cfg, js), False, 2, grads)
     ref = state_dict_from_flax(cfg, jax.tree.map(np.asarray, js.params))
     for n in CLS_TOKENS:
         assert not torch.equal(state.params[n].detach(), start[n]), n

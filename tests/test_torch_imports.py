@@ -34,7 +34,8 @@ def test_every_module_imports_without_jax():
               "cli.common", "cli.teacher_student", "cli.supervised",
               "cli.transfer", "api", "utils.profile_forward",
               "train.autoencoder", "cli.autoencoder", "train.fewshot",
-              "data.classified", "cli.fewshot"):
+              "data.classified", "cli.fewshot", "ops.quant",
+              "eval.sliding_window", "cli.serve"):
         assert f"semisupervisedobjectdetection_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

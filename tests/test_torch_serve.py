@@ -2,8 +2,8 @@
 cli/serve.py`) on the CPU, in the manner of tests/test_serve.py: routes,
 batching, formats, drain-stop, served masks equal to the JAX package's
 `forward_masks` with the same weights, `main --pretrain-weight` serving a
-checkpoint of the port's own CLIs, and the quantized and artifact flags
-refused."""
+checkpoint of the port's own CLIs, and the artifact flag refused (the
+quantized flags are held in tests/test_torch_quant_serving.py)."""
 
 import contextlib
 import io
@@ -260,10 +260,8 @@ def test_main_serves_a_port_checkpoint(tmp_path, monkeypatch):
                            .predict(x), atol=1e-3)
 
 
-@pytest.mark.parametrize("flags", [["--int8"], ["--fp8"],
-                                   ["--int8-snapshot", "snap"],
-                                   ["--artifact", "a.bin"]],
-                         ids=["int8", "fp8", "int8_snapshot", "artifact"])
+@pytest.mark.parametrize("flags", [["--artifact", "a.bin"]],
+                         ids=["artifact"])
 def test_main_refuses_unported_serving(flags):
     """Refused before any model is built, naming ROADMAP.md."""
     with pytest.raises(SystemExit, match="ROADMAP.md"):

@@ -1,11 +1,12 @@
 """The port's supervised steps (`semisupervisedobjectdetection_torch/train/
 supervised.py`) and trainable masks (`train/state.py`) against the JAX
 package on the CPU, with the same weights (`jax_variables` carried over by
-`state_dict_from_flax` / `train_state_from_flax`) and the same numpy inputs:
+`state_dict_from_flax`) and the same numpy inputs:
 
 - a 3-step float32 `train_step` trajectory at accum 1 and 2, in eval mode
   and in train mode at rates 0: losses, predictions, final parameters and
-  BatchNorm statistics;
+  BatchNorm statistics (the JAX side in a fresh interpreter,
+  tests/_sup_trajectory_main.py);
 - `predict_step`;
 - the trainable mask of frozen stages (0, 1) with shared and per-layer
   prompt tokens and CLS tokens, reference quirks on and off, against the JAX
@@ -13,6 +14,10 @@ package on the CPU, with the same weights (`jax_variables` carried over by
 - a 2-step frozen-stages-plus-prompts trajectory from states built with
   that mask, frozen parameters bit-equal to their start on both sides.
 """
+
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -30,7 +35,6 @@ from semisupervisedobjectdetection_tpu.train import state as jstate
 from semisupervisedobjectdetection_tpu.train import supervised as jsup
 from semisupervisedobjectdetection_torch.checkpoint.convert import (
     state_dict_from_flax,
-    train_state_from_flax,
 )
 from semisupervisedobjectdetection_torch.core.config import (
     MiTConfig,
@@ -85,6 +89,19 @@ def _jax_state_dict(cfg, js):
                                 jax.tree.map(np.asarray, js.batch_stats))
 
 
+def _jax_mu(cfg, js):
+    """The JAX state's first Adam moments by port name (zeros where the
+    trainable mask leaves a parameter without them)."""
+    (adam,) = [s for s in jax.tree.leaves(
+        js.opt_state,
+        is_leaf=lambda s: isinstance(s, optax.ScaleByAdamState))
+        if isinstance(s, optax.ScaleByAdamState)]
+    return state_dict_from_flax(cfg, jax.tree.map(
+        lambda p, m: np.zeros(p.shape, np.float32)
+        if isinstance(m, optax.MaskedNode) else np.array(m),
+        js.params, adam.mu))
+
+
 class _Gradients:
     """Each step's gradient as both optimizers took it (clipped, plus weight
     decay), by port name, for the trained parameters: recovered from the
@@ -96,15 +113,8 @@ class _Gradients:
                    for n, m in state.mu.items()}
         self.steps = []
 
-    def record(self, js):
-        (adam,) = [s for s in jax.tree.leaves(
-            js.opt_state,
-            is_leaf=lambda s: isinstance(s, optax.ScaleByAdamState))
-            if isinstance(s, optax.ScaleByAdamState)]
-        ref = state_dict_from_flax(self.cfg, jax.tree.map(
-            lambda p, m: np.zeros(p.shape, np.float32)
-            if isinstance(m, optax.MaskedNode) else np.array(m),
-            js.params, adam.mu))
+    def record(self, ref):
+        """`ref`: the JAX step's first moments by port name (`_jax_mu`)."""
         step = ({}, {})
         for n, (last_port, last_ref) in self.mu.items():
             now = (self.state.mu[n].clone(), ref[n])
@@ -114,7 +124,7 @@ class _Gradients:
         self.steps.append(step)
 
 
-def _check_params(cfg, state, js, train_mode, steps, grads):
+def _check_params(cfg, state, ref, train_mode, steps, grads):
     """Parameters to 2e-6, `test_torch_train.py`'s trajectory bound at lr
     3e-5, except where the cause below is seen element by element.
 
@@ -132,16 +142,16 @@ def _check_params(cfg, state, js, train_mode, steps, grads):
     the running means take, at momentum 0.1 per step, the mean of the
     fuse's output, to which those biases' difference passes through the
     fuse's rows: 1e-5 plus 0.1 x steps x each row's L1 norm x the largest
-    bias difference; the running variances to 1e-5."""
+    bias difference; the running variances to 1e-5. `ref` is the JAX
+    state's parameters and statistics by port name."""
     near_zero = {}
-    for port, ref in grads.steps:
-        top = max(g.abs().max().item() for g in ref.values())
-        for n, g in ref.items():
+    for port, theirs in grads.steps:
+        top = max(g.abs().max().item() for g in theirs.values())
+        for n, g in theirs.items():
             dg = (port[n] - g).abs()
             assert dg.max().item() <= 1e-5 * top, (n, dg.max().item(), top)
             near = g.abs() < LR / 2e-6 * dg
             near_zero[n] = near_zero[n] | near if n in near_zero else near
-    ref = _jax_state_dict(cfg, js)
     shift = 0.0
     for n, p in state.params.items():
         diff = (p.detach() - ref[n]).abs()
@@ -164,41 +174,85 @@ def _check_params(cfg, state, js, train_mode, steps, grads):
                          ), n
 
 
-@pytest.mark.parametrize("train_mode", [False, True],
-                         ids=["eval_mode", "train_mode"])
-@pytest.mark.parametrize("accum", [1, 2])
-def test_train_step_trajectory_matches_jax(accum, train_mode):
-    """3 float32 `train_step`s from one state, fresh inputs each step,
-    against the JAX `train_step` (its default XLA attention): the dice
-    losses to 2e-6 and the predicted masks to 1e-5 (float32 sums in another
-    order through 4 layers), the parameters and BatchNorm statistics as
-    `_check_params` says. In train mode at rates 0 both sides normalise with
-    batch statistics and keep their running averages, threaded through the
-    microbatches."""
+def jax_train_step_trajectory(accum: int, train_mode: bool) -> dict:
+    """The JAX side of `test_train_step_trajectory_matches_jax`, run by
+    tests/_sup_trajectory_main.py in a fresh interpreter (the jit of a
+    train step is a large new executable, which the XLA:CPU compile cache
+    can abort on in a long-lived worker): the initial weights, then per
+    step the loss, the predicted masks and the first Adam moments, then
+    the final parameters and statistics, by port name, as numpy arrays."""
     jcfg, cfg = JCfg(**SMALL), MiTConfig(**SMALL)
     v = jax_variables(jcfg, seed=21)
+    out = {f"init/{n}": t.numpy() for n, t in state_dict_from_flax(
+        cfg, v["params"], v["batch_stats"]).items()}
     js = jstate.TrainState.create(v, JTrainConfig(), lr=LR)
-    state = train_state_from_flax(cfg, js)
-    grads = _Gradients(cfg, state)
     rng = np.random.default_rng(22)
     for step in range(3):
         x, gt = _batch(rng)
         js, jloss, jpred = jsup.train_step(
             js, jnp.asarray(x), jnp.asarray(gt), jax.random.PRNGKey(step),
             jcfg, train_mode=train_mode, accum=accum)
+        out[f"step{step}/loss"] = np.asarray(jloss, np.float32)
+        out[f"step{step}/pred"] = np.asarray(jpred, np.float32)
+        for n, m in _jax_mu(cfg, js).items():
+            out[f"step{step}/mu/{n}"] = m.numpy()
+    for n, t in _jax_state_dict(cfg, js).items():
+        out[f"final/{n}"] = t.numpy()
+    return out
+
+
+def _by_prefix(arrays, prefix):
+    return {n[len(prefix):]: torch.from_numpy(a) for n, a in arrays.items()
+            if n.startswith(prefix)}
+
+
+@pytest.mark.parametrize("train_mode", [False, True],
+                         ids=["eval_mode", "train_mode"])
+@pytest.mark.parametrize("accum", [1, 2])
+def test_train_step_trajectory_matches_jax(accum, train_mode, tmp_path):
+    """3 float32 `train_step`s from one state, fresh inputs each step,
+    against the JAX `train_step` (its default XLA attention): the dice
+    losses to 2e-6 and the predicted masks to 1e-5 (float32 sums in another
+    order through 4 layers), the parameters and BatchNorm statistics as
+    `_check_params` says. In train mode at rates 0 both sides normalise with
+    batch statistics and keep their running averages, threaded through the
+    microbatches. The JAX side (`jax_train_step_trajectory`) runs in a
+    fresh interpreter and hands its arrays over in a file; the port starts
+    from its initial weights with fresh Adam state, as
+    `jstate.TrainState.create` starts the JAX side."""
+    path = tmp_path / "jax_trajectory.npz"
+    script = os.path.join(os.path.dirname(__file__),
+                          "_sup_trajectory_main.py")
+    proc = subprocess.run([sys.executable, script, str(accum),
+                           str(int(train_mode)), str(path)],
+                          capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0 and "sup-trajectory-jax-ok" in proc.stdout, (
+        f"the JAX side failed:\n{proc.stdout[-3000:]}\n"
+        f"{proc.stderr[-3000:]}")
+    with np.load(path) as f:
+        ref = dict(f)
+    cfg = MiTConfig(**SMALL)
+    model = SegFormer(cfg)
+    init = _by_prefix(ref, "init/")
+    model.load_state_dict(init, strict=True)
+    state = TrainState.create(model, TrainConfig(), lr=LR)
+    grads = _Gradients(cfg, state)
+    rng = np.random.default_rng(22)
+    for step in range(3):
+        x, gt = _batch(rng)
         _, loss, pred = train_step(
             state, _t(x), _t(gt), train_mode=train_mode, accum=accum,
             generator=torch.Generator().manual_seed(step))
-        grads.record(js)
-        _close(loss, jloss, atol=2e-6, rtol=1e-5)
-        _close(pred, jpred, atol=1e-5)
+        grads.record(_by_prefix(ref, f"step{step}/mu/"))
+        _close(loss, ref[f"step{step}/loss"], atol=2e-6, rtol=1e-5)
+        _close(pred, ref[f"step{step}/pred"], atol=1e-5)
     assert int(state.count) == 3
-    _check_params(cfg, state, js, train_mode, 3, grads)
+    _check_params(cfg, state, _by_prefix(ref, "final/"), train_mode, 3,
+                  grads)
     if train_mode:
         bn = "decode_head.batch_norm.running_mean"
         assert not np.allclose(state.batch_stats[bn].numpy(),
-                               v["batch_stats"]["decode_head"]["batch_norm"]
-                               ["mean"])
+                               init[bn].numpy())
 
 
 def test_predict_step_matches_jax():
@@ -288,9 +342,9 @@ def test_frozen_prompt_trajectory_matches_jax():
         js, jloss, _ = jsup.train_step(js, jnp.asarray(x), jnp.asarray(gt),
                                        jax.random.PRNGKey(step), jcfg)
         _, loss, _ = train_step(state, _t(x), _t(gt))
-        grads.record(js)
+        grads.record(_jax_mu(cfg, js))
         _close(loss, jloss, atol=2e-6, rtol=1e-5)
-    _check_params(cfg, state, js, False, 2, grads)
+    _check_params(cfg, state, _jax_state_dict(cfg, js), False, 2, grads)
     for n in frozen:
         assert torch.equal(state.params[n], start[n]), n
     for n in ("segformer.encoder.patch_embeddings.0.proj.weight",

@@ -9,8 +9,8 @@ same numpy inputs and the same weights on both sides:
   tests/test_torch_segformer.py, under remat (the JAX side in a fresh
   interpreter, tests/_grad_parity_main.py);
 - a 3-step float32 trajectory of `train/ema.py::ema_semi_step` against the
-  JAX `ema_semi_step`, from one state carried across with
-  `train_state_from_flax`, at accum 1 and 2;
+  JAX `ema_semi_step`, from one state, at accum 1 and 2 (the JAX side in a
+  fresh interpreter, tests/_ema_trajectory_main.py);
 - the port's bench on the CPU.
 """
 
@@ -50,7 +50,6 @@ from semisupervisedobjectdetection_tpu.train.teacher_student import (
 from semisupervisedobjectdetection_torch import bench, losses
 from semisupervisedobjectdetection_torch.checkpoint.convert import (
     state_dict_from_flax,
-    train_state_from_flax,
 )
 from semisupervisedobjectdetection_torch.core.config import (
     MiTConfig,
@@ -311,8 +310,49 @@ EMA_TINY = dict(depths=(1, 1, 1, 1), hidden_sizes=(8, 16, 32, 64),
                 num_heads=(1, 2, 4, 8), decoder_hidden=32)
 
 
+def jax_ema_step_trajectory(accum: int) -> dict:
+    """The JAX side of `test_ema_trajectory_matches_jax`, run by
+    tests/_ema_trajectory_main.py in a fresh interpreter (the jit of the
+    step is a large new executable, which the XLA:CPU compile cache can
+    abort on in a long-lived worker): the initial weights (classifier bias
+    2), per step the outputs the test compares, then both models'
+    parameters and BatchNorm statistics, by port name, as numpy arrays."""
+    jcfg = JCfg(**EMA_TINY)
+    cfg = MiTConfig(**EMA_TINY)
+    v = jax_variables(jcfg, seed=3)
+    v["params"]["decode_head"]["classifier"]["bias"][:] = 2.0
+    out = {f"init/{n}": t.numpy() for n, t in state_dict_from_flax(
+        cfg, v["params"], v["batch_stats"]).items()}
+    tc = JTrainConfig()
+    jt = JTrainState.create(v, tc, lr=5e-7)
+    js = JTrainState.create(v, tc, lr=3e-5)
+    rng = np.random.default_rng(4)
+    for step in range(3):
+        unl, imgs, gt = _ema_inputs(rng)
+        jout = jema.ema_semi_step(jt, js, jnp.asarray(unl),
+                                  jnp.asarray(imgs), jnp.asarray(gt),
+                                  jnp.asarray(0.8), jnp.asarray(0.999),
+                                  jcfg, accum=accum)
+        jt, js = jout.teacher_state, jout.student_state
+        for i, a in enumerate(jout[2:8]):
+            out[f"step{step}/{i}"] = np.asarray(a, np.float32)
+    for name, theirs in (("student", js), ("teacher", jt)):
+        for n, t in state_dict_from_flax(
+                cfg, jax.tree.map(np.asarray, theirs.params),
+                jax.tree.map(np.asarray, theirs.batch_stats)).items():
+            out[f"{name}/{n}"] = t.numpy()
+    return out
+
+
+def _ema_inputs(rng):
+    unl, imgs = (rng.uniform(size=(2, SIZE, SIZE, 3)).astype(np.float32)
+                 for _ in "ui")
+    gt = (rng.uniform(size=(2, SIZE, SIZE)) > 0.6).astype(np.float32)
+    return unl, imgs, gt
+
+
 @pytest.mark.parametrize("accum", [1, 2])
-def test_ema_trajectory_matches_jax(accum):
+def test_ema_trajectory_matches_jax(accum, tmp_path):
     """3 float32 steps of `ema_semi_step` from one state, with fresh inputs
     each step, against the JAX step (attn_impl "xla", its default). The
     classifier bias is set to 2 so the teacher's soft masks sit near 0.88:
@@ -322,42 +362,45 @@ def test_ema_trajectory_matches_jax(accum):
     lr*sign(g) on these first steps, so an element whose gradient is at
     rounding level can move the other way: parameters agree to 2e-6 (the
     student's lr is 3e-5) and the teacher, 0.1% of the student's move, far
-    closer."""
-    jcfg = JCfg(**EMA_TINY)
+    closer. The JAX side (`jax_ema_step_trajectory`) runs in a fresh
+    interpreter and hands its arrays over in a file; the port starts from
+    its initial weights with fresh Adam state, as `JTrainState.create`
+    starts the JAX side."""
+    path = tmp_path / "jax_ema.npz"
+    script = os.path.join(os.path.dirname(__file__),
+                          "_ema_trajectory_main.py")
+    proc = subprocess.run([sys.executable, script, str(accum), str(path)],
+                          capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0 and "ema-trajectory-jax-ok" in proc.stdout, (
+        f"the JAX side failed:\n{proc.stdout[-3000:]}\n"
+        f"{proc.stderr[-3000:]}")
+    with np.load(path) as f:
+        ref = dict(f)
     cfg = MiTConfig(**EMA_TINY)
-    v = jax_variables(jcfg, seed=3)
-    v["params"]["decode_head"]["classifier"]["bias"][:] = 2.0
-    tc = JTrainConfig()
-    jt = JTrainState.create(v, tc, lr=5e-7)
-    js = JTrainState.create(v, tc, lr=3e-5)
-    teacher = train_state_from_flax(cfg, jt)
-    student = train_state_from_flax(cfg, js)
+    model = SegFormer(cfg)
+    model.load_state_dict({n[5:]: torch.from_numpy(a) for n, a in
+                           ref.items() if n.startswith("init/")},
+                          strict=True)
+    tc = TrainConfig()
+    teacher = TrainState.create(copy.deepcopy(model), tc, lr=5e-7)
+    student = TrainState.create(model, tc, lr=3e-5)
     assert float(student.base_lr) == pytest.approx(3e-5)
     rng = np.random.default_rng(4)
     for step in range(3):
-        unl, imgs = (rng.uniform(size=(2, SIZE, SIZE, 3)).astype(np.float32)
-                     for _ in "ui")
-        gt = (rng.uniform(size=(2, SIZE, SIZE)) > 0.6).astype(np.float32)
-        jout = jema.ema_semi_step(jt, js, jnp.asarray(unl),
-                                  jnp.asarray(imgs), jnp.asarray(gt),
-                                  jnp.asarray(0.8), jnp.asarray(0.999),
-                                  jcfg, accum=accum)
-        jt, js = jout.teacher_state, jout.student_state
+        unl, imgs, gt = _ema_inputs(rng)
         out = ema_semi_step(teacher, student, _t(unl), _t(imgs), _t(gt),
                             0.8, 0.999, accum=accum)
-        for a, b in zip(out[2:6], jout[2:6]):
+        want = [ref[f"step{step}/{i}"] for i in range(6)]
+        for a, b in zip(out[2:6], want[:4]):
             _close(a, b, atol=2e-6, rtol=1e-5)
-        assert float(out.n_kept) == float(jout.n_kept) == 2.0
-        _close(out.pseudo_mask, jout.pseudo_mask, atol=0)
-    for ours, theirs, atol in ((student, js, 2e-6), (teacher, jt, 1e-8)):
-        ref = state_dict_from_flax(cfg, jax.tree.map(np.asarray,
-                                                     theirs.params),
-                                   jax.tree.map(np.asarray,
-                                                theirs.batch_stats))
+        assert float(out.n_kept) == float(want[4]) == 2.0
+        _close(out.pseudo_mask, want[5], atol=0)
+    for name, ours, atol in (("student", student, 2e-6),
+                             ("teacher", teacher, 1e-8)):
         for n, p in ours.params.items():
-            _close(p, ref[n], atol=atol, rtol=1e-6, err_msg=n)
+            _close(p, ref[f"{name}/{n}"], atol=atol, rtol=1e-6, err_msg=n)
         for n, b in ours.batch_stats.items():
-            _close(b, ref[n], atol=1e-7, rtol=1e-6, err_msg=n)
+            _close(b, ref[f"{name}/{n}"], atol=1e-7, rtol=1e-6, err_msg=n)
     assert int(student.count) == 3
 
 
