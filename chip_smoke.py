@@ -228,7 +228,7 @@ non-zero before the final line:
                 MSE per element), 416/208 and 208/104 K1/K2 launches per
                 step, the plain path none; ms per call and peak memory.
 24. fewshot_cli - `cli/fewshot.py::main --synthetic --variant b5 --img-size
-                512 --perf --iterations 4`: `--mode ae` 2 epochs with
+                512 --perf --iterations 2`: `--mode ae` 2 epochs with
                 --resume, then a resumed third epoch; `--mode seg` 1 epoch,
                 then `--predict` from its best checkpoint: CSV rows,
                 checkpoint names, and the `epoch_report` launches per step
@@ -252,9 +252,11 @@ non-zero before the final line:
                 images, at the JAX package's bounds: binarised agreement
                 above 0.98 (int8) and 0.97 (fp8) at B5 widths and the
                 5-layer depth those bounds were set at (1, 1, 2, 1), and
-                int8's also at the full depth (fp8's printed there: the
-                untrained 52 layers leave the probabilities within a few
-                hundredths of 0.5, where e4m3 flips ~5% of the pixels);
+                int8's also at the full depth (there the untrained 52
+                layers leave the probabilities within a few hundredths of
+                0.5, where e4m3 flips ~5% of the pixels: fp8's agreement
+                on 2 images is held within 0.01 of the same reading
+                through the port's plain path on the CPU);
                 |dice delta| against a seeded target at most 0.01 at both
                 depths;
                 device ms, host ms and 52 K1 launches per batch-8 predict
@@ -450,9 +452,10 @@ FEWSHOT_SHAPES = tuple((nq + 1, nk + 1, c, h) for nq, nk, c, h
 FEWSHOT_SEG_K = (2 * 2 * sum(B5_DEPTHS), 2 * sum(B5_DEPTHS))   # 208, 104
 FEWSHOT_AE_K = (2 * FEWSHOT_SEG_K[0], 2 * FEWSHOT_SEG_K[1])    # 416, 208
 # The few-shot CLI phase: 6 synthetic tiles per domain (3 domains per
-# group), 4 eval tiles in one batch, 4 iterations an epoch.
+# group), 4 eval tiles in one batch, 2 iterations an epoch (its checks
+# need no more, and the script has a time limit to keep).
 FEWSHOT_CLI_TILES = 6
-FEWSHOT_CLI_ITERS = 4
+FEWSHOT_CLI_ITERS = 2
 # Quantized serving (quant_serve): the masks of the int8 and fp8 snapshots
 # against the float32 model's, at the JAX package's own bounds
 # (tests/test_quant.py: binarised agreement above 0.98 int8 and 0.97 fp8;
@@ -466,12 +469,18 @@ FEWSHOT_CLI_ITERS = 4
 # (bf16 alone flips ~1% against float32, fp8's e4m3 about 5%). So the
 # agreement bounds hold the quantized masks at B5 widths at that depth
 # (QUANT_GATE_DEPTHS) in both widths, and at the full depth in int8; the
-# full depth's fp8 agreement is printed, and the dice bound holds at both
-# depths.
+# dice bound holds at both depths. At the full depth fp8's agreement with
+# float32 is read again through the port's plain path on the CPU (the
+# same weights, the first QUANT_WITNESS_IMAGES images), and the card's
+# reading on those images must lie within QUANT_WITNESS_GAP of it: the
+# distance is then the format's, not the card path's
+# (scripts/fp8_depth_witness.py).
 QUANT_KINDS = ("int8", "fp8")
 QUANT_AGREE = {"int8": 0.98, "fp8": 0.97}
 QUANT_DICE_DELTA = 0.01
 QUANT_GATE_DEPTHS = (1, 1, 2, 1)
+QUANT_WITNESS_IMAGES = 2
+QUANT_WITNESS_GAP = 0.01
 QLINEAR_FP8_TOL = 1e-3
 # The sliding raster (sliding_raster): a 1200 x 1500 scene in 512-pixel
 # windows overlapping by 64, 3 rows x 4 columns = 12 windows, predicted in
@@ -2300,7 +2309,10 @@ def _qlinear_rows():
     import torch
     import torch.nn.functional as F
 
-    from semisupervisedobjectdetection_torch.ops.quant import QLinear
+    from semisupervisedobjectdetection_torch.ops.quant import (
+        QLinear,
+        plain_linear,
+    )
 
     dev = torch.device("cuda")
     rows = []
@@ -2316,7 +2328,7 @@ def _qlinear_rows():
             for kind in QUANT_KINDS:
                 layer = QLinear(k, n, kind, torch.float32).to(dev)
                 layer.set_from(w, b)
-                got, want = layer(x), layer(x, plain=True)
+                got, want = layer(x), plain_linear(layer, x)
                 err = (got - want).abs().max().item()
                 top = want.abs().max().item()
                 rows.append({
@@ -2326,7 +2338,7 @@ def _qlinear_rows():
                         err == 0.0 if kind == "int8"
                         else err <= QLINEAR_FP8_TOL * top),
                     "ms": cuda_ms(lambda: layer(x), iters=10, warmup=2),
-                    "plain_ms": cuda_ms(lambda: layer(x, plain=True),
+                    "plain_ms": cuda_ms(lambda: plain_linear(layer, x),
                                         iters=3, warmup=1),
                     "bf16_linear_ms": linear_ms})
                 del layer, got, want
@@ -2357,8 +2369,9 @@ def phase_quant_serve(smi: str):
     batch 8: QLinear on the card against its plain product at every B5
     dense shape; the int8 and fp8 `predict` masks against the float32
     model's (agreement and binarised dice against a seeded target, at the
-    full depth and at QUANT_GATE_DEPTHS); a
-    snapshot round trip into a fresh model; `cli/serve.py::main --int8
+    full depth and at QUANT_GATE_DEPTHS; fp8's full-depth agreement beside
+    the plain CPU path's on QUANT_WITNESS_IMAGES images); a snapshot round
+    trip into a fresh model; `cli/serve.py::main --int8
     --int8-snapshot` in this process, its raw and PNG replies equal to
     `predict` of the padded batch; device ms, host ms and K1 launches per
     batch-8 predict in bf16, int8 and fp8."""
@@ -2387,9 +2400,11 @@ def phase_quant_serve(smi: str):
         return 1.0 - float(losses.dice_argmax_loss(
             torch.from_numpy(masks), torch.from_numpy(target)))
 
+    def agree(masks, ref):
+        return float(((masks > 0.5) == (ref > 0.5)).mean())
+
     def against(masks, ref):
-        return {"agree_vs_float32": float(((masks > 0.5) == (ref > 0.5))
-                                          .mean()),
+        return {"agree_vs_float32": agree(masks, ref),
                 "max_abs_err_vs_float32": float(np.abs(masks - ref).max()),
                 "dice_delta_vs_float32": abs(dice(masks) - dice(ref)),
                 "finite": bool(np.isfinite(masks).all())}
@@ -2419,7 +2434,27 @@ def phase_quant_serve(smi: str):
         paths[kind] = {"launches_k1_k2_k1mma": launches,
                        "device_ms": dev_ms, "host_ms": host_ms,
                        "dice": dice(masks), **against(masks, f32)}
+        if kind == "fp8":
+            fp8_card = masks[:QUANT_WITNESS_IMAGES]
     dice_f32 = dice(f32)
+    # fp8's full-depth witness on the port's plain path on the CPU
+    t0 = time.perf_counter()
+    xw = x[:QUANT_WITNESS_IMAGES]
+    cpu = {}
+    for dtype, kind in (("float32", None), ("bfloat16", "fp8")):
+        m = SegFormerModel(config=cfg.replace(dtype=dtype), seed=SEED,
+                           device="cpu")
+        if kind:
+            m.quantize(kind)
+        cpu[dtype] = m.predict(xw)
+        del m
+    witness = {"images": QUANT_WITNESS_IMAGES,
+               "card_agree_vs_float32": agree(
+                   fp8_card, f32[:QUANT_WITNESS_IMAGES]),
+               "cpu_plain_agree_vs_float32": agree(cpu["bfloat16"],
+                                                   cpu["float32"]),
+               "card_vs_cpu_plain_agree": agree(fp8_card, cpu["bfloat16"]),
+               "s": time.perf_counter() - t0}
 
     root = tempfile.mkdtemp(prefix="chip_smoke_quant_")
     try:
@@ -2483,6 +2518,7 @@ def phase_quant_serve(smi: str):
            "dice_float32": dice_f32,
            "at_gate_depth": {"depths": list(QUANT_GATE_DEPTHS),
                              **gate_depth},
+           "fp8_full_depth_witness": witness,
            "snapshot_round_trip": round_trip,
            "snapshot_bytes": snap_bytes, "serve_s": serve_s,
            "serve_snapshot_written": served_snapshot,
@@ -2492,6 +2528,7 @@ def phase_quant_serve(smi: str):
            "healthz": got["health"],
            "bounds": {"agree": QUANT_AGREE, "dice_delta": QUANT_DICE_DELTA,
                       "agree_full_depth": {"int8": QUANT_AGREE["int8"]},
+                      "fp8_witness_gap": QUANT_WITNESS_GAP,
                       "qlinear_fp8": QLINEAR_FP8_TOL},
            "card": smi}
     emit(row)
@@ -2509,6 +2546,10 @@ def phase_quant_serve(smi: str):
                                  f"{QUANT_GATE_DEPTHS}: {gate_depth[kind]}")
     if paths["int8"]["agree_vs_float32"] <= QUANT_AGREE["int8"]:
         raise AssertionError(f"int8 masks against float32: {paths['int8']}")
+    if abs(witness["card_agree_vs_float32"]
+           - witness["cpu_plain_agree_vs_float32"]) > QUANT_WITNESS_GAP:
+        raise AssertionError(f"fp8 at full depth: the card's agreement with "
+                             f"float32 is not the plain path's: {witness}")
     if any(p["launches_k1_k2_k1mma"] != (per, 0, per)
            for p in paths.values()) or \
             got["launches"] != (3 * per, 0, 3 * per):
@@ -3550,7 +3591,7 @@ def phase_fewshot_step(smi: str):
 
 def phase_fewshot_cli(smi: str):
     """`cli/fewshot.py::main` at MiT-B5 512x512 bf16 (--perf) on synthetic
-    domains, 4 iterations an epoch: `--mode ae` 2 epochs with --resume and
+    domains, 2 iterations an epoch: `--mode ae` 2 epochs with --resume and
     a resumed third; `--mode seg` 1 epoch, then `--predict` from its best
     checkpoint."""
     import math

@@ -478,6 +478,21 @@ class SegFormerModel:
         snap.load_state_dict(sd, strict=True)
         self._quantized = snap.eval().requires_grad_(False)
 
+    def load_or_quantize(self, kind: str,
+                         snapshot: Optional[str] = None) -> None:
+        """Serve quantized, as the serving and supervised CLIs'
+        `--int8`/`--fp8` with `--int8-snapshot` do: load the snapshot file
+        `snapshot` when it exists (its own width), else `quantize(kind)`
+        and, with a path, write the snapshot there."""
+        if snapshot and os.path.exists(snapshot):
+            self.load_quantized(snapshot)
+            print(f"quantized snapshot loaded: {snapshot} ({self.quant})")
+            return
+        self.quantize(kind)
+        if snapshot:
+            self.save_quantized(snapshot)
+            print(f"{kind} snapshot written: {snapshot}")
+
     # ---------------------------------------------------- not ported yet
     def export_serving(self, path: str, batch_size: int, img_size=None,
                        platforms=()) -> dict:

@@ -346,22 +346,6 @@ def _serve_until_signal(srv: InferenceServer) -> None:
     print("drained; bye", flush=True)
 
 
-def load_or_quantize(model, kind: str, snapshot: Optional[str]) -> None:
-    """Serve `model` quantized: load the snapshot file `snapshot` when it
-    exists (its own width), else quantize to `kind` and, with a path,
-    write the snapshot there."""
-    import os
-
-    if snapshot and os.path.exists(snapshot):
-        model.load_quantized(snapshot)
-        print(f"quantized snapshot loaded: {snapshot} ({model.quant})")
-        return
-    model.quantize(kind)
-    if snapshot:
-        model.save_quantized(snapshot)
-        print(f"{kind} snapshot written: {snapshot}")
-
-
 def main(argv=None):
     import argparse
 
@@ -427,7 +411,7 @@ def main(argv=None):
         print("WARNING: serving randomly initialized weights "
               "(no --pretrain-weight / --hf-weights)")
     if quant != "none":
-        load_or_quantize(model, quant, args.int8_snapshot)
+        model.load_or_quantize(quant, args.int8_snapshot)
     srv = InferenceServer(model, img_size=args.img_size,
                           max_batch=args.max_batch,
                           batch_window_ms=args.batch_window_ms,

@@ -49,7 +49,6 @@ from semisupervisedobjectdetection_torch.checkpoint.io import (
     save_last,
 )
 from semisupervisedobjectdetection_torch.cli import common
-from semisupervisedobjectdetection_torch.cli.serve import load_or_quantize
 from semisupervisedobjectdetection_torch.core.config import MIT_VARIANTS
 from semisupervisedobjectdetection_torch.data.prefetch import (
     fold_in,
@@ -345,7 +344,7 @@ def main(argv: Optional[List[str]] = None):
                            grad_accum=args.grad_accum, device=device)
     if args.predict:
         if quant != "none":
-            load_or_quantize(model, quant, args.int8_snapshot)
+            model.load_or_quantize(quant, args.int8_snapshot)
         if args.sliding_raster:
             return predict_raster(model, args)
         return predict(model, loaders, dcfg, args)

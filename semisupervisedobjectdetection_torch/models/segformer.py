@@ -179,7 +179,9 @@ def dense_factory(cfg: MiTConfig):
     """The class of the dense layers the JAX model builds through
     `_dense_cls`: `Linear` when `cfg.quant` is "none", else a callable
     making `QLinear(in, out, cfg.quant)` that computes in the config's
-    dtype."""
+    dtype. The one place that decides which layers are quantized:
+    `ops/quant.py::quantize_dense_params` and `load_quantized` build the
+    quantized model through it."""
     if cfg.quant == "none":
         return Linear
     kind, dtype = check_kind(cfg.quant), compute_dtype(cfg)

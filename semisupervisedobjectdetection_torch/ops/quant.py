@@ -26,8 +26,7 @@ product of the upcast e4m3 values (fp8).
 
 from __future__ import annotations
 
-import copy
-import dataclasses
+from functools import partial
 from typing import Tuple
 
 import torch
@@ -140,11 +139,9 @@ _CARD = {"int8": int8_mm_card, "fp8": fp8_mm_card}
 _PLAIN = {"int8": int8_mm_plain, "fp8": fp8_mm_plain}
 
 
-def _mm(kind: str, xq: torch.Tensor, wq: torch.Tensor,
-        plain: bool = False) -> torch.Tensor:
-    """The card's GEMM on a CUDA tensor, the plain product on a CPU one (or
-    anywhere with `plain`, the comparison path of the card's checks)."""
-    if plain or xq.device.type == "cpu":
+def _mm(kind: str, xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """The card's GEMM on a CUDA tensor, the plain product on a CPU one."""
+    if xq.device.type == "cpu":
         return _PLAIN[kind](xq, wq)
     if xq.device.type != "cuda":
         raise RuntimeError(f"quantized products run on cuda or cpu, not "
@@ -152,30 +149,44 @@ def _mm(kind: str, xq: torch.Tensor, wq: torch.Tensor,
     return _CARD[kind](xq, wq)
 
 
-def int8_matmul(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
-                plain: bool = False) -> torch.Tensor:
-    """Dynamic-activation int8 product: x (..., in) against an int8 (out,
-    in) weight with per-output-channel scales, float32 (..., out). The
-    activations are quantized per token (one outlier token does not coarsen
-    the others), accumulated in int32 and dequantized as
-    `acc * xscale[token] * wscale[channel]`. `plain` runs the plain product
-    on the card too."""
-    xf, xscale = _scale_tokens(x, INT8_MAX)
-    xq = torch.round(xf).clamp(-INT8_MAX, INT8_MAX).to(torch.int8)
-    acc = _mm("int8", xq.reshape(-1, xq.shape[-1]), wq, plain)
+def _quantize_tokens(kind: str, x: torch.Tensor):
+    """(xq, xscale): `x` quantized per token, int8 rounded half to even and
+    clipped to +-127, or e4m3 clipped to +-448 and cast (round to nearest
+    even)."""
+    if kind == "int8":
+        xf, xscale = _scale_tokens(x, INT8_MAX)
+        return (torch.round(xf).clamp(-INT8_MAX, INT8_MAX).to(torch.int8),
+                xscale)
+    xf, xscale = _scale_tokens(x, FP8_MAX)
+    return xf.clamp(-FP8_MAX, FP8_MAX).to(FP8), xscale
+
+
+def _dynamic_matmul(kind: str, x: torch.Tensor, wq: torch.Tensor,
+                    wscale: torch.Tensor, mm) -> torch.Tensor:
+    """x (..., in) quantized per token, `mm` of it against the (out, in)
+    weight, dequantized as `acc * xscale[token] * wscale[channel]` in
+    float32: (..., out)."""
+    xq, xscale = _quantize_tokens(kind, x)
+    acc = mm(xq.reshape(-1, xq.shape[-1]), wq)
     acc = acc.reshape(*x.shape[:-1], wq.shape[0])
     return acc.float() * xscale * wscale
 
 
-def fp8_matmul(x: torch.Tensor, wq: torch.Tensor, wscale: torch.Tensor,
-               plain: bool = False) -> torch.Tensor:
+def int8_matmul(x: torch.Tensor, wq: torch.Tensor,
+                wscale: torch.Tensor) -> torch.Tensor:
+    """Dynamic-activation int8 product: x (..., in) against an int8 (out,
+    in) weight with per-output-channel scales, float32 (..., out). The
+    activations are quantized per token (one outlier token does not coarsen
+    the others), accumulated in int32 and dequantized as
+    `acc * xscale[token] * wscale[channel]`."""
+    return _dynamic_matmul("int8", x, wq, wscale, partial(_mm, "int8"))
+
+
+def fp8_matmul(x: torch.Tensor, wq: torch.Tensor,
+               wscale: torch.Tensor) -> torch.Tensor:
     """Dynamic-activation e4m3 product, as `int8_matmul` with the per-token
     scale onto 448 and a float32 accumulation."""
-    xf, xscale = _scale_tokens(x, FP8_MAX)
-    xq = xf.clamp(-FP8_MAX, FP8_MAX).to(FP8)
-    acc = _mm("fp8", xq.reshape(-1, xq.shape[-1]), wq, plain)
-    acc = acc.reshape(*x.shape[:-1], wq.shape[0])
-    return acc * xscale * wscale
+    return _dynamic_matmul("fp8", x, wq, wscale, partial(_mm, "fp8"))
 
 
 _QUANTIZERS = {"int8": quantize_weight, "fp8": quantize_weight_fp8}
@@ -218,10 +229,8 @@ class QLinear(nn.Module):
         self.weight_scale.copy_(scale)
         self.bias.copy_(bias.float())
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        """`plain` runs the plain product on the card too (the comparison
-        path of the card's checks)."""
-        y = _MATMULS[self.kind](x, self.weight, self.weight_scale, plain)
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = _MATMULS[self.kind](x, self.weight, self.weight_scale)
         return (y + self.bias).to(self.dtype)
 
     def extra_repr(self) -> str:
@@ -229,34 +238,44 @@ class QLinear(nn.Module):
                 f"out_features={self.out_features}, kind={self.kind}")
 
 
+def plain_linear(layer: QLinear, x: torch.Tensor) -> torch.Tensor:
+    """`layer(x)` through the plain product on any device: the reference
+    the card's int8 and fp8 GEMMs are held to."""
+    y = _dynamic_matmul(layer.kind, x, layer.weight, layer.weight_scale,
+                        _PLAIN[layer.kind])
+    return (y + layer.bias).to(layer.dtype)
+
+
 @torch.no_grad()
 def quantize_dense_params(model: nn.Module, kind: str = "int8") -> nn.Module:
-    """A quantized serving copy of a float SegFormer: every `nn.Linear`
-    (the layers the JAX model builds through `_dense_cls`: q/k/v, the
-    attention output, dense1/dense2, linear_c and cls_proj; the convs,
-    `linear_fuse` and the classifier are `nn.Conv2d`) becomes a
-    `QLinear(kind)` holding the quantized weight, and every `cfg` of the
-    copy says `quant=kind`. The copy is deep: it shares no tensor with
-    `model`, so training `model` in place leaves it as it was (the JAX
-    package deep-copies its snapshot for the same reason). The other
-    weights stay as `model` holds them; `cast_to_compute_dtype` casts them
-    once for serving. Eval mode, no gradients."""
-    check_kind(kind)
+    """A quantized serving copy of a float SegFormer: the model's class
+    built for `model.cfg.replace(quant=kind)`, whose dense layers (the ones
+    the JAX model builds through `_dense_cls`: q/k/v, the attention output,
+    dense1/dense2, linear_c and cls_proj) are `QLinear(kind)`s, each
+    filled by quantizing the float layer of the same name; every other
+    weight and BatchNorm statistic is copied as `model` holds it
+    (`cast_to_compute_dtype` casts them once for serving). The copy shares
+    no tensor with `model`, so training `model` in place leaves it as it
+    was (the JAX package deep-copies its snapshot for the same reason).
+    Eval mode, no gradients."""
+    cfg = model.cfg.replace(quant=check_kind(kind))
+    device = next(model.parameters()).device
     with torch.inference_mode(False):
-        q = copy.deepcopy(model)
-        for m in q.modules():
-            cfg = getattr(m, "cfg", None)
-            if dataclasses.is_dataclass(cfg):
-                m.cfg = dataclasses.replace(cfg, quant=kind)
-        dtype = torch.bfloat16 if q.cfg.dtype == "bfloat16" \
-            else torch.float32
-        for m in list(q.modules()):
-            for name, child in list(m.named_children()):
-                if isinstance(child, nn.Linear):
-                    ql = QLinear(child.in_features, child.out_features,
-                                 kind, dtype).to(child.weight.device)
-                    ql.set_from(child.weight, child.bias)
-                    setattr(m, name, ql)
+        with torch.device("meta"):
+            q = type(model)(cfg)
+        q = q.to_empty(device=device)
+        dense = {name: m for name, m in q.named_modules()
+                 if isinstance(m, QLinear)}
+        rest = {k: v for k, v in model.state_dict().items()
+                if k.rpartition(".")[0] not in dense}
+        missing, unexpected = q.load_state_dict(rest, strict=False)
+        if unexpected or {k.rpartition(".")[0] for k in missing} - set(dense):
+            raise ValueError(f"{type(model).__name__} does not match its "
+                             f"quantized build: missing {missing}, "
+                             f"unexpected {unexpected}")
+        for name, layer in dense.items():
+            src = model.get_submodule(name)
+            layer.set_from(src.weight, src.bias)
     return q.eval().requires_grad_(False)
 
 

@@ -242,7 +242,7 @@ def make_teacher_int8_snapshot(teacher_state: TrainState) -> nn.Module:
     """The int8 serving model of the EMA teacher for `ema_semi_step_int8`:
     its dense layers quantized per channel (`ops/quant.py`), its other
     weights cast once to the compute dtype, its BatchNorm statistics
-    copied. Every tensor is its own (a deep copy), so the in-place EMA of
-    the teacher does not move it. Refresh it once per epoch."""
+    copied. Every tensor is its own (copied into a model built anew), so
+    the in-place EMA of the teacher does not move it. Refresh it once per epoch."""
     return cast_to_compute_dtype(
         quantize_dense_params(teacher_state.model, "int8"))

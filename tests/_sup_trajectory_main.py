@@ -12,6 +12,8 @@ test compares to an .npz.
 
 import os
 import sys
+import tempfile
+import zlib
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))
@@ -26,9 +28,15 @@ from semisupervisedobjectdetection_tpu.utils.cache import (  # noqa: E402
     setup_compile_cache,
 )
 
-# a private persistent cache per case: a repeated run skips the compile,
-# and no two processes of the suite share a cache directory
-setup_compile_cache(f"/tmp/jax_test_cache_suptraj_{sys.argv[1]}_{sys.argv[2]}", min_compile_secs=0.5)
+# a private persistent cache per case and per checkout, under the temporary
+# directory (TMPDIR): no two processes of one suite, and no two checkouts'
+# suites run side by side, share a cache directory; a repeated run of one
+# checkout skips the compile
+CASE = f"suptraj_{sys.argv[1]}_{sys.argv[2]}"
+CHECKOUT = f"{zlib.crc32(os.path.dirname(HERE).encode()):08x}"
+setup_compile_cache(os.path.join(tempfile.gettempdir(),
+                                 f"jax_test_cache_{CASE}_{CHECKOUT}"),
+                    min_compile_secs=0.5)
 
 import numpy as np  # noqa: E402
 

@@ -1,6 +1,7 @@
 """The port stands alone: no module of `semisupervisedobjectdetection_torch`
 nor `chip_smoke.py` nor `scripts/k1_design_ab.py`,
-`scripts/k2_phase_profile.py` or `scripts/tf32_probe.py` imports JAX, Flax,
+`scripts/k2_phase_profile.py`, `scripts/tf32_probe.py` or
+`scripts/fp8_depth_witness.py` imports JAX, Flax,
 transformers or the JAX package, and the entry points do not fall back to
 the CPU when no card is present."""
 
@@ -198,6 +199,28 @@ def test_tf32_probe_imports_and_needs_a_card():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     env["CUDA_VISIBLE_DEVICES"] = ""
     proc = subprocess.run([sys.executable, "scripts/tf32_probe.py"],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 2, proc.stdout + proc.stderr
+
+
+def test_fp8_depth_witness_imports_and_needs_a_card():
+    """`scripts/fp8_depth_witness.py` and what it reaches import no JAX and,
+    without a card, it exits 2 before it builds a model."""
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, 'scripts')\n"
+        "import fp8_depth_witness\n"
+        "import semisupervisedobjectdetection_torch.api\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run([sys.executable, "scripts/fp8_depth_witness.py"],
                           cwd=ROOT, env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 2, proc.stdout + proc.stderr

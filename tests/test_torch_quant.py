@@ -139,6 +139,17 @@ def test_qlinear_is_jax_dense_layer(kind):
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol)
 
 
+@pytest.mark.parametrize("kind", KINDS)
+def test_plain_linear_is_the_cpu_forward(kind):
+    """`plain_linear`, the reference of the card's checks, is the layer's
+    own forward on a CPU tensor, bit for bit."""
+    w, x = _weights(), _activations()
+    layer = quant.QLinear(48, 40, kind, torch.bfloat16)
+    layer.set_from(torch.from_numpy(w.T.copy()), torch.zeros(40))
+    xt = torch.from_numpy(x).bfloat16()
+    assert torch.equal(quant.plain_linear(layer, xt), layer(xt))
+
+
 def test_bad_kinds_raise():
     with pytest.raises(ValueError, match="quant"):
         MiTConfig(quant="int4")
