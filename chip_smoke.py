@@ -111,6 +111,14 @@ non-zero before the final line:
 10. augment   - `augment_batch` (batch 32, canvas 512, crop 500, out 512)
                 and `eval_batch` on the card against the same functions on
                 the CPU with the same choices, and their times on the card.
+
+The CLI phases that hold the training loops' machinery (cli, ts_cli,
+ae_cli, fewshot_cli, tune_cli and int8_teacher's CLI epoch) run MiT-B5's
+widths at depths 1-1-2-1 (CLI_DEPTHS, 5 of its 52 layers), at 512x512
+bf16: their launch counts below are B5's scaled by 5/52 (a 312-launch step
+launches 30). B5 at full depth stays in the step phases, sup_cli,
+serve_ckpt, transfer_cli, api_cli and the serving phases.
+
 11. cli       - the `--ema-mode` teacher-student CLI
                 (`cli/teacher_student.py::main`, in this process) at the
                 flagship point: MiT-B5 512x512 bf16, 32 synthetic tiles
@@ -118,7 +126,8 @@ non-zero before the final line:
                 batch 32 in 2 microbatches, train mode (the default), 2
                 epochs with --resume: 2 finite CSV rows, K1 312 and K2 104
                 launches per train step and 52 K1 launches per model per
-                eval batch, the student's BatchNorm statistics moved, best
+                eval batch (at B5's depth), the student's BatchNorm
+                statistics moved, best
                 and `_last` checkpoints of both models, `load_last` giving
                 back what was saved, and a second run with --epochs 3
                 --resume starting at epoch 2 (its batches staged inline,
@@ -281,6 +290,29 @@ non-zero before the final line:
                 --int8: the PNG written equals the numpy blend of
                 `SegFormerModel.predict` over the same windows byte for
                 byte, 104 K1 launches a run.
+29. export     - `cli/export.py` at MiT-B5 512x512 bf16 --perf, batch 8,
+                seeded weights, for the cuda and cpu platforms (export
+                seconds, the file's MB): the cuda program's masks bit-equal
+                to `SegFormerModel.predict` on 8 seeded images with 52 K1
+                launches per call, a 3-image batch padded and sliced back
+                bit-equal, a 9-image batch refused; `cli/serve.py
+                --artifact` answering 3 requests bit-equal to `predict`;
+                the cpu program bit-equal to the port's plain CPU predict
+                on 2 images; an int8 artifact at B5 widths and depths
+                1-1-2-1 bit-equal to its snapshot's `predict`; host ms per
+                artifact call and per `predict`. The launches counted are
+                the artifact calls' alone (the eager references run first).
+30. api_cli    - `cli/supervised.py` at sup_cli's point with --resume
+                --async-checkpoint --plot-curves, 2 epochs and a resumed
+                third: the `_last` lands and resumes, the plot says what it
+                did; blocking checkpoint s, epoch s, step ms and peak memory
+                per epoch beside sup_cli's synchronous run; then
+                --profile-dir in a run of its own (1 epoch at B5 widths,
+                depths 1-1-2-1) writes a Chrome trace; `export_hf` of the
+                trained model loaded back through `checkpoint/convert.py`
+                with `predict` bit-equal; `predict(use_loss="bce")` finite.
+31. selftest   - `python -m semisupervisedobjectdetection_torch --quick` as
+                a subprocess: exit code 0, every check ok.
 
 Then the `kernels` summary line, the `nvidia-smi` name/power-limit line and,
 last, {"ok": true, "device": {...}}.
@@ -456,6 +488,14 @@ FEWSHOT_AE_K = (2 * FEWSHOT_SEG_K[0], 2 * FEWSHOT_SEG_K[1])    # 416, 208
 # need no more, and the script has a time limit to keep).
 FEWSHOT_CLI_TILES = 6
 FEWSHOT_CLI_ITERS = 2
+# The CLI phases that hold the training loops' machinery (cli, ts_cli,
+# ae_cli with its transfer epoch, fewshot_cli: epochs, resume, checkpoints,
+# CSV rows, launch counts) run MiT-B5's widths at a cut depth, the depth of
+# the JAX package's quantization bounds: 5 of B5's 52 layers. B5 at its
+# full depth stays in the step phases, sup_cli (and serve_ckpt and
+# transfer_cli, which read its checkpoint) and the serving phases.
+CLI_DEPTHS = (1, 1, 2, 1)
+CLI_LAYERS = sum(CLI_DEPTHS)
 # Quantized serving (quant_serve): the masks of the int8 and fp8 snapshots
 # against the float32 model's, at the JAX package's own bounds
 # (tests/test_quant.py: binarised agreement above 0.98 int8 and 0.97 fp8;
@@ -486,6 +526,10 @@ QLINEAR_FP8_TOL = 1e-3
 # windows overlapping by 64, 3 rows x 4 columns = 12 windows, predicted in
 # batches of 8 (the second padded).
 RASTER_HW = (1200, 1500)
+# The export phase: the artifact's batch, and how many of its images the
+# CPU program and the plain CPU predict read (each pads them to the batch).
+EXPORT_CPU_IMAGES = 2
+SERVE_ARTIFACT_REQUESTS = 3
 RASTER_WINDOW, RASTER_OVERLAP, RASTER_BATCH = 512, 64, 8
 
 
@@ -1627,8 +1671,8 @@ def phase_cli(smi: str, bench_step_ms: float, train_mode_step_ms: float):
         saved = torch.load(os.path.join(ck, "ts_student_last.pt"),
                            map_location="cpu", weights_only=True)
         template = TrainState.create(
-            SegFormer(mit_b5(dtype="bfloat16", gelu_approx=True)).cuda(),
-            TrainConfig())
+            SegFormer(mit_b5(dtype="bfloat16", gelu_approx=True).replace(
+                depths=CLI_DEPTHS)).cuda(), TrainConfig())
         got = load_last(ck, "ts_student", template)
         want = {**{"model." + k: v for k, v in saved["model"].items()},
                 **{"mu." + k: v for k, v in saved["mu"].items()},
@@ -1674,7 +1718,9 @@ def phase_cli(smi: str, bench_step_ms: float, train_mode_step_ms: float):
            "launches_k1_k2_k1mma": launches,
            "launches_resumed_run": launches_second,
            "launches_per_train_step": per_step,
-           "launches_expected_per_step": [K1_PER_STEP, K2_PER_STEP],
+           "depths": CLI_DEPTHS,
+           "launches_expected_per_step": [_cut(K1_PER_STEP),
+                                          _cut(K2_PER_STEP)],
            "student_bn_moved": bn_moved, "load_last_exact": round_trip,
            "card": smi}
     emit(row)
@@ -1683,8 +1729,9 @@ def phase_cli(smi: str, bench_step_ms: float, train_mode_step_ms: float):
             and math.isfinite(float(r["eval_loss"]))
             and 0.0 <= float(r["miou"]) <= 1.0 for r in rows):
         raise AssertionError(f"CLI CSV rows {rows}")
-    if any(p != (K1_PER_STEP, K2_PER_STEP) for p in per_step) or \
-            any(r["launches_eval_k1"] != 2 * sum(B5_DEPTHS)
+    if any(p != (_cut(K1_PER_STEP), _cut(K2_PER_STEP))
+           for p in per_step) or \
+            any(r["launches_eval_k1"] != 2 * CLI_LAYERS
                 for r in first + second) or \
             [r["train_steps"] for r in first + second] != \
             [CLI_STEPS_PER_EPOCH] * 3 or launches[2] != launches[0]:
@@ -1782,32 +1829,28 @@ def phase_supervised(smi: str):
 
 @contextlib.contextmanager
 def _record_nk():
-    """The Nk of every K1 and K2 call made inside, read in
-    `SRAttention`'s forward and backward (the wrappers count the
-    launches)."""
-    from semisupervisedobjectdetection_torch.ops.sr_attention import (
-        SRAttention,
-    )
+    """The Nk of every K1 and K2 call made inside, read in the bodies of
+    the operators `ssod::sr_attention_fwd` and `ssod::sr_attention_bwd`
+    (`_forward`, `_backward`, which the operators look up at each call and
+    which count the launches)."""
+    from semisupervisedobjectdetection_torch.ops import sr_attention as sra
 
-    fwd, bwd = SRAttention.forward, SRAttention.backward
+    fwd, bwd = sra._forward, sra._backward
     log = {"k1": [], "k2": []}
 
-    def rec_fwd(ctx, q, k, v, num_heads):
+    def rec_fwd(q, k, v, num_heads):
         log["k1"].append(k.shape[1])
-        ctx.recorded_nk = k.shape[1]
-        return fwd(ctx, q, k, v, num_heads)
+        return fwd(q, k, v, num_heads)
 
-    def rec_bwd(ctx, g):
-        log["k2"].append(ctx.recorded_nk)
-        return bwd(ctx, g)
+    def rec_bwd(q, k, v, g, num_heads):
+        log["k2"].append(k.shape[1])
+        return bwd(q, k, v, g, num_heads)
 
-    SRAttention.forward = staticmethod(rec_fwd)
-    SRAttention.backward = staticmethod(rec_bwd)
+    sra._forward, sra._backward = rec_fwd, rec_bwd
     try:
         yield log
     finally:
-        SRAttention.forward = staticmethod(fwd)
-        SRAttention.backward = staticmethod(bwd)
+        sra._forward, sra._backward = fwd, bwd
 
 
 def phase_transfer_grad(tokens=TRANSFER_TOKENS, want_nk=TRANSFER_NK,
@@ -1994,6 +2037,25 @@ def phase_transfer_step(smi: str):
     return row
 
 
+def _cut(n):
+    """A launch count of B5's 52 layers at the CLI phases' CLI_DEPTHS."""
+    return n // sum(B5_DEPTHS) * CLI_LAYERS
+
+
+def _at_cli_depth(fn, *args):
+    """Run the phase `fn` with the CLIs' `--variant b5` at CLI_DEPTHS
+    (B5's widths), then restore the variant."""
+    from semisupervisedobjectdetection_torch.core import config
+
+    full = config.MIT_VARIANTS["b5"]
+    config.MIT_VARIANTS["b5"] = \
+        lambda **kw: full(**kw).replace(depths=CLI_DEPTHS)
+    try:
+        return fn(*args)
+    finally:
+        config.MIT_VARIANTS["b5"] = full
+
+
 def _cli_point():
     return ["--synthetic", "--synthetic-n", str(CLI_TILES), "--variant",
             "b5", "--img-size", str(IMG), "--batch-size", str(TEACHER_BATCH),
@@ -2016,12 +2078,17 @@ def _epochs(reports):
     return out
 
 
-def _check_cli_launches(name, reports):
+def _check_cli_launches(name, reports, cut=False):
+    """The supervised step's launches in every train step and one eval
+    batch's, at B5's depth or (`cut`) at CLI_DEPTHS."""
+    scale = _cut if cut else (lambda n: n)
     per_step = [(r["launches_train"][0] / max(r["train_steps"], 1),
                  r["launches_train"][1] / max(r["train_steps"], 1))
                 for r in reports]
-    if any(p != (SUP_K1_PER_STEP, SUP_K2_PER_STEP) for p in per_step) or \
-            any(r["launches_eval_k1"] != sum(B5_DEPTHS) for r in reports) \
+    if any(p != (scale(SUP_K1_PER_STEP), scale(SUP_K2_PER_STEP))
+           for p in per_step) or \
+            any(r["launches_eval_k1"] != scale(sum(B5_DEPTHS))
+                for r in reports) \
             or any(r["train_steps"] != CLI_STEPS_PER_EPOCH
                    for r in reports):
         raise AssertionError(f"{name}: launches per train step {per_step}, "
@@ -2216,10 +2283,10 @@ class _Tee(io.TextIOBase):
 
 
 def phase_tune_cli(smi: str):
-    """`cli/transfer.py --tune` at the CLI point in bf16: lr 1e-4 x frozen
-    {(0, 1), (0, 1, 2)} x tokens {10, 100}, one epoch a point (--epochs
-    5), --no-quirks so the prompt tokens train and K2 runs in every layer;
-    --resume given and ignored."""
+    """`cli/transfer.py --tune` at the CLI point in bf16 (at CLI_DEPTHS):
+    lr 1e-4 x frozen {(0, 1), (0, 1, 2)} x tokens {10, 100}, one epoch a
+    point (--epochs 5), --no-quirks so the prompt tokens train and K2 runs
+    in every layer; --resume given and ignored."""
     import math
     import tempfile
 
@@ -2255,8 +2322,10 @@ def phase_tune_cli(smi: str):
     objective = [float(ln.rsplit(" ", 1)[1]) for ln in points]
     best_line = [ln for ln in lines if ln.startswith("best: ")]
     n = len(grid)
-    want = (n * (SUP_K1_PER_STEP + sum(B5_DEPTHS)), n * SUP_K2_PER_STEP)
+    want = (n * _cut(SUP_K1_PER_STEP + sum(B5_DEPTHS)),
+            n * _cut(SUP_K2_PER_STEP))
     row = {"phase": "tune_cli", "argv": argv, "run_s": run_s,
+           "depths": CLI_DEPTHS,
            "points": points, "best": best_line, "best_point": best_pt,
            "resume_ignored": any("--resume is ignored" in ln
                                  for ln in lines),
@@ -2570,7 +2639,7 @@ def phase_int8_teacher(smi: str):
     three int8-teacher steps from one seeded state, the kept counts and
     pseudo-masks of the first of each beside each other; the snapshot bit-unchanged
     while the teacher moved; then one epoch of `cli/teacher_student.py
-    --ema-mode --int8-teacher` at the CLI point."""
+    --ema-mode --int8-teacher` at the CLI point (at CLI_DEPTHS)."""
     import copy
     import math
     import tempfile
@@ -2648,7 +2717,7 @@ def phase_int8_teacher(smi: str):
     try:
         _reset_counts()
         t0 = time.perf_counter()
-        reports = teacher_student.main(argv)
+        reports = _at_cli_depth(teacher_student.main, argv)
         cli_s = time.perf_counter() - t0
         cli_launches = _counts()
         rows = _csv_rows(os.path.join(root, "m.csv"))
@@ -2664,7 +2733,7 @@ def phase_int8_teacher(smi: str):
            "snapshot_frozen": frozen, "teacher_params_moved": moved,
            "cli_argv": argv, "cli_s": cli_s, "cli_epochs": _epochs(reports),
            "cli_csv_rows": rows, "cli_launches_k1_k2_k1mma": cli_launches,
-           "cli_snapshots": len(snapshots),
+           "cli_snapshots": len(snapshots), "cli_depths": CLI_DEPTHS,
            "launches_expected_per_step": [K1_PER_STEP, K2_PER_STEP],
            "card": smi}
     emit(row)
@@ -2683,10 +2752,9 @@ def phase_int8_teacher(smi: str):
                 for r in reports]
     if len(rows) != 1 or not math.isfinite(float(rows[0]["train_loss"])) \
             or len(snapshots) != 1 or \
-            per_step != [(K1_PER_STEP, K2_PER_STEP)] or \
+            per_step != [(_cut(K1_PER_STEP), _cut(K2_PER_STEP))] or \
             [r["train_steps"] for r in reports] != [CLI_STEPS_PER_EPOCH] or \
-            any(r["launches_eval_k1"] != 2 * sum(B5_DEPTHS)
-                for r in reports):
+            any(r["launches_eval_k1"] != 2 * CLI_LAYERS for r in reports):
         raise AssertionError(f"--int8-teacher CLI: rows {rows}, snapshots "
                              f"{len(snapshots)}, launches per step "
                              f"{per_step}")
@@ -3008,7 +3076,8 @@ def phase_ts_cli(smi: str):
 
     root = tempfile.mkdtemp(prefix="chip_smoke_ts_")
     old_tmp, tempfile.tempdir = tempfile.tempdir, root  # the tiles too
-    cfg = mit_b5(dtype="bfloat16", gelu_approx=True)
+    cfg = mit_b5(dtype="bfloat16", gelu_approx=True).replace(
+        depths=CLI_DEPTHS)
     ck, ck_q = os.path.join(root, "ck"), os.path.join(root, "ck_quirks")
     warm = os.path.join(root, "warm.pt")
     argv = _cli_point() + ["--no-quirks", "--resume", "--pretrain-weight",
@@ -3074,21 +3143,23 @@ def phase_ts_cli(smi: str):
            "quirks_run_s": quirks_s, "epochs": _epochs(reports),
            "phases": phases, "csv_rows": rows, "csv_rows_quirks": rows_q,
            "checkpoints": names, "launches_k1_k2_k1mma": launches,
+           "depths": CLI_DEPTHS,
            "launches_quirks_run": launches_quirks, "load_last": exact,
            "quirks_student_bn_moved": bn_moved, "card": smi}
     emit(row)
     steps = CLI_STEPS_PER_EPOCH
     want = [  # (update, phase A launches, teacher count after A)
-        (True, [steps * PSEUDO_K[0], steps * PSEUDO_K[1]], steps),
-        (False, [steps * INFER_K[0], 0], 2 * steps),
-        (False, [steps * INFER_K[0], 0], 0)]
+        (True, [steps * _cut(PSEUDO_K[0]), steps * _cut(PSEUDO_K[1])],
+         steps),
+        (False, [steps * _cut(INFER_K[0]), 0], 2 * steps),
+        (False, [steps * _cut(INFER_K[0]), 0], 0)]
     got = [(p["phase_a"]["update"], p["phase_a"]["launches"],
             p["phase_a"]["teacher_adam_count"]) for p in phases]
     if got != want or any(
-            p["phase_b"]["launches"] != [steps * LABELED_K[0],
-                                         steps * LABELED_K[1]]
+            p["phase_b"]["launches"] != [steps * _cut(LABELED_K[0]),
+                                         steps * _cut(LABELED_K[1])]
             or p["phase_b"]["steps"] != steps
-            or p["eval_k1"] != 2 * sum(B5_DEPTHS) for p in phases):
+            or p["eval_k1"] != 2 * CLI_LAYERS for p in phases):
         raise AssertionError(f"ts_cli phases {phases}: expected phase A "
                              f"{want}")
     if launches[2] != launches[0] or launches_quirks[2] != \
@@ -3274,6 +3345,7 @@ def phase_ae_cli(smi: str):
         tempfile.tempdir = old_tmp
         shutil.rmtree(root, ignore_errors=True)
     row = {"phase": "ae_cli", "argv": argv, "run_s": run_s,
+           "depths": CLI_DEPTHS,
            "epochs": _epochs(reports), "csv_rows": rows,
            "checkpoints": names, "launches_k1_k2_k1mma": launches,
            "transfer_argv": t_argv, "transfer_s": transfer_s,
@@ -3285,9 +3357,10 @@ def phase_ae_cli(smi: str):
     per_step = [(r["launches_train"][0] / max(r["train_steps"], 1),
                  r["launches_train"][1] / max(r["train_steps"], 1))
                 for r in reports]
-    if any(pp != (SUP_K1_PER_STEP, SUP_K2_PER_STEP) for pp in per_step) or \
+    if any(pp != (_cut(SUP_K1_PER_STEP), _cut(SUP_K2_PER_STEP))
+           for pp in per_step) or \
             any(r["train_steps"] != steps or
-                r["launches_eval_k1"] != sum(B5_DEPTHS) for r in reports) \
+                r["launches_eval_k1"] != CLI_LAYERS for r in reports) \
             or launches[2] != launches[0]:
         raise AssertionError(f"ae_cli launches per step {per_step}, steps "
                              f"{[r['train_steps'] for r in reports]}")
@@ -3299,7 +3372,7 @@ def phase_ae_cli(smi: str):
             os.path.basename(best) not in names:
         raise AssertionError(f"ae_cli checkpoints {names}")
     row["transfer_launches_per_step"] = _check_cli_launches(
-        "ae_cli transfer", t_reports)
+        "ae_cli transfer", t_reports, cut=True)
     if at_load.get("missing") or not at_load.get("carried_equal") or \
             not at_load.get("classifier_channel0") or \
             at_load.get("saved_classifier_rows") != AE_LABELS:
@@ -3639,6 +3712,7 @@ def phase_fewshot_cli(smi: str):
         tempfile.tempdir = old_tmp
         shutil.rmtree(root, ignore_errors=True)
     row = {"phase": "fewshot_cli", "ae_argv": ae_argv, "seg_argv": seg_argv,
+           "depths": CLI_DEPTHS,
            "ae_s": ae_s, "ae_epochs": _epochs(ae + resumed),
            "ae_csv_rows": ae_rows, "ae_csv_rows_resumed": ae_rows2,
            "ae_checkpoints": ae_names, "ae_launches_k1_k2_k1mma": ae_launches,
@@ -3648,9 +3722,10 @@ def phase_fewshot_cli(smi: str):
            "predict_s": predict_s, "predict_launches": predict_launches,
            "card": smi}
     emit(row)
-    per = sum(B5_DEPTHS)
-    for name, reports, want in (("ae", ae + resumed, FEWSHOT_AE_K),
-                                ("seg", seg, FEWSHOT_SEG_K)):
+    per = CLI_LAYERS
+    for name, reports, want in (
+            ("ae", ae + resumed, tuple(map(_cut, FEWSHOT_AE_K))),
+            ("seg", seg, tuple(map(_cut, FEWSHOT_SEG_K)))):
         per_step = [tuple(n / max(r["train_steps"], 1)
                           for n in r["launches_train"]) for r in reports]
         if any(p != want for p in per_step) or any(
@@ -3682,6 +3757,340 @@ def phase_fewshot_cli(smi: str):
             not 0.0 <= predicted["eval_loss"] <= 1.0:
         raise AssertionError(f"fewshot --predict {predicted}, launches "
                              f"{predict_launches}")
+    return row
+
+
+def phase_export(smi: str):
+    """`cli/export.py` at MiT-B5 512x512 bf16 --perf, batch 8, seeded
+    weights, for the cuda and cpu platforms; the cuda program's masks
+    bit-equal to `SegFormerModel.predict` on 8 seeded images with 52 K1
+    launches per call, a 3-image batch the first 3 rows of the padded
+    batch's predict, a 9-image batch refused; `cli/serve.py --artifact`
+    answering 3 requests (npy replies) bit-equal to `predict` of each
+    request padded with zeros; the cpu program bit-equal to the port's
+    plain CPU predict on 2 images (both padded to the batch); an int8
+    artifact of B5's widths at QUANT_GATE_DEPTHS bit-equal to its
+    snapshot's `predict`. The eager references run before the artifact
+    calls, so each launch count (the counts set to 0 just before, read just
+    after) holds artifact calls alone. Times: export seconds, the file's
+    MB, host ms per artifact call and per `predict` (each ended by the copy
+    to the host)."""
+    import contextlib
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from semisupervisedobjectdetection_torch.api import SegFormerModel
+    from semisupervisedobjectdetection_torch.checkpoint.serving_export \
+        import load_serving
+    from semisupervisedobjectdetection_torch.cli import export, serve
+    from semisupervisedobjectdetection_torch.core.config import mit_b5
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = mit_b5(dtype="bfloat16", gelu_approx=True)
+    rng = np.random.default_rng(SEED + 30)
+    x = rng.uniform(size=(BATCH, IMG, IMG, 3)).astype(np.float32)
+
+    def padded(imgs):
+        out = np.zeros((BATCH, IMG, IMG, 3), np.float32)
+        out[:len(imgs)] = imgs
+        return out
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    path = os.path.join(root, "b5_bf16.ssod")
+    served_in = [(t * 255).astype(np.uint8)
+                 for t in x[:SERVE_ARTIFACT_REQUESTS]]
+    try:
+        # The eager references come first: each counted run below holds
+        # the artifact's calls and nothing else.
+        model = SegFormerModel(config=cfg, seed=SEED)
+        want = model.predict(x)
+        three_want = model.predict(padded(x[:3]))[:3]
+        served_want = [model.predict(padded(
+            t[None].astype(np.float32) / 255.0))[0] for t in served_in]
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            header = export.main(["--variant", "b5", "--img-size", str(IMG),
+                                  "--dtype", "bfloat16", "--perf",
+                                  "--batch", str(BATCH), "--platforms",
+                                  "cuda,cpu", "--out", path])
+        export_s = time.perf_counter() - t0
+        wrote = out.getvalue().strip().splitlines()[-1]
+        mb = os.path.getsize(path) / 1e6
+        t0 = time.perf_counter()
+        pred = load_serving(path)
+        load_s = time.perf_counter() - t0
+        _reset_counts()
+        got = pred.predict(x)
+        launches = _counts()
+        three = pred.predict(x[:3])
+        try:
+            pred.predict(np.concatenate([x, x[:1]]))
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        artifact_launches = _counts()
+        timing = {"artifact_host_ms": host_us(lambda: pred.predict(x),
+                                              iters=5) / 1e3,
+                  "predict_host_ms": host_us(lambda: model.predict(x),
+                                             iters=5) / 1e3}
+        del model
+        # serve --artifact: a warm-up batch, then each request alone,
+        # padded by the server
+        replies = {}
+
+        def serve_then_stop(srv):
+            base = f"http://127.0.0.1:{srv._httpd.server_address[1]}"
+            try:
+                with urllib.request.urlopen(base + "/healthz",
+                                            timeout=60) as r:
+                    replies["health"] = json.loads(r.read())
+                replies["npy"] = [np.load(io.BytesIO(_post(
+                    base + "/predict?format=npy", t.tobytes(), raw=True)[2]))
+                    for t in served_in]
+            finally:
+                srv.stop()
+
+        del pred
+        torch.cuda.empty_cache()
+        real = serve._serve_until_signal
+        serve._serve_until_signal = serve_then_stop
+        try:
+            _reset_counts()
+            t0 = time.perf_counter()
+            serve.main(["--artifact", path, "--port", "0"])
+            serve_s = time.perf_counter() - t0
+            served_launches = _counts()
+        finally:
+            serve._serve_until_signal = real
+        torch.cuda.empty_cache()
+        # the cpu program against the plain CPU predict, same padded batch
+        t0 = time.perf_counter()
+        cpu_pred = load_serving(path, "cpu")
+        cpu_got = cpu_pred.predict(x[:EXPORT_CPU_IMAGES])
+        cpu_s = time.perf_counter() - t0
+        del cpu_pred
+        t0 = time.perf_counter()
+        cpu_want = SegFormerModel(config=cfg, seed=SEED, device="cpu") \
+            .predict(padded(x[:EXPORT_CPU_IMAGES]))[:EXPORT_CPU_IMAGES]
+        cpu_plain_s = time.perf_counter() - t0
+        # an int8 artifact at B5's widths, depths QUANT_GATE_DEPTHS
+        q = SegFormerModel(config=cfg.replace(depths=QUANT_GATE_DEPTHS),
+                           seed=SEED)
+        q.quantize("int8")
+        q_want = q.predict(x)
+        q_path = os.path.join(root, "b5_int8.ssod")
+        q_header = q.export_serving(q_path, batch_size=BATCH, img_size=IMG,
+                                    platforms=("cuda",))
+        q_pred = load_serving(q_path)
+        _reset_counts()
+        q_got = q_pred.predict(x)
+        q_launches = _counts()
+        q_equal = bool(np.array_equal(q_got, q_want))
+        q_mb = os.path.getsize(q_path) / 1e6
+        del q, q_pred
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    main_path = {"cuda_program": artifact_launches,
+                 "serve_artifact": served_launches,
+                 "int8_artifact": q_launches}
+    per = sum(B5_DEPTHS)
+    row = {"phase": "export", "variant": "b5", "img": IMG,
+           "dtype": "bfloat16", "batch": BATCH, "header": header,
+           "wrote": wrote, "export_s": export_s, "artifact_mb": mb,
+           "load_s": load_s, "bit_equal_predict": bool(
+               np.array_equal(got, want)),
+           "max_abs_diff": float(np.abs(got - want).max()),
+           "launches_k1_k2_k1mma": launches,
+           "partial_batch_bit_equal": bool(np.array_equal(three,
+                                                          three_want)),
+           "partial_batch_shape": list(three.shape),
+           "batch_9_refused": refused, **timing,
+           "serve_s": serve_s, "serve_health": replies.get("health"),
+           "served_bit_equal": [bool(np.array_equal(a, b)) for a, b in
+                                zip(replies.get("npy", []), served_want)],
+           "cpu_program_bit_equal": bool(np.array_equal(cpu_got, cpu_want)),
+           "cpu_program_max_abs_diff": float(np.abs(cpu_got
+                                                    - cpu_want).max()),
+           "cpu_program_s": cpu_s, "cpu_plain_predict_s": cpu_plain_s,
+           "int8": {"depths": list(QUANT_GATE_DEPTHS), "header": q_header,
+                    "artifact_mb": q_mb, "bit_equal_predict": q_equal,
+                    "launches_k1_k2_k1mma": q_launches},
+           "launches_main_path": main_path,
+           "launches_main_path_total": tuple(
+               map(sum, zip(*main_path.values()))), "card": smi}
+    emit(row)
+    if not row["bit_equal_predict"] or launches != (per, 0, per) or \
+            artifact_launches != (2 * per, 0, 2 * per):
+        raise AssertionError(f"the cuda artifact: bit-equal "
+                             f"{row['bit_equal_predict']} (max "
+                             f"{row['max_abs_diff']}), K1 launches "
+                             f"{launches} then {artifact_launches} after "
+                             f"the 3-image call, expected {per} "
+                             f"tensor-core a call")
+    if not row["partial_batch_bit_equal"] or \
+            row["partial_batch_shape"] != [3, IMG, IMG] or \
+            not refused or "exceeds" not in refused:
+        raise AssertionError(f"the artifact's batch contract: {row}")
+    h = replies.get("health") or {}
+    if len(row["served_bit_equal"]) != SERVE_ARTIFACT_REQUESTS or \
+            not all(row["served_bit_equal"]) or \
+            h.get("max_batch") != BATCH or \
+            not str(h.get("variant", "")).startswith("artifact:") or \
+            served_launches != ((1 + SERVE_ARTIFACT_REQUESTS) * per, 0,
+                                (1 + SERVE_ARTIFACT_REQUESTS) * per):
+        raise AssertionError(f"serve --artifact: {row['served_bit_equal']}"
+                             f", {h}, K1 launches {served_launches} (a "
+                             f"warm-up and {SERVE_ARTIFACT_REQUESTS} "
+                             f"batches of {per})")
+    if not row["cpu_program_bit_equal"]:
+        raise AssertionError(f"the cpu program differs from the plain CPU "
+                             f"predict: {row['cpu_program_max_abs_diff']}")
+    q_per = sum(QUANT_GATE_DEPTHS)
+    if not q_equal or q_launches != (q_per, 0, q_per):
+        raise AssertionError(f"the int8 artifact: {row['int8']}")
+    if header["platforms"] != ["cuda", "cpu"] or header["batch"] != BATCH:
+        raise AssertionError(f"artifact header {header}")
+    return row
+
+
+def phase_api_cli(smi: str, sup: dict):
+    """`cli/supervised.py` at sup_cli's point, 2 epochs with --resume
+    --async-checkpoint --plot-curves, then a resumed third epoch: the
+    `_last` checkpoint lands and resumes, the plot says what it did (a PNG,
+    or that matplotlib is missing); each epoch's blocking checkpoint
+    seconds, epoch seconds, step time and peak memory beside sup_cli's
+    synchronous run (the same flags without --async-checkpoint). The
+    launch count of the main path holds these two runs alone. Then
+    `--profile-dir` in a run of its own (1 epoch at CLI_DEPTHS, so the
+    profiler's cost stays out of the timed epochs) writes a Chrome trace;
+    `SegFormerModel.export_hf` of the trained model loads back through
+    `checkpoint/convert.py` (`hf_weights`) with `predict` bit-equal, and
+    `predict(use_loss="bce")` gives a finite loss."""
+    import contextlib
+    import math
+    import tempfile
+
+    import numpy as np
+
+    from semisupervisedobjectdetection_torch.api import SegFormerModel
+    from semisupervisedobjectdetection_torch.checkpoint.io import (
+        async_save_timings,
+    )
+    from semisupervisedobjectdetection_torch.cli import supervised
+    from semisupervisedobjectdetection_torch.core.config import mit_b5
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_api_")
+    old_tmp, tempfile.tempdir = tempfile.tempdir, root  # the tiles too
+    ck, prof = os.path.join(root, "ck"), os.path.join(root, "prof")
+    csv_path = os.path.join(root, "m.csv")
+    base = _cli_point() + ["--resume", "--async-checkpoint",
+                           "--checkpoint-dir", ck]
+    argv = base + ["--plot-curves", "--metrics-csv", csv_path, "--epochs",
+                   "2"]
+    prof_argv = _cli_point() + ["--checkpoint-dir",
+                                os.path.join(root, "ck_prof"),
+                                "--profile-dir", prof, "--epochs", "1"]
+    try:
+        _reset_counts()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            first = supervised.main(argv)
+        run_s = time.perf_counter() - t0
+        launches = _counts()
+        printed = out.getvalue()
+        names = sorted(os.listdir(ck))
+        png = os.path.exists(os.path.splitext(csv_path)[0] + ".png")
+        second = supervised.main(base + [
+            "--epochs", "3", "--metrics-csv", os.path.join(root, "m2.csv")])
+        main_path = _counts()
+        writes = async_save_timings()[-3:]
+        t0 = time.perf_counter()
+        profiled = _at_cli_depth(supervised.main, prof_argv)
+        profiled_s = time.perf_counter() - t0
+        trace = os.path.join(prof, "trace.json")
+        trace_bytes = os.path.getsize(trace) if os.path.exists(trace) else 0
+        cfg = mit_b5(dtype="bfloat16", gelu_approx=True)
+        model = SegFormerModel(config=cfg, seed=SEED,
+                               pretrain_weight=second[-1]["best_path"]
+                               or first[-1]["best_path"])
+        hf = os.path.join(root, "b5_hf.pth")
+        t0 = time.perf_counter()
+        model.export_hf(hf)
+        export_hf_s = time.perf_counter() - t0
+        back = SegFormerModel(config=cfg, seed=SEED + 1, hf_weights=hf)
+        x = np.random.default_rng(SEED + 31).uniform(
+            size=(2, IMG, IMG, 3)).astype(np.float32)
+        hf_equal = bool(np.array_equal(back.predict(x), model.predict(x)))
+        target = (np.random.default_rng(SEED + 32).uniform(
+            size=(2, IMG, IMG)) > 0.7).astype(np.float32)
+        bce, _ = model.predict(x, target, use_loss="bce")
+        bce = float(bce)
+        del model, back
+    finally:
+        tempfile.tempdir = old_tmp
+        shutil.rmtree(root, ignore_errors=True)
+    epochs = _epochs(first + second)
+    sync = sup["epochs"]
+
+    def each(rows, key):
+        return [r[key] for r in rows]
+
+    row = {"phase": "api_cli", "argv": argv, "run_s": run_s,
+           "run_s_sync_sup_cli": sup["run_s"], "epochs": epochs,
+           **{f"{k}_{w}": each(rows, k)
+              for k in ("checkpoint_s", "epoch_s", "step_ms", "peak_bytes")
+              for w, rows in (("async", epochs), ("sync_sup_cli", sync))},
+           "async_writes_host_copy_s_write_s": writes,
+           "checkpoints": names, "plot_png": png,
+           "plot_said": [ln for ln in printed.splitlines()
+                         if "plot-curves" in ln or "loss curves" in ln],
+           "launches_k1_k2_k1mma": launches, "launches_main_path": main_path,
+           "profile_argv": prof_argv, "profiled_run_s": profiled_s,
+           "trace_bytes": trace_bytes, "export_hf_s": export_hf_s,
+           "export_hf_predict_bit_equal": hf_equal, "bce_loss": bce,
+           "card": smi}
+    emit(row)
+    row["launches_per_train_step"] = _check_cli_launches("api_cli",
+                                                         first + second)
+    _check_cli_launches("api_cli --profile-dir", profiled, cut=True)
+    if "segformer_last.pt" not in names or \
+            [r["epoch"] for r in second] != [2]:
+        raise AssertionError(f"api_cli: the async _last did not land and "
+                             f"resume: {names}, "
+                             f"{[r['epoch'] for r in second]}")
+    if not trace_bytes or not (png or row["plot_said"]):
+        raise AssertionError(f"api_cli: trace {trace_bytes} bytes, plot "
+                             f"{png}, {row['plot_said']}")
+    if not hf_equal or not math.isfinite(bce):
+        raise AssertionError(f"export_hf round trip {hf_equal}, bce {bce}")
+    return row
+
+
+def phase_selftest(smi: str):
+    """`python -m semisupervisedobjectdetection_torch --quick` on the card,
+    as a subprocess: exit code 0 and every check ok."""
+    t0 = time.perf_counter()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [ROOT] + [p for p in [env.get("PYTHONPATH")] if p])
+    proc = subprocess.run(
+        [sys.executable, "-m", "semisupervisedobjectdetection_torch",
+         "--quick"], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    row = {"phase": "selftest", "rc": proc.returncode, "lines": lines,
+           "seconds": time.perf_counter() - t0, "card": smi}
+    emit(row)
+    if proc.returncode != 0 or not lines or \
+            lines[-1] != "self-test: 5 passed, 0 failed":
+        raise AssertionError(f"self-test: rc {proc.returncode}, "
+                             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
     return row
 
 
@@ -3724,7 +4133,7 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
             transfer_grad, transfer_grad_nk356, transfer_step, sup_cli,
             transfer_cli, ts_step, ts_cli, ae_step, ae_cli, serve_ckpt,
             fewshot_grad, fewshot_step, fewshot_cli, grad, tune_cli,
-            quant_serve, int8_teacher, sliding_raster):
+            quant_serve, int8_teacher, sliding_raster, export, api_cli):
     """The `kernels` line: each kernel's times, bound and plain/library
     times summed over what its main path runs, with its launches there.
     K1's bf16 kernel (`sr_attention_fwd`, wgmma, every bf16 path) and K2's
@@ -3780,28 +4189,38 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
     ts_step_path = ("ts_step (kernel path: 2 pseudo_label_step, 2 "
                     "pseudo_label_infer_step, 2 labeled_step)")
     n_ev, n_st = CLI_EVAL_BATCH, CLI_STEPS_PER_EPOCH
-    ts_cli_path = (f"ts_cli (3 epochs: phase A {n_st} pseudo_label_step or "
-                   f"{n_st} pseudo_label_infer_step, phase B {n_st} "
-                   f"labeled_step, an eval batch of {n_ev} x 2 models)")
-    cli_path = (f"cli (2 epochs: {2 * n_st} train steps, 2 eval batches of "
-                f"{n_ev} x 2 models)")
+    cut = "B5 widths at depths " + "-".join(map(str, CLI_DEPTHS))
+    ts_cli_path = (f"ts_cli ({cut}; 3 epochs: phase A {n_st} "
+                   f"pseudo_label_step or {n_st} pseudo_label_infer_step, "
+                   f"phase B {n_st} labeled_step, an eval batch of {n_ev} x "
+                   "2 models)")
+    cli_path = (f"cli ({cut}; 3 epochs: {3 * n_st} train steps, 3 eval "
+                f"batches of {n_ev} x 2 models)")
     sup_cli_path = (f"sup_cli (2 epochs: {2 * n_st} train steps, 2 eval "
                     f"batches of {n_ev})")
     transfer_cli_path = (f"transfer_cli (2 epochs, Nk 266: {2 * n_st} train "
                          f"steps, 2 eval batches of {n_ev})")
     ae_step_path = "ae_step (2 kernel-path train steps, 1 eval of 32)"
-    ae_cli_path = (f"ae_cli (2 epochs: {4 * n_st} train steps, 2 eval "
-                   f"batches of {n_ev}; then 1 transfer epoch, Nk 266)")
+    ae_cli_path = (f"ae_cli ({cut}; 2 epochs: {4 * n_st} train steps, 2 "
+                   f"eval batches of {n_ev}; then 1 transfer epoch, Nk 266)")
     few_step_path = ("fewshot_step (kernel path: 2 fewshot_ae_step, 2 "
                      "fewshot_seg_step, batch 2, Nk 257)")
-    few_cli_path = ("fewshot_cli (ae 3 epochs and seg 1 epoch of 4 steps, "
-                    "an eval batch of 4 each, --predict)")
+    few_cli_path = (f"fewshot_cli ({cut}; ae 3 epochs and seg 1 epoch of "
+                    f"{FEWSHOT_CLI_ITERS} steps, an eval batch of 4 each, "
+                    "--predict)")
     few_grad_path = ("fewshot_grad (B5 float32, Nk 257: the AE and seg "
                      "pair losses)")
     quant_path = ("quant_serve (a batch-8 predict each in bf16, int8 and "
                   "fp8, and 3 served int8 batches)")
     int8t_path = ("int8_teacher (2 float-teacher and 3 int8-teacher EMA "
-                  "steps, 1 --int8-teacher CLI epoch)")
+                  f"steps, 1 --int8-teacher CLI epoch at {cut})")
+    export_path = (f"export (artifact calls only: the B5 bf16 cuda program "
+                   f"at batch {BATCH} twice, serve --artifact's warm-up and "
+                   f"{SERVE_ARTIFACT_REQUESTS} served batches, 1 call of "
+                   f"the int8 artifact at depths 1-1-2-1)")
+    api_cli_path = (f"api_cli (3 epochs of the supervised CLI with "
+                    f"--async-checkpoint: {3 * n_st} train steps, 3 eval "
+                    f"batches of {n_ev}: the two runs alone)")
     raster_path = ("sliding_raster (2 CLI runs, plain and --int8, of 2 "
                    "batches of 8 windows)")
 
@@ -3874,7 +4293,9 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
             few_step_path: few_step(2),
             few_cli_path: few_cli(2),
             quant_path: quant(2), int8t_path: int8t(2),
-            raster_path: raster(2)},
+            raster_path: raster(2),
+            export_path: export["launches_main_path_total"][2],
+            api_cli_path: api_cli["launches_main_path"][2]},
         per_serve_forward={
             **_passes_sum(wg_rows, ((BATCH, 1),)),
             "per": f"one serve forward: B5 512x512 bf16 at batch {BATCH}, "
@@ -3954,7 +4375,8 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
             + ae_cli["launches_transfer"][1],
             few_step_path: few_step(1),
             few_cli_path: few_cli(1),
-            int8t_path: int8t(1)},
+            int8t_path: int8t(1),
+            api_cli_path: api_cli["launches_main_path"][1]},
         per_transfer_step=_passes_sum(k2_bf16, ((MICRO, ACCUM),),
                                       TRANSFER_SHAPES),
         per_labeled_step=_passes_sum(k2_bf16, ((MICRO, 2 * ACCUM),)),
@@ -3975,8 +4397,8 @@ def summary(k1_rows, k2_rows, train, serve, train_mode, cli, sup,
         per=f"one few-shot pair loss's backward in B5 512x512 float32 at "
             f"batch {FEW_BATCH} with a CLS token per stage (Nk 257), as "
             f"fewshot_grad runs it, {2 * sum(B5_DEPTHS)} launches")
-    tune_path = ("tune_cli (4 transfer grid points of 1 epoch: 1 train "
-                 f"step and 1 eval batch of {n_ev} each; the 2 at 100 "
+    tune_path = (f"tune_cli ({cut}; 4 transfer grid points of 1 epoch: 1 "
+                 f"train step and 1 eval batch of {n_ev} each; the 2 at 100 "
                  "tokens, Nk 356)")
 
     def stream_entry(rows, passes, kernel, i, **fields):
@@ -4044,8 +4466,8 @@ def main() -> int:
                           ("train", lambda: phase_train(smi)),
                           ("train_mode", lambda: phase_train_mode(smi)),
                           ("augment", lambda: phase_augment(smi)),
-                          ("cli", lambda: phase_cli(
-                              smi, results["train"]["step_ms"],
+                          ("cli", lambda: _at_cli_depth(
+                              phase_cli, smi, results["train"]["step_ms"],
                               results["train_mode"]["step_ms_kernel_plain"]
                               ["kernel"][-1])),
                           ("supervised", lambda: phase_supervised(smi)),
@@ -4059,17 +4481,25 @@ def main() -> int:
                           ("transfer_cli", lambda: phase_transfer_cli(
                               smi, results["sup_cli"])),
                           ("ts_step", lambda: phase_ts_step(smi)),
-                          ("ts_cli", lambda: phase_ts_cli(smi)),
+                          ("ts_cli", lambda: _at_cli_depth(phase_ts_cli,
+                                                           smi)),
                           ("ae_step", lambda: phase_ae_step(smi)),
-                          ("ae_cli", lambda: phase_ae_cli(smi)),
+                          ("ae_cli", lambda: _at_cli_depth(phase_ae_cli,
+                                                           smi)),
                           ("fewshot_grad", phase_fewshot_grad),
                           ("fewshot_step", lambda: phase_fewshot_step(smi)),
-                          ("fewshot_cli", lambda: phase_fewshot_cli(smi)),
-                          ("tune_cli", lambda: phase_tune_cli(smi)),
+                          ("fewshot_cli", lambda: _at_cli_depth(
+                              phase_fewshot_cli, smi)),
+                          ("tune_cli", lambda: _at_cli_depth(phase_tune_cli,
+                                                             smi)),
                           ("quant_serve", lambda: phase_quant_serve(smi)),
                           ("int8_teacher", lambda: phase_int8_teacher(smi)),
                           ("sliding_raster",
-                           lambda: phase_sliding_raster(smi))):
+                           lambda: phase_sliding_raster(smi)),
+                          ("export", lambda: phase_export(smi)),
+                          ("api_cli", lambda: phase_api_cli(
+                              smi, results["sup_cli"])),
+                          ("selftest", lambda: phase_selftest(smi))):
             t = time.perf_counter()
             results[phase] = fn()
             seconds[phase] = round(time.perf_counter() - t, 2)
@@ -4096,7 +4526,9 @@ def main() -> int:
                                       results["tune_cli"],
                                       results["quant_serve"],
                                       results["int8_teacher"],
-                                      results["sliding_raster"])}
+                                      results["sliding_raster"],
+                                      results["export"],
+                                      results["api_cli"])}
         emit({"phase": "total", "seconds": round(time.perf_counter() - t0,
                                                  2), "per_phase": seconds})
     except Exception as e:

@@ -17,6 +17,13 @@ other per width: if fp8 agrees with float32 about as well on the CPU as on
 the card, its distance from float32 comes from the e4m3 format on this
 untrained model and not from the card's path. Then the card's name and
 power limit. Needs a card; exits 2 without one.
+
+    python3 scripts/fp8_depth_witness.py --weights-digest
+
+prints, on any machine, the torch release, a SHA-256 of the seeded float32
+weights (every tensor of the state dict by name, in order) and the mean
+float32 logit of the first image on the CPU: whether two machines' torch
+releases draw the same seeded model.
 """
 
 from __future__ import annotations
@@ -64,13 +71,47 @@ def agreement(a, b) -> float:
     return float(((a > 0.5) == (b > 0.5)).mean())
 
 
+def weights_digest(cfg, x) -> dict:
+    import hashlib
+
+    import torch
+
+    from semisupervisedobjectdetection_torch.api import SegFormerModel
+    from semisupervisedobjectdetection_torch.models.segformer import (
+        forward_logits,
+    )
+
+    model = SegFormerModel(config=cfg.replace(dtype="float32"), seed=SEED,
+                           device="cpu")
+    h = hashlib.sha256()
+    for name, t in model._net.state_dict().items():
+        h.update(name.encode())
+        h.update(t.detach().contiguous().numpy().tobytes())
+    with torch.no_grad():
+        logits = forward_logits(model.model, torch.from_numpy(x[:1]))[0]
+    return {"torch": torch.__version__, "weights_sha256": h.hexdigest(),
+            "mean_logit_image_0": float(logits.float().mean())}
+
+
 def main() -> None:
     p = argparse.ArgumentParser()
     p.add_argument("--images", type=int, default=2)
     p.add_argument("--out")
+    p.add_argument("--weights-digest", action="store_true",
+                   help="print the seeded weights' digest and exit")
     args = p.parse_args()
 
     import torch
+
+    if args.weights_digest:
+        from semisupervisedobjectdetection_torch.core.config import mit_b5
+
+        torch.set_num_threads(os.cpu_count() or 1)
+        x = np.random.default_rng(SEED + 20).uniform(
+            size=(1, IMG, IMG, 3)).astype(np.float32)
+        print(json.dumps(weights_digest(
+            mit_b5(dtype="bfloat16", gelu_approx=True), x)), flush=True)
+        return
 
     if not torch.cuda.is_available():
         print("no CUDA card", file=sys.stderr)

@@ -29,10 +29,17 @@ trainable mask); it serves from a copy of the model:
   drops it. `save_quantized` and `load_quantized` write and read it
   (`checkpoint/io.py::save_snapshot`), its width read back from the
   stored dtypes;
+- the serving artifact: `export_serving` writes the eval-mode predict of
+  the model `predict` serves (the serving copy or the quantized snapshot),
+  exported by `torch.export` at one pinned shape
+  (`checkpoint/serving_export.py`; `cli/export.py`, `cli/serve.py
+  --artifact`);
 - checkpoints: `save`, `load` (a warm start, or the full state with
   `full_state=True`), `resume` (the `_last` checkpoint of a training run),
-  `load_hf` and `load_state_dict`; `show_mask` writes a PNG overlay in
-  place of the reference's visdom panel.
+  `load_hf`, `load_state_dict` and `export_hf` (the float32 weights as a
+  torch/HF-layout `.pth`/`.safetensors`, `checkpoint/hf_export.py`);
+  `show_mask` writes a PNG overlay in place of the reference's visdom
+  panel.
 
 Every write to the weights goes through these methods, which mark the
 serving copy stale; code that writes into `state` itself must not expect
@@ -53,9 +60,6 @@ reference's does.
 carried CLS token, the domain token the few-shot loop trains
 (`cli/fewshot.py`); `train_one_epoch(output_cls_token=True)` returns None in
 its place, as the JAX package does.
-
-Not ported yet, each raising NotImplementedError that names ROADMAP.md:
-the "bce" loss, `export_serving` and `export_hf`.
 """
 
 from __future__ import annotations
@@ -110,12 +114,6 @@ def _to_nhwc(img) -> np.ndarray:
     if img.ndim == 4 and img.shape[1] == 3 and img.shape[-1] != 3:
         img = img.transpose(0, 2, 3, 1)
     return img
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet; ROADMAP.md "
-        "Queue 1 lists what waits")
 
 
 class SegFormerModel:
@@ -282,7 +280,10 @@ class SegFormerModel:
         """Sigmoid masks (B, H, W) float32 of an NHWC or NCHW float batch
         (num_labels as a last axis when it is above 1); with a target
         `mask`, (loss, masks), the loss "dice" or "dice_argmax" (ref
-        `:103-139`). `use_loss="mse"` (the autoencoder's) returns (loss,
+        `:103-139`), or "bce": binary cross-entropy on the raw logits over
+        the target's valid pixels (>= 0 and != 255; the vendored model's
+        loss, `modeling_segformer.py:863-868`), averaged over all pixels.
+        `use_loss="mse"` (the autoencoder's) returns (loss,
         masks) without a target: the reference's MSE of the images against
         the raw logits upsampled to their size, divisor B*3 (ref `:133`).
 
@@ -290,10 +291,9 @@ class SegFormerModel:
         returned: sigmoid of the last stage's carried CLS token, (B, 1, C)
         float32 (the reference forward's, `modeling_segformer.py:848-850`),
         from the same forward, or None for a model without CLS tokens."""
-        if use_loss == "bce":
-            _not_ported(f"predict(use_loss={use_loss!r})")
         images = self._images(img)
-        if use_loss == "mse" or (output_cls_token and self.cfg.use_cls):
+        if use_loss in ("mse", "bce") or (output_cls_token
+                                          and self.cfg.use_cls):
             # one forward gives the raw logits and the tokens; the masks
             # are their sigmoid
             logits, cls_list = forward_logits(self.model, images)
@@ -309,6 +309,11 @@ class SegFormerModel:
         if use_loss == "mse":
             loss = losses.mse_loss(images, logits,
                                    divisor=images.shape[0] * 3)
+        elif use_loss == "bce":
+            target = self._targets(mask)
+            lg = logits[..., 0] if logits.shape[-1] == 1 else logits
+            loss = losses.bce_with_logits_loss(
+                lg, target, valid_mask=(target >= 0) & (target != 255))
         else:
             loss = losses.segmentation_loss(masks, self._targets(mask),
                                             use_loss)
@@ -493,10 +498,33 @@ class SegFormerModel:
             self.save_quantized(snapshot)
             print(f"{kind} snapshot written: {snapshot}")
 
-    # ---------------------------------------------------- not ported yet
-    def export_serving(self, path: str, batch_size: int, img_size=None,
-                       platforms=()) -> dict:
-        _not_ported("the serving artifact (export_serving)")
+    # ---------------------------------------------------------- exports
+    def export_serving(self, path: str, batch_size: int,
+                       img_size: int = 512,
+                       platforms=("cuda", "cpu")) -> dict:
+        """Write a serving artifact to `path`: the eval-mode predict of the
+        model `predict` serves (the quantized snapshot while there is one,
+        else the serving copy), exported by `torch.export` at
+        (batch_size, img_size, img_size, 3) for each of `platforms`,
+        loadable by `checkpoint.serving_export.load_serving` without a
+        checkpoint or a model build. Returns the artifact's header."""
+        from semisupervisedobjectdetection_torch.checkpoint.serving_export \
+            import export_serving
+
+        served = self.model
+        return export_serving(served.cfg, served, path,
+                              batch_size=batch_size, img_size=img_size,
+                              platforms=platforms)
 
     def export_hf(self, path: str) -> None:
-        _not_ported("export_hf")
+        """Write the float32 weights as a torch/HF-layout checkpoint
+        (`.pth`/`.bin`, or `.safetensors`), the inverse of `load_hf`
+        (`checkpoint/hf_export.py`). The prompt and CLS tokens have no home
+        in a torch SegFormer's state dict; `checkpoint.hf_export.
+        export_prompt_tokens(model._net)` returns them."""
+        from semisupervisedobjectdetection_torch.checkpoint.hf_export import (
+            export_torch_state_dict,
+            save_torch_checkpoint,
+        )
+
+        save_torch_checkpoint(path, export_torch_state_dict(self._net))

@@ -11,12 +11,20 @@ eval loss so far, which `--resume` reads. A warm start
 (`restore_weights`) takes the weights alone, from another configuration
 too. Files are written to a temporary name and renamed, so a crash
 mid-write leaves the previous file whole.
+
+`save_last_async` (the CLIs' `--async-checkpoint`) writes the `_last`
+checkpoint on a background thread: the caller waits only for a copy of the
+state on the device; the copy to the host and the write overlap the next
+epoch. `wait_pending_saves` blocks until every such write has landed.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import threading
+import time
+from collections import deque
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -39,17 +47,21 @@ def _atomic_save(obj, path: str) -> None:
     os.replace(tmp, path)
 
 
+def _state_tensors(state: TrainState, fn) -> dict:
+    """`fn` of every tensor of the checkpoint payload of `state`."""
+    return {
+        "model": {k: fn(v) for k, v in state.model.state_dict().items()},
+        "mu": {k: fn(v) for k, v in state.mu.items()},
+        "nu": {k: fn(v) for k, v in state.nu.items()},
+        "count": fn(state.count),
+        "epoch": fn(state.epoch),
+    }
+
+
 def save_state(path: str, state: TrainState) -> None:
     """Write (parameters and BatchNorm statistics, Adam moments and count,
     epoch) of `state` to the file `path`."""
-    payload = {
-        "model": {k: _host(v) for k, v in state.model.state_dict().items()},
-        "mu": {k: _host(v) for k, v in state.mu.items()},
-        "nu": {k: _host(v) for k, v in state.nu.items()},
-        "count": _host(state.count),
-        "epoch": _host(state.epoch),
-    }
-    _atomic_save(payload, os.path.abspath(path))
+    _atomic_save(_state_tensors(state, _host), os.path.abspath(path))
 
 
 _CLASSIFIER = ("decode_head.classifier.weight", "decode_head.classifier.bias")
@@ -185,13 +197,140 @@ def save_last(directory: str, prefix: str, state: TrainState, epoch: int,
     """Overwrite `{directory}/{prefix}_last.pt` with the full train state
     and its sidecar `{prefix}_last.meta.json` with (epoch, best_loss): the
     crash and preemption resume point."""
+    return _write_last(directory, prefix, _state_tensors(state, _host),
+                       epoch, best_loss)
+
+
+def _write_last(directory: str, prefix: str, payload: dict, epoch: int,
+                best_loss: float) -> str:
+    """Write a host checkpoint payload as `{prefix}_last` with its
+    sidecar."""
     path, meta = _last_paths(directory, prefix)
-    save_state(path, state)
+    _atomic_save(payload, path)
     tmp = meta + ".tmp"
     with open(tmp, "w") as f:
         json.dump({"epoch": int(epoch), "best_loss": float(best_loss)}, f)
     os.replace(tmp, meta)
     return path
+
+
+def _pinned_host(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of the CUDA tensor `t` in pinned memory, queued on the
+    current stream."""
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return out.copy_(t, non_blocking=True)
+
+
+class _AsyncSaver:
+    """Background `save_last` writer, the JAX package's `_AsyncSaver`: the
+    copy to the host and the disk write of the per-epoch `_last`
+    checkpoint overlap the next epoch.
+
+    `submit` takes a copy of the state on its device before it returns, as
+    the training stream's next work: the train steps update the parameters
+    and Adam's moments in place, so the writer must not read the live
+    tensors (the JAX package's guard against donated buffers). On the card
+    the worker copies that snapshot to pinned host memory on a stream of
+    its own, after an event recorded behind the snapshot, so the copy does
+    not queue behind the next epoch's kernels; then it pickles and writes.
+    Saves coalesce per (directory, prefix): a queued write that has not
+    started is replaced by a newer one (a `_last` needs only the newest
+    state). A failed write is printed, not raised. `wait` blocks until
+    every queued and running write has landed. `timings` holds (seconds of
+    the copy to the host, seconds of the pickling and disk write) of the
+    newest writes."""
+
+    def __init__(self):
+        self._jobs: dict = {}          # (directory, prefix) -> job
+        self._cv = threading.Condition()
+        self._busy = 0
+        self._thread: Optional[threading.Thread] = None
+        self.timings: deque = deque(maxlen=64)
+
+    def _to_host(self, snap: dict, ready: Optional[torch.cuda.Event]
+                 ) -> dict:
+        """The snapshot in pinned host memory, copied on a stream of the
+        worker's own once `ready` (recorded behind the snapshot) is
+        reached; a host snapshot (`ready` None) as it is."""
+        if ready is None:
+            return snap
+        stream = torch.cuda.Stream(device=snap["count"].device)
+        with torch.cuda.stream(stream):
+            stream.wait_event(ready)
+            host = {k: (_pinned_host(v) if isinstance(v, torch.Tensor)
+                        else {n: _pinned_host(t) for n, t in v.items()})
+                    for k, v in snap.items()}
+        stream.synchronize()
+        return host
+
+    def _run(self) -> None:
+        while True:
+            with self._cv:
+                while not self._jobs:
+                    self._cv.wait()
+                key = next(iter(self._jobs))
+                directory, prefix, snap, ready, epoch, best = \
+                    self._jobs.pop(key)
+                self._busy += 1
+            try:
+                t0 = time.perf_counter()
+                host = self._to_host(snap, ready)
+                t1 = time.perf_counter()
+                _write_last(directory, prefix, host, epoch, best)
+                self.timings.append((t1 - t0, time.perf_counter() - t1))
+            except Exception as e:  # a failed write is reported, not fatal
+                print(f"WARNING: async checkpoint save of {prefix}_last "
+                      f"failed: {type(e).__name__}: {e}", flush=True)
+            finally:
+                with self._cv:
+                    self._busy -= 1
+                    self._cv.notify_all()
+
+    def submit(self, directory: str, prefix: str, state: TrainState,
+               epoch: int, best_loss: float = float("inf")) -> None:
+        device = state.count.device
+        if device.type == "cuda":
+            snap = _state_tensors(state, lambda t: t.detach().clone())
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(device))
+        else:
+            snap, ready = _state_tensors(state, _host), None
+        with self._cv:
+            if self._thread is None:
+                self._thread = threading.Thread(
+                    target=self._run, daemon=True, name="ssod-async-ckpt")
+                self._thread.start()
+            self._jobs[(os.path.abspath(directory), prefix)] = (
+                directory, prefix, snap, ready, epoch, best_loss)
+            self._cv.notify_all()
+
+    def wait(self) -> None:
+        with self._cv:
+            while self._jobs or self._busy:
+                self._cv.wait()
+
+
+_ASYNC = _AsyncSaver()
+
+
+def save_last_async(directory: str, prefix: str, state: TrainState,
+                    epoch: int, best_loss: float = float("inf")) -> None:
+    """`save_last` on a background thread (`_AsyncSaver`): returns once the
+    state is copied on its device; the write is durable only after
+    `wait_pending_saves()`, which the training loops call at their end and
+    before a preemption save."""
+    _ASYNC.submit(directory, prefix, state, epoch, best_loss)
+
+
+def wait_pending_saves() -> None:
+    """Block until every `save_last_async` write has landed on disk."""
+    _ASYNC.wait()
+
+
+def async_save_timings() -> list:
+    """(host copy s, pickle-and-write s) of the newest `save_last_async`
+    writes, oldest first."""
+    return list(_ASYNC.timings)
 
 
 def has_last(directory: str, prefix: str) -> bool:

@@ -229,9 +229,11 @@ def main(argv: Optional[List[str]] = None):
                            grad_accum=args.grad_accum, device=device)
     logger = MetricLogger(args.metrics_csv)
     try:
-        return train_loop(model, loaders, dcfg, tc, args, logger)
+        reports = train_loop(model, loaders, dcfg, tc, args, logger)
     finally:
         logger.close()
+    common.maybe_plot_curves(args)
+    return reports
 
 
 if __name__ == "__main__":

@@ -6,7 +6,8 @@ the tile loaders and the 80/20 split of the `--tune` paths, the `--tune`
 sweep (`sweep_grid`, `run_tune_grid`), the batch checks, the check that
 the SR-attention kernels take the configuration's shapes, the preemption
 exit, the staging of host batches on the device, the timed run of a loop's
-phase, and the kernel-launch counts of an epoch report.
+phase, the kernel-launch counts of an epoch report, and the loss-curve
+PNG of `--plot-curves`.
 
 Flags whose paths are not ported yet are refused by `refuse_unported`
 with a `SystemExit` that names ROADMAP.md; none of them falls back to
@@ -80,9 +81,13 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                         "(HF key layout)")
     p.add_argument("--metrics-csv", help="CSV metrics path")
     p.add_argument("--plot-curves", action="store_true",
-                   help="render --metrics-csv to a PNG (not ported yet)")
-    p.add_argument("--profile-dir", help="profiler trace dir (not ported "
-                   "yet; utils/profile_forward.py profiles the step)")
+                   help="render --metrics-csv to a PNG after training "
+                        "(needs matplotlib; says so when it is missing)")
+    p.add_argument("--profile-dir",
+                   help="write a torch.profiler Chrome trace of the "
+                        "supervised CLI's training loop to this directory "
+                        "(the other CLIs ignore it, as the JAX package's "
+                        "do)")
     p.add_argument("--no-quirks", action="store_true",
                    help="disable reference-quirk parity (the student's "
                         "forward runs in eval mode)")
@@ -128,8 +133,6 @@ def refuse_unported(args, extra: Tuple[Tuple[str, bool], ...] = ()) -> None:
     asked = [
         ("--parallel " + str(args.parallel), args.parallel != "none"),
         ("--ffn-impl", args.ffn_impl is not None),
-        ("--profile-dir", bool(args.profile_dir)),
-        ("--plot-curves", args.plot_curves),
     ] + list(extra)
     refused = [flag for flag, on in asked if on]
     if refused:
@@ -303,13 +306,19 @@ def preempt_exit(args, saves, epoch: int, *, tuning: bool = False):
     survive. A `--tune` grid point (`tuning`, passed by each caller) is a
     throwaway run: its state is not written, so no later `--resume` starts
     from it."""
-    from semisupervisedobjectdetection_torch.checkpoint.io import save_last
+    from semisupervisedobjectdetection_torch.checkpoint.io import (
+        save_last,
+        wait_pending_saves,
+    )
     from semisupervisedobjectdetection_torch.utils import preemption
 
     if tuning:
         saves = []
     wrote = []
     if args.checkpoint_dir:
+        # an --async-checkpoint write to the same path lands before the
+        # preemption state overwrites it
+        wait_pending_saves()
         for prefix, state, best in saves:
             save_last(args.checkpoint_dir, prefix, state, epoch - 1, best)
             wrote.append(f"{prefix}_last")
@@ -432,6 +441,17 @@ def run_tune_grid(args, tc: TrainConfig, run_point,
         objective=objective,
         empty_hint="check --tune-lrs / --tune-wds / --tune-gammas / "
                    "--tune-max")
+
+
+def maybe_plot_curves(args) -> None:
+    """Render the run's --metrics-csv to a loss-curve PNG beside it when
+    the CLI was given --plot-curves (`utils/plot_metrics.py`)."""
+    if getattr(args, "plot_curves", False):
+        from semisupervisedobjectdetection_torch.utils.plot_metrics import (
+            plot_metrics,
+        )
+
+        plot_metrics(getattr(args, "metrics_csv", None))
 
 
 def host_floats(xs) -> List[float]:

@@ -383,10 +383,12 @@ def main(argv: Optional[List[str]] = None):
         return common.run_tune_grid(args, tc, run_point)
     logger = MetricLogger(args.metrics_csv)
     try:
-        return train_run(args, dcfg, tc, cfg, logger, eval_loader, lab,
-                         unlab, iters, device)
+        reports = train_run(args, dcfg, tc, cfg, logger, eval_loader, lab,
+                            unlab, iters, device)
     finally:
         logger.close()
+    common.maybe_plot_curves(args)
+    return reports
 
 
 if __name__ == "__main__":

@@ -17,6 +17,11 @@ The port of the JAX package's `cli/serve.py`, with the same behaviour:
   GEMMs); ``--int8-snapshot FILE`` loads the snapshot when the file is
   there (its width read from the stored dtypes), else writes it after
   quantizing, so that a serving process needs no float checkpoint.
+- **Serving artifacts.** ``--artifact FILE`` serves a file written by
+  `cli/export.py` (`SegFormerModel.export_serving`): the exported predict
+  of the artifact's platform for ``--device``, its weights in the file, no
+  checkpoint or model build; ``--max-batch`` and ``--img-size`` come from
+  its header.
 
 Endpoints:
   GET  /healthz  -> {"status": "ok", "platform", "device", "device_name",
@@ -38,8 +43,7 @@ Run: python -m semisupervisedobjectdetection_torch.cli.serve --variant b5 \
 
 The weights are seeded random ones unless --pretrain-weight (a `.pt`
 checkpoint of the port's CLIs, loaded as `SegFormerModel.load` does) or
---hf-weights is given. The AOT artifact (--artifact) is not ported yet and
-is refused with a message naming ROADMAP.md.
+--hf-weights is given.
 """
 
 from __future__ import annotations
@@ -364,7 +368,10 @@ def main(argv=None):
                         "checkpoint/convert.py::state_dict_from_flax")
     p.add_argument("--hf-weights",
                    help="torch .pth/.safetensors SegFormer weights")
-    p.add_argument("--artifact", help="AOT serving artifact (not ported)")
+    p.add_argument("--artifact",
+                   help="serving artifact (cli.export / SegFormerModel."
+                        "export_serving): serves its exported predict, no "
+                        "checkpoint or model build")
     p.add_argument("--int8", action="store_true",
                    help="serve the int8 snapshot (per-channel int8 dense "
                         "weights, per-token activations, int8 GEMMs)")
@@ -384,24 +391,38 @@ def main(argv=None):
                    help="torch device to serve on (default cuda; 'cpu' to "
                         "run without a card)")
     args = p.parse_args(argv)
+    import torch
+
+    # float32 serving computes in float32: no TF32 in matmuls or convs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     if args.artifact:
-        raise SystemExit(
-            "--artifact: not ported to the PyTorch package yet; "
-            "ROADMAP.md lists what waits (Queue 1, serving)")
+        import os
+
+        from semisupervisedobjectdetection_torch.checkpoint.serving_export \
+            import load_serving
+
+        predictor = load_serving(args.artifact, args.device)
+        hdr = predictor.header
+        srv = InferenceServer(
+            predictor, img_size=hdr["img_size"], max_batch=hdr["batch"],
+            batch_window_ms=args.batch_window_ms,
+            variant=f"artifact:{os.path.basename(args.artifact)}")
+        port = srv.start(args.host, args.port)
+        print(f"serving artifact {args.artifact} on "
+              f"http://{args.host}:{port}  ({predictor.device}, batch "
+              f"{hdr['batch']}, quant {predictor.quant})", flush=True)
+        _serve_until_signal(srv)
+        return
     if args.int8 and args.fp8:
         raise SystemExit("--int8 and --fp8 are mutually exclusive")
     quant = "fp8" if args.fp8 else ("int8" if args.int8 else "none")
     if args.int8_snapshot and quant == "none":
         raise SystemExit("--int8-snapshot needs --int8 or --fp8")
 
-    import torch
-
     from semisupervisedobjectdetection_torch.api import SegFormerModel
     from semisupervisedobjectdetection_torch.core.config import MIT_VARIANTS
 
-    # float32 serving computes in float32: no TF32 in matmuls or convs
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg = MIT_VARIANTS[args.variant](dtype=args.dtype,
                                      gelu_approx=args.perf)
     model = SegFormerModel(pretrain_weight=args.pretrain_weight,

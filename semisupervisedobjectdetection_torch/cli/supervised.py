@@ -26,11 +26,17 @@ reference's quirk) the forward of a train step runs in eval mode;
 train tiles (the reference's `Hyperparameter_Tuning`, `:103-144`): each
 point trains a fresh model for max(epochs // 5, 1) epochs and writes no
 checkpoint, and --resume is off.
+`--async-checkpoint` (with --resume) writes the `_last` checkpoint on a
+background thread (`checkpoint/io.py::save_last_async`), `--profile-dir`
+traces the training loop with `torch.profiler`, and `--plot-curves` draws
+the metrics CSV to a PNG after training.
 
-It runs on the CUDA card unless `--device cpu` is given. Not ported yet, and
-refused with a message naming ROADMAP.md: `--loss bce`, `--async-checkpoint`,
-`--parallel` other than none, `--profile-dir`, `--plot-curves` and
-`--ffn-impl`.
+It runs on the CUDA card unless `--device cpu` is given. `--loss bce` is
+refused, as the JAX package's CLI cannot train with it: its
+`segmentation_loss` has no "bce" branch (`losses.py:178`), so that CLI
+raises at the first step (`predict(use_loss="bce")` computes it). Not
+ported yet, and refused with a message naming ROADMAP.md: `--parallel`
+other than none and `--ffn-impl`.
 """
 
 from __future__ import annotations
@@ -47,6 +53,8 @@ from semisupervisedobjectdetection_torch.api import SegFormerModel
 from semisupervisedobjectdetection_torch.checkpoint.io import (
     BestCheckpointer,
     save_last,
+    save_last_async,
+    wait_pending_saves,
 )
 from semisupervisedobjectdetection_torch.cli import common
 from semisupervisedobjectdetection_torch.core.config import MIT_VARIANTS
@@ -64,7 +72,10 @@ from semisupervisedobjectdetection_torch.eval.sliding_window import (
 )
 from semisupervisedobjectdetection_torch.utils import preemption
 from semisupervisedobjectdetection_torch.utils.device import resolve_device
-from semisupervisedobjectdetection_torch.utils.logging import MetricLogger
+from semisupervisedobjectdetection_torch.utils.logging import (
+    MetricLogger,
+    profile_trace,
+)
 
 PREFIX = "segformer"
 
@@ -103,6 +114,7 @@ def train_loop(model: SegFormerModel, loaders, dcfg, tc, args,
     resume = save_model and args.resume and args.checkpoint_dir
     start_epoch, best = (_try_resume(args, model, ckpt) if resume
                          else (0, float("inf")))
+    async_ckpt = getattr(args, "async_checkpoint", False)
     reports = []
     for epoch in range(start_epoch, tc.epochs):
         model.generator.manual_seed(fold_in(args.seed, 2 * epoch + 1))
@@ -175,7 +187,10 @@ def train_loop(model: SegFormerModel, loaders, dcfg, tc, args,
                 ckpt.maybe_save(model.state, epoch, train_loss, eval_loss,
                                 fps)
         if resume:
-            save_last(args.checkpoint_dir, PREFIX, model.state, epoch, best)
+            # the device-side snapshot now, the host copy and the write
+            # overlapped with the next epoch under --async-checkpoint
+            save = save_last_async if async_ckpt else save_last
+            save(args.checkpoint_dir, PREFIX, model.state, epoch, best)
         t1 = time.perf_counter()
         report = {
             "epoch": epoch, "epoch_s": t1 - t_epoch,
@@ -191,6 +206,8 @@ def train_loop(model: SegFormerModel, loaders, dcfg, tc, args,
             "best_path": ckpt.best_path}
         print("epoch_report " + json.dumps(report), flush=True)
         reports.append(report)
+    if resume and async_ckpt:
+        wait_pending_saves()
     return reports
 
 
@@ -307,15 +324,21 @@ def main(argv: Optional[List[str]] = None):
                         "checkpoint (full state, epoch, best gate) every "
                         "epoch and continue from it when present")
     p.add_argument("--async-checkpoint", action="store_true",
-                   help="write the _last checkpoint on a background "
-                        "thread (not ported)")
+                   help="with --resume: write the _last checkpoint on a "
+                        "background thread (a copy on the device now, the "
+                        "host copy and the write overlapped with the next "
+                        "epoch)")
     p.add_argument("--tune-lr",
                    help="comma-separated lrs for a grid search on an 80/20 "
                         "split")
     args = p.parse_args(argv)
-    common.refuse_unported(args, (
-        ("--loss bce", args.loss == "bce"),
-        ("--async-checkpoint", args.async_checkpoint)))
+    if args.loss == "bce":
+        raise SystemExit(
+            "--loss bce: the JAX package's supervised CLI offers it but "
+            "cannot train with it: its losses.segmentation_loss has no "
+            "'bce' branch (losses.py:178), so it raises at the first step; "
+            "SegFormerModel.predict(use_loss='bce') computes the loss")
+    common.refuse_unported(args)
     if args.int8 and args.fp8:
         raise SystemExit("--int8 and --fp8 are mutually exclusive")
     quant = "fp8" if args.fp8 else ("int8" if args.int8 else "none")
@@ -350,9 +373,13 @@ def main(argv: Optional[List[str]] = None):
         return predict(model, loaders, dcfg, args)
     logger = MetricLogger(args.metrics_csv)
     try:
-        return train_loop(model, loaders, dcfg, tc, args, logger, args.loss)
+        with profile_trace(args.profile_dir):
+            reports = train_loop(model, loaders, dcfg, tc, args, logger,
+                                 args.loss)
     finally:
         logger.close()
+    common.maybe_plot_curves(args)
+    return reports
 
 
 if __name__ == "__main__":

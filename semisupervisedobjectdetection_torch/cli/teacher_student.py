@@ -38,11 +38,15 @@ models with fresh Adam state at epoch 0.
 models for max(epochs // 5, 1) epochs, writes no checkpoint and does not
 resume.
 
+`--async-checkpoint` (with --resume) writes both `_last` checkpoints on a
+background thread (`checkpoint/io.py::save_last_async`), waited for at the
+end of the loop; `--plot-curves` draws the metrics CSV to a PNG after
+training.
+
 It runs on the CUDA card unless `--device cpu` is given. `--int8-teacher`
 applies to `--ema-mode` only and is refused in the gradient loop. Not
-ported yet, and refused with a message naming ROADMAP.md:
-`--async-checkpoint`, `--parallel` other than none, `--profile-dir`,
-`--plot-curves` and `--ffn-impl`.
+ported yet, and refused with a message naming ROADMAP.md: `--parallel`
+other than none and `--ffn-impl`.
 """
 
 from __future__ import annotations
@@ -65,6 +69,8 @@ from semisupervisedobjectdetection_torch.checkpoint.io import (
     merge_restore,
     restore_weights,
     save_last,
+    save_last_async,
+    wait_pending_saves,
 )
 from semisupervisedobjectdetection_torch.cli import common
 from semisupervisedobjectdetection_torch.core.config import (
@@ -310,6 +316,7 @@ def _grad_train_loop(args, dcfg, tc, loaders, logger, device, *, teacher,
             time.perf_counter() - t0, device, phase_a=a, phase_b=b,
             pseudo_loss=(float(np.mean(p_losses)) if p_losses else None),
             teacher_reset=reset, best_student=best_s, best_teacher=best_t))
+    _wait_saves(args)
     return reports
 
 
@@ -383,6 +390,7 @@ def _ema_train_loop(args, dcfg, tc, loaders, logger, device, *, teacher,
         reports.append(_report(epoch, t_epoch, (phase,), images[0], ev,
                                time.perf_counter() - t0, device,
                                best_student=best_s, best_teacher=best_t))
+    _wait_saves(args)
     return reports
 
 
@@ -406,11 +414,19 @@ def _try_resume(args, teacher, student, ckpt_s, ckpt_t):
 
 def _save_lasts(args, teacher, student, epoch, best_s, best_t):
     """Write both `_last` resume checkpoints (only under --resume: the B5
-    full-state write costs seconds per epoch; never for a --tune point)."""
+    full-state write costs seconds per epoch, which --async-checkpoint
+    moves to a background thread; never for a --tune point)."""
     if not (args.resume and args.checkpoint_dir and not args.tune):
         return
-    save_last(args.checkpoint_dir, "ts_teacher", teacher, epoch, best_t)
-    save_last(args.checkpoint_dir, "ts_student", student, epoch, best_s)
+    save = save_last_async if args.async_checkpoint else save_last
+    save(args.checkpoint_dir, "ts_teacher", teacher, epoch, best_t)
+    save(args.checkpoint_dir, "ts_student", student, epoch, best_s)
+
+
+def _wait_saves(args) -> None:
+    """Make the --async-checkpoint writes durable before a loop returns."""
+    if args.async_checkpoint:
+        wait_pending_saves()
 
 
 def parse_args(argv: Optional[List[str]] = None):
@@ -441,8 +457,10 @@ def parse_args(argv: Optional[List[str]] = None):
                         "epoch and continue from them when present (both "
                         "loops; disabled under --tune)")
     p.add_argument("--async-checkpoint", action="store_true",
-                   help="write the _last checkpoints on a background "
-                        "thread (not ported)")
+                   help="with --resume: write the _last checkpoints on a "
+                        "background thread (a copy on the device now, the "
+                        "host copy and the write overlapped with the next "
+                        "epoch)")
     p.add_argument("--tune", action="store_true",
                    help="random-order grid over supervise_weight x "
                         "threshold (reference grid `:274-280`)")
@@ -481,8 +499,7 @@ def tune(args, dcfg, tc, loaders, cfg, device):
 
 def main(argv: Optional[List[str]] = None):
     args = parse_args(argv)
-    common.refuse_unported(args, (
-        ("--async-checkpoint", args.async_checkpoint),))
+    common.refuse_unported(args)
     if args.int8_teacher and not args.ema_mode:
         raise SystemExit("--int8-teacher applies to --ema-mode only (the "
                          "gradient loop trains its teacher)")
@@ -501,13 +518,15 @@ def main(argv: Optional[List[str]] = None):
         return tune(args, dcfg, tc, loaders, cfg, device)
     logger = MetricLogger(args.metrics_csv)
     try:
-        return train_run(args, dcfg, tc, loaders, cfg, logger, device,
-                         teacher_lr=args.teacher_lr,
-                         student_lr=args.student_lr,
-                         supervise_weight=args.supervise_weight,
-                         threshold=args.threshold, epochs=tc.epochs)
+        reports = train_run(args, dcfg, tc, loaders, cfg, logger, device,
+                            teacher_lr=args.teacher_lr,
+                            student_lr=args.student_lr,
+                            supervise_weight=args.supervise_weight,
+                            threshold=args.threshold, epochs=tc.epochs)
     finally:
         logger.close()
+    common.maybe_plot_curves(args)
+    return reports
 
 
 if __name__ == "__main__":

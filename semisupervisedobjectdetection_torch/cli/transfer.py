@@ -126,9 +126,11 @@ def main(argv: Optional[List[str]] = None):
                         not args.per_layer_prompts, device=device)
     logger = MetricLogger(args.metrics_csv)
     try:
-        return train_loop(model, loaders, dcfg, tc, args, logger)
+        reports = train_loop(model, loaders, dcfg, tc, args, logger)
     finally:
         logger.close()
+    common.maybe_plot_curves(args)
+    return reports
 
 
 if __name__ == "__main__":

@@ -1,9 +1,10 @@
-"""Segmentation losses of the JAX package's `losses.py` that the training
-steps and their evaluation use, in PyTorch: dice with smooth 1 over each
-sample flattened, the binarised ("argmax") dice of the eval metric, the
-reference's MSE of the autoencoder, the `segmentation_loss` front end over
-the three, and the few-shot loop's cosine losses on the domain CLS tokens.
-Everything is float32."""
+"""Segmentation losses of the JAX package's `losses.py`, in PyTorch: dice
+with smooth 1 over each sample flattened, the binarised ("argmax") dice of
+the eval metric, the reference's MSE of the autoencoder, binary
+cross-entropy on logits (`predict(use_loss="bce")`), softmax cross-entropy
+with probability targets, the `segmentation_loss` front end, and the
+few-shot loop's cosine losses on the domain CLS tokens. Everything is
+float32."""
 
 from __future__ import annotations
 
@@ -66,6 +67,21 @@ def mse_loss(pred: torch.Tensor, gt: torch.Tensor,
     return (err * w).sum() / w.sum().clamp_min(1e-8)
 
 
+def bce_with_logits_loss(logits: torch.Tensor, labels: torch.Tensor,
+                         valid_mask: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Binary cross-entropy on logits, the vendored SegFormer's one-label
+    loss (`modeling_segformer.py:863-868`): the stable per-pixel
+    max(x, 0) - x * y + log1p(exp(-|x|)), multiplied by the validity mask
+    (labels >= 0 and != ignore_index) when given, then the mean over all
+    pixels, valid or not (the reference's `.mean()`)."""
+    x, y = logits.float(), labels.float()
+    per_pixel = x.clamp_min(0.0) - x * y + torch.log1p(torch.exp(-x.abs()))
+    if valid_mask is not None:
+        per_pixel = per_pixel * valid_mask.float()
+    return per_pixel.mean()
+
+
 def cosine_similarity(a: torch.Tensor, b: torch.Tensor, dim: int = -1,
                       eps: float = 1e-8) -> torch.Tensor:
     """dot(a, b) / max(|a| * |b|, eps) along `dim`, in float32: the JAX
@@ -97,13 +113,28 @@ def intra_domain_loss(cls_tokens: torch.Tensor) -> torch.Tensor:
                                          dim=1).mean()
 
 
+def cross_entropy_loss(pred: torch.Tensor, gt: torch.Tensor,
+                       dim: int = -1) -> torch.Tensor:
+    """Softmax cross-entropy with probability targets along `dim`, as torch
+    `F.cross_entropy(pred, target.float())` in the reference's dispatcher
+    (`Loss.py:88-92`): -sum(target * log_softmax(pred)) per pixel, then the
+    mean over the rest. A (B, H, W) input gets a trailing class axis of
+    one, where log_softmax is 0: the reference's one-class behaviour."""
+    pred, gt = pred.float(), gt.float()
+    if pred.dim() == 3:
+        pred, gt, dim = pred[..., None], gt[..., None], -1
+    return -(gt * torch.log_softmax(pred, dim=dim)).sum(dim).mean()
+
+
 def segmentation_loss(pred: torch.Tensor, gt: torch.Tensor,
                       loss_type: str = "dice",
                       sample_weight: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
-    """The reference's `SegmentationLoss.forward` for one class, over the
-    ported branches: "dice", "dice_argmax" (alias "argmax") and "mse". The
-    "cross_entropy" branch belongs to a loop not ported yet."""
+    """The reference's `SegmentationLoss.forward` for one class: "dice",
+    "dice_argmax" (alias "argmax"), "mse" and "cross_entropy". The last
+    returns 1 - CE, as the reference's does (it appends CE to the class
+    scores the dice branches fill and returns 1 - their mean,
+    `Loss.py:88-95`); the JAX package keeps the quirk."""
     if loss_type == "dice":
         return dice_loss(pred, gt, sample_weight)
     if loss_type in ("dice_argmax", "argmax"):
@@ -111,7 +142,5 @@ def segmentation_loss(pred: torch.Tensor, gt: torch.Tensor,
     if loss_type == "mse":
         return mse_loss(pred, gt, sample_weight)
     if loss_type == "cross_entropy":
-        raise NotImplementedError(
-            f"loss_type {loss_type!r} is not ported yet; ROADMAP.md "
-            "Queue 1 names the loops that use it")
+        return 1.0 - cross_entropy_loss(pred, gt)
     raise ValueError(f"unknown loss_type: {loss_type}")

@@ -1,14 +1,26 @@
 """Sequence-reduction (SR) attention: the hand-written CUDA kernels and their
-plain PyTorch versions.
+plain PyTorch versions, registered as `torch.library` operators.
 
 SegFormer's SR-attention has a long query stream (H*W tokens plus the
 prompt/CLS prefix: 16k at stage 1 of a 512x512 input) attending to a short
 reduced key/value stream (256 tokens plus the prefix at every stage of a
-512x512 input). `sr_attention` is differentiable through `SRAttention`, the
-counterpart of the JAX package's `custom_vjp`: on a CUDA tensor its forward
-runs `csrc/sr_attention_fwd.cu` and its backward `csrc/sr_attention_bwd.cu`
-(`sr_attention_bwd`); on a CPU tensor both run the plain versions
-(`sr_attention_reference`, `sr_attention_backward_reference`).
+512x512 input). The forward is the operator `ssod::sr_attention_fwd` and the
+backward `ssod::sr_attention_bwd`, both defined with `torch.library.Library`
+and a kernel for the CPU and CUDA dispatch keys; the forward's autograd
+kernel calls the backward operator for its gradient, the counterpart of the
+JAX package's `custom_vjp`. Each operator has a fake
+implementation giving its outputs' shapes and dtypes, so `torch.export`
+traces a model through them (`checkpoint/serving_export.py`). On a CUDA
+tensor an operator's body launches `csrc/sr_attention_fwd.cu` or
+`csrc/sr_attention_bwd.cu` through ctypes; on a CPU tensor it runs the plain
+version (`sr_attention_reference`, `sr_attention_backward_reference`).
+
+Training, serving and the exported artifact all go through the operators:
+the op an artifact calls is the op that the training steps and the card's
+checks hold. The launch counters are kept inside the bodies, so a launch
+made from an exported program is counted like any other. The dispatcher
+adds host time to every call (measured on the card against the autograd
+function the operators replaced by `scripts/op_dispatch_ab.py`, PERF.md).
 """
 
 from __future__ import annotations
@@ -481,9 +493,9 @@ def _device_of(q: torch.Tensor) -> str:
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              num_heads: int) -> torch.Tensor:
-    """The forward: the plain version on a CPU tensor, else one launch of
-    `csrc/sr_attention_fwd.cu`'s kernel for q's dtype and Nk (counted in
-    `sr_attention.launches`, the bfloat16 kernel's also in
+    """The forward operator's body: the plain version on a CPU tensor, else
+    one launch of `csrc/sr_attention_fwd.cu`'s kernel for q's dtype and Nk
+    (counted in `sr_attention.launches`, the bfloat16 kernel's also in
     `sr_attention.mma_launches`)."""
     if _device_of(q) == "cpu":
         return sr_attention_reference(q, k, v, num_heads)
@@ -524,7 +536,7 @@ def sr_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      g: torch.Tensor, num_heads: int
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of `sr_attention` at (q, k, v) for the output gradient
-    g (B,Nq,C).
+    g (B,Nq,C), through the operator `ssod::sr_attention_bwd`.
 
     Replaces the Pallas TPU kernel
     `semisupervisedobjectdetection_tpu/ops/sr_attention.py::_bwd_kernel`.
@@ -562,6 +574,15 @@ def sr_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if g.shape != q.shape:
         raise ValueError(f"g {tuple(g.shape)} must have q's shape "
                          f"{tuple(q.shape)}")
+    return _bwd_op(q, k, v, g, num_heads)
+
+
+def _backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              g: torch.Tensor, num_heads: int
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward operator's body: the plain version on a CPU tensor,
+    else the launch of `csrc/sr_attention_bwd.cu`'s kernels for q's dtype
+    and Nk (counted in `sr_attention_bwd.launches`)."""
     if _device_of(q) == "cpu":
         return sr_attention_backward_reference(q, k, v, g, num_heads)
     b, nq, c = q.shape
@@ -620,25 +641,76 @@ sr_attention_bwd.stream_launches = 0
 sr_attention_bwd.last_launches = 0
 
 
-class SRAttention(torch.autograd.Function):
-    """SR attention with its own backward, the counterpart of the JAX
-    package's `custom_vjp` (`sr_attention.py:235-250`): the forward saves
-    q, k, v; the backward recomputes the probabilities in
-    `sr_attention_bwd`. On CUDA both directions run the hand-written
-    kernels, on the CPU the plain versions."""
+# The operators are defined through `torch.library.Library` with a kernel per
+# dispatch key, so an eager call goes from the C++ dispatcher straight to the
+# Python body; `torch.library.custom_op` wraps the same bodies in more Python
+# per call (PERF.md, `scripts/op_dispatch_ab.py`).
+_LIB = torch.library.Library("ssod", "DEF")
+_LIB.define("sr_attention_fwd(Tensor q, Tensor k, Tensor v, int num_heads)"
+            " -> Tensor")
+_LIB.define("sr_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor g, "
+            "int num_heads) -> (Tensor, Tensor, Tensor)")
+
+
+def _fwd_body(q, k, v, num_heads):
+    """The forward operator's CPU and CUDA kernel (K1): `_forward`, looked
+    up at each call."""
+    return _forward(q, k, v, num_heads)
+
+
+def _bwd_body(q, k, v, g, num_heads):
+    """The backward operator's CPU and CUDA kernel (K2): `_backward`,
+    looked up at each call."""
+    return _backward(q, k, v, g, num_heads)
+
+
+for _key in ("CPU", "CUDA"):
+    _LIB.impl("sr_attention_fwd", _fwd_body, _key)
+    _LIB.impl("sr_attention_bwd", _bwd_body, _key)
+
+
+@torch.library.register_fake("ssod::sr_attention_fwd", lib=_LIB)
+def _(q, k, v, num_heads):
+    return torch.empty_like(q)
+
+
+@torch.library.register_fake("ssod::sr_attention_bwd", lib=_LIB)
+def _(q, k, v, g, num_heads):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+_fwd_op = torch.ops.ssod.sr_attention_fwd.default
+_bwd_op = torch.ops.ssod.sr_attention_bwd.default
+
+
+class _SRAttentionGrad(torch.autograd.Function):
+    """The forward operator's gradient: the backward operator, which
+    recomputes the probabilities from the saved q, k and v."""
 
     @staticmethod
-    def forward(ctx, q, k, v, num_heads: int):
+    def forward(ctx, q, k, v, num_heads):
         ctx.num_heads = num_heads
         ctx.save_for_backward(q, k, v)
-        return _forward(q, k, v, num_heads)
+        with torch._C._AutoDispatchBelowAutograd():
+            return _fwd_op(q, k, v, num_heads)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
-        dq, dk, dv = sr_attention_bwd(q, k, v, g.contiguous(),
-                                      ctx.num_heads)
-        return dq, dk, dv, None
+        return _bwd_op(q, k, v, g.contiguous(), ctx.num_heads) + (None,)
+
+
+def _fwd_autograd(q, k, v, num_heads):
+    """The forward operator's autograd kernel: through `_SRAttentionGrad`
+    where a gradient is wanted, else straight to the device's kernel."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _SRAttentionGrad.apply(q, k, v, num_heads)
+    with torch._C._AutoDispatchBelowAutograd():
+        return _fwd_op(q, k, v, num_heads)
+
+
+_LIB.impl("sr_attention_fwd", _fwd_autograd, "Autograd")
 
 
 def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -650,7 +722,8 @@ def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     `semisupervisedobjectdetection_tpu/ops/sr_attention.py::_attn_kernel`.
     On a CUDA tensor it launches `csrc/sr_attention_fwd.cu`'s kernel for
     q's dtype (head width 32 or 64) or raises; on a CPU tensor it computes
-    the plain version. Its gradient is `sr_attention_bwd`. Both kernels run
+    the plain version. It calls the operator `ssod::sr_attention_fwd`,
+    whose gradient is `sr_attention_bwd`'s operator. Both kernels run
     their products on wgmma with the query tiles, K and V brought in by
     TMA, and sum in the tensor cores' order:
 
@@ -680,7 +753,7 @@ def sr_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     `BF16_ON_CHIP_NK` keys.
     """
     _check(q, k, v, num_heads)
-    return SRAttention.apply(q, k, v, num_heads)
+    return _fwd_op(q, k, v, num_heads)
 
 
 sr_attention.launches = 0

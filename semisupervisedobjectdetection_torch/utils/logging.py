@@ -1,10 +1,11 @@
 """Structured metrics: an append-only CSV of one row per step or epoch,
 echoed to stdout, the JAX package's `utils/logging.py::MetricLogger` with
 the same columns (`step`, `wall_s`, then the metrics in the order of the
-first row)."""
+first row); and `profile_trace`, the `--profile-dir` trace."""
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import os
 import time
@@ -46,3 +47,26 @@ class MetricLogger:
     def close(self) -> None:
         if self._file:
             self._file.close()
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: Optional[str]):
+    """A `torch.profiler` trace of the host and, where there is a card, the
+    device, written as a Chrome trace (`trace.json`) into `log_dir` when
+    the context ends; no-op when log_dir is None. The counterpart of the
+    JAX package's `jax.profiler` trace."""
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    path = os.path.join(log_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"profiler trace written: {path}", flush=True)

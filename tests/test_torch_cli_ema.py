@@ -167,13 +167,30 @@ def test_best_checkpointer_gate(tmp_path):
     assert ck.maybe_save(s, 4, 0.9, 0.4) is not None
 
 
+# flags refused while their paths waited for a port, now taken
+PORTED_FLAGS = ("--async-checkpoint", "--profile-dir", "--plot-curves")
+
+
 @pytest.mark.parametrize("flags", [
     ["--async-checkpoint"],
     ["--parallel", "dp"], ["--parallel", "pp"],
     ["--profile-dir", "p"], ["--plot-curves"], ["--ffn-impl", "xla"],
 ], ids=lambda f: " ".join(f))
-def test_unported_flags_are_refused(flags):
-    argv = ["--device", "cpu", "--synthetic", "--ema-mode"] + flags
+def test_unported_flags_are_refused(flags, monkeypatch, tmp_path):
+    """--parallel other than none and --ffn-impl are refused naming
+    ROADMAP.md; --async-checkpoint, --profile-dir and --plot-curves, ported
+    since, get past the refusal to the training run (stubbed here)."""
+    monkeypatch.chdir(tmp_path)
+    argv = ["--device", "cpu", "--synthetic", "--ema-mode", "--img-size",
+            "32", "--synthetic-n", "4"] + flags
+    if flags[0] in PORTED_FLAGS:
+        ran = []
+        monkeypatch.setattr(teacher_student, "train_run",
+                            lambda *a, **k: ran.append(1) or [])
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert teacher_student.main(argv) == []
+        assert ran == [1]
+        return
     with pytest.raises(SystemExit, match="ROADMAP"):
         teacher_student.main(argv)
 

@@ -12,7 +12,11 @@ train-mode gradient through the kernels, and the augmentation on the card
 against the CPU. Also `ops/quant.py::QLinear` on the card's int8 and fp8
 GEMMs against its plain product at every distinct MiT-B5 dense shape
 (fewer than 17 rows and widths that need padding among them), and a GEMM
-that refuses raising through it (no fallback).
+that refuses raising through it (no fallback). And the serving artifact on
+the card (`checkpoint/serving_export.py`): the cuda program's masks
+bit-equal to `predict` in bfloat16, float32 and int8, with one K1 launch
+per layer per call, and the gradient through the `torch.library` operators
+on the card equal to the operator bodies' own.
 Marked `cuda`; each skips without a CUDA device (decided in a fixture, not
 at import). On a machine with a card and no JAX:
 
@@ -650,3 +654,56 @@ def test_qlinear_card_refusal_raises(cuda, monkeypatch):
                                        device=cuda),
                            torch.zeros(16, 48, dtype=torch.int8,
                                        device=cuda))
+
+
+# A small model at the kernels' head width (32) for the artifact tests.
+ART_CFG = dict(depths=(1, 1, 2, 1), decoder_hidden=32)
+
+
+@pytest.mark.parametrize("dtype,quant", [("bfloat16", None),
+                                         ("float32", None),
+                                         ("bfloat16", "int8")])
+def test_artifact_on_the_card_equals_predict(cuda, tmp_path, dtype, quant):
+    """The cuda program of an artifact gives `predict`'s masks bit for bit
+    and launches K1 once per layer per call; a partial batch is padded and
+    sliced back."""
+    import numpy as np
+
+    from semisupervisedobjectdetection_torch.api import SegFormerModel
+    from semisupervisedobjectdetection_torch.checkpoint.serving_export \
+        import load_serving
+    from semisupervisedobjectdetection_torch.core.config import mit_b0
+
+    model = SegFormerModel(config=mit_b0(**ART_CFG, dtype=dtype), seed=2)
+    if quant:
+        model.quantize(quant)
+    path = str(tmp_path / "a.ssod")
+    model.export_serving(path, batch_size=4, img_size=64,
+                         platforms=("cuda",))
+    pred = load_serving(path)
+    x = np.random.default_rng(3).uniform(size=(4, 64, 64, 3)).astype(
+        np.float32)
+    before = sr_attention.launches
+    got = pred.predict(x)
+    assert sr_attention.launches - before == sum(ART_CFG["depths"])
+    assert np.array_equal(got, model.predict(x))
+    padded = np.concatenate([x[:3], np.zeros_like(x[:1])])
+    assert np.array_equal(pred.predict(x[:3]), model.predict(padded)[:3])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_operator_gradient_on_the_card_equals_its_bodies(cuda, dtype):
+    """Autograd through `ssod::sr_attention_fwd` on the card gives the
+    backward operator's body's (dq, dk, dv) bit for bit, and its forward
+    the forward body's output."""
+    from semisupervisedobjectdetection_torch.ops import sr_attention as sra
+
+    q, k, v = _qkv(cuda, 2, 300, 266, 64, dtype)
+    g = torch.randn_like(q)
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    out = sr_attention(qq, kk, vv, 1)
+    out.backward(g)
+    assert torch.equal(out.detach(), sra._forward(q, k, v, 1))
+    want = sra._backward(q, k, v, g, 1)
+    for got, w in zip((qq.grad, kk.grad, vv.grad), want):
+        assert torch.equal(got, w)

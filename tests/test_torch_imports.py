@@ -1,9 +1,10 @@
 """The port stands alone: no module of `semisupervisedobjectdetection_torch`
 nor `chip_smoke.py` nor `scripts/k1_design_ab.py`,
-`scripts/k2_phase_profile.py`, `scripts/tf32_probe.py` or
-`scripts/fp8_depth_witness.py` imports JAX, Flax,
-transformers or the JAX package, and the entry points do not fall back to
-the CPU when no card is present."""
+`scripts/k2_phase_profile.py`, `scripts/tf32_probe.py`,
+`scripts/fp8_depth_witness.py` or `scripts/op_dispatch_ab.py` imports JAX,
+Flax, transformers or the JAX package, and the entry points (the model API, the
+export CLI, the self-test, the artifact loader) do not fall back to the CPU
+when no card is present."""
 
 import os
 import pkgutil
@@ -36,7 +37,9 @@ def test_every_module_imports_without_jax():
               "cli.transfer", "api", "utils.profile_forward",
               "train.autoencoder", "cli.autoencoder", "train.fewshot",
               "data.classified", "cli.fewshot", "ops.quant",
-              "eval.sliding_window", "cli.serve"):
+              "eval.sliding_window", "cli.serve",
+              "checkpoint.serving_export", "checkpoint.hf_export",
+              "cli.export", "utils.plot_metrics", "__main__"):
         assert f"semisupervisedobjectdetection_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -122,6 +125,38 @@ def test_default_entry_point_needs_a_card(monkeypatch):
     # asking for the CPU is the one way to run without a card
     assert SegFormerModel(config=mit_b0(depths=(1, 1, 1, 1)),
                           device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("entry", ["cli.export", "__main__",
+                                   "load_serving"])
+def test_new_entry_points_need_a_card(entry, monkeypatch, tmp_path):
+    """Without a card the export CLI, the self-test and the artifact
+    loader do not carry on on the CPU: the export raises, the self-test
+    reports its device check failed (exit code 1), the loader raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if entry == "cli.export":
+        from semisupervisedobjectdetection_torch.cli import export
+
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            export.main(["--variant", "b0", "--out",
+                         str(tmp_path / "a.ssod")])
+    elif entry == "__main__":
+        from semisupervisedobjectdetection_torch import __main__ as selftest
+
+        assert selftest.main(["--quick"]) == 1
+    else:
+        from semisupervisedobjectdetection_torch.api import SegFormerModel
+        from semisupervisedobjectdetection_torch.checkpoint.serving_export \
+            import load_serving
+        from semisupervisedobjectdetection_torch.core.config import mit_b0
+
+        path = str(tmp_path / "a.ssod")
+        SegFormerModel(config=mit_b0(depths=(1, 1, 1, 1)),
+                       device="cpu").export_serving(
+            path, 1, img_size=32, platforms=("cpu",))
+        with pytest.raises(ValueError, match="exported for"):
+            load_serving(path)        # the card's program is not there
+        assert load_serving(path, "cpu").device.type == "cpu"
 
 
 def test_k1_design_ab_sums_and_imports():
@@ -222,5 +257,30 @@ def test_fp8_depth_witness_imports_and_needs_a_card():
     env["CUDA_VISIBLE_DEVICES"] = ""
     proc = subprocess.run([sys.executable, "scripts/fp8_depth_witness.py"],
                           cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 2, proc.stdout + proc.stderr
+
+
+def test_op_dispatch_ab_imports_and_needs_a_card():
+    """`scripts/op_dispatch_ab.py` and what it reaches import no JAX and,
+    without a card, it exits 2 before it times anything."""
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, 'scripts')\n"
+        "import op_dispatch_ab\n"
+        "import semisupervisedobjectdetection_torch.bench\n"
+        "import semisupervisedobjectdetection_torch.checkpoint."
+        "serving_export\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run([sys.executable, "scripts/op_dispatch_ab.py",
+                           "--root", ".", "--name", "this"], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 2, proc.stdout + proc.stderr

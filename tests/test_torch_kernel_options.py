@@ -63,16 +63,16 @@ def _attention_layers(model):
 
 def _attention_dtypes(model, x, monkeypatch):
     """The dtypes of the q tensors `model`'s SR-attention calls take in the
-    training steps' forward of `x` (NHWC float32), read in `SRAttention`'s
-    forward."""
+    training steps' forward of `x` (NHWC float32), read in the body of the
+    forward operator (`_forward`)."""
     seen = []
-    fwd = sra.SRAttention.forward
+    fwd = sra._forward
 
-    def record(ctx, q, k, v, num_heads):
+    def record(q, k, v, num_heads):
         seen.append(q.dtype)
-        return fwd(ctx, q, k, v, num_heads)
+        return fwd(q, k, v, num_heads)
 
-    monkeypatch.setattr(sra.SRAttention, "forward", staticmethod(record))
+    monkeypatch.setattr(sra, "_forward", record)
     with torch.no_grad():
         forward_masks(model, x)
     return seen

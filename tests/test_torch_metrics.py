@@ -77,9 +77,13 @@ def test_segmentation_loss_branches():
             float(jlosses.segmentation_loss(jnp.asarray(pred),
                                             jnp.asarray(gt), kind)),
             rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        losses.segmentation_loss(torch.from_numpy(pred),
-                                 torch.from_numpy(gt), "cross_entropy")
+    # the reference's 1 - CE branch, ported since (one class: CE is 0)
+    np.testing.assert_allclose(
+        float(losses.segmentation_loss(torch.from_numpy(pred),
+                                       torch.from_numpy(gt),
+                                       "cross_entropy")),
+        float(jlosses.segmentation_loss(jnp.asarray(pred), jnp.asarray(gt),
+                                        "cross_entropy")), rtol=1e-6)
     with pytest.raises(ValueError):
         losses.segmentation_loss(torch.from_numpy(pred),
                                  torch.from_numpy(gt), "l1")

@@ -262,7 +262,14 @@ def test_main_serves_a_port_checkpoint(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags", [["--artifact", "a.bin"]],
                          ids=["artifact"])
-def test_main_refuses_unported_serving(flags):
-    """Refused before any model is built, naming ROADMAP.md."""
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
+def test_main_refuses_unported_serving(flags, tmp_path, monkeypatch):
+    """--artifact, ported since, serves a file written by cli/export.py
+    (tests/test_torch_serving_export.py); a path that is no artifact is an
+    error, and no model is built in its place."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(serve, "_serve_until_signal", lambda srv: None)
+    with pytest.raises(FileNotFoundError):
+        serve.main(["--variant", "b0", "--device", "cpu"] + flags)
+    (tmp_path / "a.bin").write_bytes(b"not an artifact")
+    with pytest.raises(ValueError, match="not a serving artifact"):
         serve.main(["--variant", "b0", "--device", "cpu"] + flags)

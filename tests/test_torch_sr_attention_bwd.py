@@ -1,4 +1,6 @@
-"""The port's SR-attention backward (`sr_attention_bwd`, `SRAttention` in
+"""The port's SR-attention backward (`sr_attention_bwd`, the operator
+`ssod::sr_attention_bwd` registered as the gradient of
+`ssod::sr_attention_fwd` in
 `semisupervisedobjectdetection_torch/ops/sr_attention.py`) against the JAX
 package's: the Pallas backward `_backward` run in interpret mode and the
 XLA-einsum VJP `_xla_vjp_bwd`, on the same numpy inputs.
@@ -24,7 +26,6 @@ from semisupervisedobjectdetection_torch.ops.sr_attention import (
     F32_KEY_PASS_ROWS,
     F32_ROW_TILE,
     H100_SMS,
-    SRAttention,
     bwd_f32_key_work,
     bwd_f32_plan,
     bwd_launch_plan,
@@ -91,7 +92,8 @@ def test_backward_matches_jax_pallas_bf16():
 @pytest.mark.parametrize("b,nq,nk,c,h", [(2, 40, 9, 64, 2),
                                          (1, 33, 17, 64, 1)])
 def test_sr_attention_gradients_match_autograd_of_plain(b, nq, nk, c, h):
-    """`sr_attention` (through `SRAttention`) gives autograd's gradients
+    """`sr_attention` (through the operator `ssod::sr_attention_fwd`, whose
+    autograd kernel records `_SRAttentionGrad`) gives autograd's gradients
     of the plain forward on the CPU, in float32 (rounding-level)."""
     rng = np.random.default_rng(1)
     arrays = [rng.normal(size=(b, n, c)).astype(np.float32)
@@ -100,7 +102,7 @@ def test_sr_attention_gradients_match_autograd_of_plain(b, nq, nk, c, h):
     ours = [torch.from_numpy(a).requires_grad_() for a in arrays]
     plain = [torch.from_numpy(a.copy()).requires_grad_() for a in arrays]
     out = sr_attention(*ours, h)
-    assert out.grad_fn is not None and "SRAttention" in type(
+    assert out.grad_fn is not None and "_SRAttentionGrad" in type(
         out.grad_fn).__name__
     out.backward(g)
     sr_attention_reference(*plain, h).backward(g)
@@ -116,7 +118,7 @@ def test_cpu_calls_are_plain_and_not_counted():
     for a, r in zip(got, ref):
         torch.testing.assert_close(a, r, rtol=0, atol=0)
     qq = q.clone().requires_grad_()
-    SRAttention.apply(qq, k, v, H).sum().backward()
+    sr_attention(qq, k, v, H).sum().backward()
     assert (sr_attention.launches, sr_attention_bwd.launches) == before
 
 
